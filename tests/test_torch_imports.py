@@ -1,0 +1,76 @@
+"""The port stands alone: importing any of its modules loads neither jax
+nor the JAX package, and its entry points refuse to run quietly on the CPU
+when no GPU is present and none was asked for."""
+import os
+import pkgutil
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import repro_torch
+from repro_torch import resolve_device
+from repro_torch.bridge import params_from_jax
+from repro_torch.configs import get_reduced
+from repro_torch.models import build_model
+
+ROOT = Path(__file__).resolve().parents[1]
+PACKAGE = ROOT / "src" / "repro_torch"
+FORBIDDEN = re.compile(r"^\s*(import\s+(jax|repro)\b|from\s+(jax|repro)(\.|\s))",
+                       re.MULTILINE)
+
+
+def _modules():
+    return sorted(m.name for m in pkgutil.walk_packages(
+        repro_torch.__path__, prefix="repro_torch."))
+
+
+def test_importing_every_module_loads_neither_jax_nor_repro():
+    code = ("import importlib, sys\n"
+            f"for m in {_modules()!r}:\n"
+            "    importlib.import_module(m)\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'repro'))\n"
+            "print(len(sys.modules), bad)\n"
+            "sys.exit(1 if bad else 0)\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          env={**os.environ, "PYTHONPATH": str(ROOT / "src")},
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert len(_modules()) >= 20
+
+
+@pytest.mark.parametrize("path", sorted(
+    [p.relative_to(ROOT).as_posix() for p in PACKAGE.rglob("*.py")]
+    + ["chip_smoke.py"]))
+def test_sources_name_neither_jax_nor_repro(path):
+    src = (ROOT / path).read_text()
+    assert not FORBIDDEN.search(src), FORBIDDEN.search(src).group(0)
+
+
+def _build():
+    build_model(get_reduced("deit-tiny"))
+
+
+def _bridge():
+    params_from_jax({}, get_reduced("deit-tiny"))
+
+
+@pytest.mark.parametrize("entry", [resolve_device, _build, _bridge])
+def test_entry_points_raise_without_gpu(monkeypatch, entry):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        entry()
+
+
+def test_explicit_cpu_runs_on_cpu():
+    model = build_model(get_reduced("deit-tiny"), device="cpu")
+    params = model.init(torch.Generator().manual_seed(0))
+    images = torch.from_numpy(
+        np.random.default_rng(0).normal(size=(2, 32, 32, 3)).astype(np.float32))
+    logits = model.predict(params, {"images": images})
+    assert logits.device.type == "cpu" and logits.shape == (2, 10)
