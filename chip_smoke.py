@@ -1,14 +1,16 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (`src/repro_torch`) on one NVIDIA GPU.
 
-    python3 chip_smoke.py          # from the root of a checkout
+    python3 chip_smoke.py              # from the root of a checkout
+    python3 chip_smoke.py --profile    # and phase 5 as well
 
 It imports nothing of JAX and nothing of the JAX package, and fails
 (non-zero exit, no result line) on the first mismatch. In order:
 
-1. card and software: the card's name and power limit, torch and CUDA
-   versions; builds both CUDA kernels from `src/repro_torch/csrc` (one
-   nvcc process each, started together) and prints the build time;
+1. card and software: the card's name, power limit and driver, torch and
+   CUDA versions; builds both CUDA kernels from `src/repro_torch/csrc`
+   (one nvcc process each, started together), prints the build time and
+   which CUDA runtime libraries the process has mapped;
 2. kernel phase: each kernel against its plain PyTorch version on the
    card, at the main-path shapes and at ragged, masked, GQA and head-dim
    variants; the CKA kernel also for CKA(x, x) = 1 and for two launches
@@ -26,15 +28,19 @@ It imports nothing of JAX and nothing of the JAX package, and fails
 4. timing: each kernel, its plain version and (attention) PyTorch's
    `scaled_dot_product_attention` at the main-path shapes, with CUDA
    events after a warm-up, beside the bound the card's published peaks
-   set; and the slice's requests per second;
-5. profile: one more kernel run of the slice under torch.profiler, for
-   the device's busy share of its wall time and the kernels that fill it.
+   set for the least work the function needs; for CKA also the feature
+   form that `core/cka.py` takes without the kernel; and the slice's
+   requests per second;
+5. only with --profile: one more kernel run of the slice under
+   torch.profiler, for the device's busy share of its wall time and the
+   kernels that fill it.
 
 The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import json
 import math
@@ -51,6 +57,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch import tree_map  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.core.cka import cka_feature_form  # noqa: E402
 from repro_torch.core.simfreeze import SimFreeze, SimFreezeConfig  # noqa: E402
 from repro_torch.data.arrivals import build_timeline  # noqa: E402
 from repro_torch.data.streams import nc_benchmark  # noqa: E402
@@ -80,12 +87,19 @@ THRESHOLD = 0.01
 INFER_BATCH = 16
 
 
-def card_line() -> str:
+def card_line(query: str = "name,power.limit") -> str:
     out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60, check=True)
+        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+def mapped_cudart() -> list:
+    """The CUDA runtime libraries mapped into this process: one, torch's,
+    when the kernels' libraries share it."""
+    with open("/proc/self/maps") as f:
+        return sorted({line.split()[-1] for line in f
+                       if "libcudart" in line.split()[-1]})
 
 
 # ---------------------------------------------------------------------------
@@ -411,14 +425,23 @@ def timing_phase():
         "plain_ms": time_ms(lambda: cka_ops.cka_terms_plain(xc, yc)),
         "library_ms": None,
     }
-    flops = 2.0 * (d + d) * n * (n + 1) / 2  # upper triangle of both Grams
+    # the least work: the feature form, Y^T X and the upper triangles of
+    # X^T X and Y^T Y
+    flops = 2.0 * n * (d * d + d * (d + 1))
     nbytes = 4.0 * n * (d + d) + 4 * 3
     cka.update(bound(flops, nbytes))
+    # the kernel's own design tiles the upper triangle of both n x n Grams
+    design = bound(2.0 * (d + d) * n * (n + 1) / 2, nbytes)
+    feature_ms = time_ms(lambda: cka_feature_form(xc, yc, use_kernel=False))
     for name, t in (("flash_attention", att), ("cka_terms", cka)):
         lib = "n/a" if t["library_ms"] is None else f"{t['library_ms']:.4f}"
         print(f"  {name}: kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} "
               f"ms, library {lib} ms, bound {t['bound_ms']:.4f} ms "
               f"({t['bound_by']})")
+    print(f"  cka_terms: the plain feature form that core/cka.py takes "
+          f"without the kernel {feature_ms:.4f} ms; the limit of the "
+          f"kernel's example-form design only {design['bound_ms']:.4f} ms "
+          f"({design['bound_by']})")
     return att, cka
 
 
@@ -456,10 +479,14 @@ def bound(flops: float, nbytes: float) -> dict:
 
 
 def main() -> None:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--profile", action="store_true",
+                        help="also run phase 5 (torch.profiler)")
+    args = parser.parse_args()
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device available")
     card = card_line()
-    print(f"card: {card}")
+    print(f"card: {card}; driver {card_line('driver_version')}")
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"python {sys.version.split()[0]}, "
           f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
@@ -471,6 +498,9 @@ def main() -> None:
         for line in log.splitlines():
             if "registers" in line or "spill" in line or "smem" in line:
                 print(f"  {name}: {line.strip()}")
+    for name in ("flash_attention", "cka_terms"):
+        build.load(name)
+    print(f"  CUDA runtime mapped: {mapped_cudart()}")
 
     print("phase 2: kernels against their plain versions")
     att_err, cka_err = kernel_phase()
@@ -478,8 +508,9 @@ def main() -> None:
     launches = slice_phase(get_config("deit-tiny"))
     print("phase 4: timing at the main-path shapes (CUDA events)")
     att, cka = timing_phase()
-    print("phase 5: where the slice's time goes (torch.profiler)")
-    profile_phase(get_config("deit-tiny"))
+    if args.profile:
+        print("phase 5: where the slice's time goes (torch.profiler)")
+        profile_phase(get_config("deit-tiny"))
 
     record = {"kernels": [
         {"name": "flash_attention", "route": "cuda",

@@ -8,12 +8,16 @@
 // Gram matrices, never writing an n x n Gram to memory.
 //
 // What bounds it on this card: operations. At the DeiT-tiny main-path
-// shape (n = 16*197 = 3152, d = 192) the upper triangle of the two Grams
-// is n(n+1)/2 * 2 * (dx + dy) = 3.8 GFLOP of fp32 FMAs, against 4.8 MB
-// of input: 57 us at the published 67 TFLOP/s fp32 peak against 1.4 us
-// of memory at 3.35 TB/s. The products stay fp32 (no TF32): a freeze
-// decision compares CKA variations against a 1% threshold, and the
-// parity tolerance (rtol 1e-4) depends on full precision.
+// shape (n = 16*197 = 3152, d = 192) the function itself needs only the
+// feature form, Y^T X plus the upper triangles of X^T X and Y^T Y:
+// 2n(dx*dy + dx(dx+1)/2 + dy(dy+1)/2) = 0.47 GFLOP of fp32 FMAs, 7.0 us at
+// the published 67 TFLOP/s fp32 peak, against 4.8 MB of input, 1.4 us at
+// 3.35 TB/s. This kernel's example-form design does far more: the upper
+// triangle of the two n x n Grams is n(n+1)/2 * 2 * (dx + dy) = 3.8 GFLOP,
+// a limit of 57 us for this design only. The products stay fp32 (no
+// TF32): a freeze decision compares CKA variations against a 1%
+// threshold, and the parity tolerance (rtol 1e-4) depends on full
+// precision.
 //
 // Design: the TPU kernel walks an (n/bn)^2 x (d/bk) grid in order and
 // accumulates into one scalar; blocks on this card run in no order, so
@@ -29,9 +33,9 @@
 // for bit and a freeze decision replays exactly. Rows past n and
 // features past d are loaded as zeros, which leave every Gram entry
 // unchanged, so neither n nor d needs padding. Using the Gram's symmetry
-// halves the work. The feature form (three d x d Grams, 3 * 2 n d^2 =
-// 0.70 GFLOP here) would do 5.5x less than this kernel and 11x less than
-// the full example form; it is the lead for a later version.
+// halves the work. The feature form (three d x d Grams, 0.47 GFLOP here
+// with the same symmetry) would do 8x less than this kernel and 16x less
+// than the full example form; it is the lead for a later version.
 
 #include <cuda_runtime.h>
 

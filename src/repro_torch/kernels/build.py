@@ -23,10 +23,15 @@ from typing import Dict, Iterable
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
+# -cudart shared: the libraries link the CUDA runtime dynamically, so
+# loaded into a process that has imported torch they resolve to the
+# libcudart.so.12 torch already mapped, and one runtime owns the context
+# and the streams (the default static runtime would be a second copy).
 # -Xptxas -v: the compiler's report of registers, shared memory and
 # spills per kernel, which `build` returns for the caller to print
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-cudart", "shared",
+              "-Xptxas", "-v")
 
 # loaded libraries, one per source for the life of the process (ctypes
 # would map the same file once anyway)

@@ -10,13 +10,12 @@ column, channel) order of the JAX HWIO kernel (`bridge.py` reshapes it).
 """
 from __future__ import annotations
 
-import math
-
 import torch
 
 from repro_torch import tree_map
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.freeze_plan import maybe_stop
+from repro_torch.kernels.attention import ops as att_ops
 from repro_torch.models import common
 
 
@@ -25,23 +24,15 @@ def simple_mha(p, x, num_heads, causal=False, use_pallas=False):
 
     `use_pallas` routes the attention core through the flash-attention
     kernel (repro_torch.kernels.attention), as the JAX model routes it
-    through the Pallas kernel. Forward only: loss paths pass False."""
+    through the Pallas kernel; without it the core is the kernel's plain
+    version. Forward only: loss paths pass False."""
     B, S, D = x.shape
     hd = D // num_heads
     q = (x @ p["wq"] + p["bq"]).reshape(B, S, num_heads, hd)
     k = (x @ p["wk"] + p["bk"]).reshape(B, S, num_heads, hd)
     v = (x @ p["wv"] + p["bv"]).reshape(B, S, num_heads, hd)
-    if use_pallas:
-        from repro_torch.kernels.attention import ops as att_ops
-
-        o = att_ops.flash_attention(q, k, v, causal=causal).reshape(B, S, D)
-        return o @ p["wo"] + p["bo"]
-    s = torch.einsum("bqhk,bshk->bhqs", q, k) / math.sqrt(hd)
-    if causal:
-        mask = torch.tril(torch.ones((S, S), dtype=torch.bool, device=x.device))
-        s = torch.where(mask, s, torch.full_like(s, -1e30))
-    a = torch.softmax(s.float(), dim=-1).to(x.dtype)
-    o = torch.einsum("bhqs,bshk->bqhk", a, v).reshape(B, S, D)
+    attend = att_ops.flash_attention if use_pallas else att_ops.attention_plain
+    o = attend(q, k, v, causal=causal).to(x.dtype).reshape(B, S, D)
     return o @ p["wo"] + p["bo"]
 
 
