@@ -8,13 +8,13 @@ It imports nothing of JAX and nothing of the JAX package, and fails
 (non-zero exit, no result line) on the first mismatch. In order:
 
 1. card and software: the card's name, power limit and driver, torch and
-   CUDA versions; builds both CUDA kernels from `src/repro_torch/csrc`
+   CUDA versions; builds the three CUDA kernels from `src/repro_torch/csrc`
    (one nvcc process each, started together), prints the build time and
    which CUDA runtime libraries the process has mapped;
 2. kernel phase: each kernel against its plain PyTorch version on the
    card, at the main-path shapes and at ragged, masked, GQA and head-dim
-   variants; the CKA kernel also for CKA(x, x) = 1 and for two launches
-   that agree bit for bit;
+   variants; the CKA kernel also for CKA(x, x) = 1, and the CKA and WKV6
+   kernels for two launches that agree bit for bit;
 3. slice phase at full width: DeiT-tiny (`get_config("deit-tiny")`,
    224x224, 12 layers, d=192) with params from a seeded
    `torch.Generator`, serving every inference event of a
@@ -25,15 +25,27 @@ It imports nothing of JAX and nothing of the JAX package, and fails
    and CKA histories within the kernel tolerances, and the kernel run must
    have launched both kernels the expected number of times. Once more
    with coalesced serving (`batch_window` > 0): the same accuracies;
+   then rwkv6-3b serving at full width and depth (`get_config("rwkv6-3b")`,
+   32 layers, d=2560, bf16, 3.07e9 params from a seeded CUDA generator):
+   `ServeEngine.generate` on 4 prompts of 512 tokens for 16 greedy steps,
+   with the WKV6 kernel (`use_pallas`, 32 launches per prefill), timed,
+   and with the chunked closed form at chunk 32. The same pair runs again
+   in fp32 (12.3 GB): there its prefill logits must agree within 1e-3,
+   its tokens wherever the plain run's top-two margin exceeds 6e-2, and
+   a prefill of 511 tokens plus a decode of the 512th must match the
+   512-token prefill within 1e-3. The bf16 differences are printed, not
+   held: they exceed the 3e-2 limit (`rwkv_phase` says why);
 4. timing: each kernel, its plain version and (attention) PyTorch's
    `scaled_dot_product_attention` at the main-path shapes, with CUDA
    events after a warm-up, beside the bound the card's published peaks
    set for the least work the function needs; for CKA also the feature
-   form that `core/cka.py` takes without the kernel; and the slice's
-   requests per second;
-5. only with --profile: one more kernel run of the slice under
-   torch.profiler, for the device's busy share of its wall time and the
-   kernels that fill it.
+   form that `core/cka.py` takes without the kernel, for WKV6 also the
+   chunked form at chunk 32; the DeiT-tiny slice's requests per second
+   and rwkv6-3b's prefill and decode tokens per second;
+5. only with --profile: one more kernel run of each slice under
+   torch.profiler (the DeiT-tiny slice, one rwkv6-3b `generate`), for
+   the device's busy share of its wall time and the kernels that fill
+   it.
 
 The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``.
@@ -55,7 +67,7 @@ import torch.nn.functional as F
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
-from repro_torch import tree_map  # noqa: E402
+from repro_torch import tree_leaves, tree_map  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core.cka import cka_feature_form  # noqa: E402
 from repro_torch.core.simfreeze import SimFreeze, SimFreezeConfig  # noqa: E402
@@ -64,17 +76,28 @@ from repro_torch.data.streams import nc_benchmark  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.attention import ops as att_ops  # noqa: E402
 from repro_torch.kernels.cka import ops as cka_ops  # noqa: E402
+from repro_torch.kernels.rwkv import ops as wkv_ops  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
+from repro_torch.models.rwkv6 import wkv_chunked  # noqa: E402
 from repro_torch.runtime.costmodel import EdgeCostModel  # noqa: E402
 from repro_torch.runtime.inference import InferenceServer  # noqa: E402
 from repro_torch.runtime.ledger import CostLedger  # noqa: E402
 from repro_torch.runtime.scheduler import EventScheduler  # noqa: E402
+from repro_torch.runtime.serve import ServeEngine  # noqa: E402
 from repro_torch.runtime.train_loop import as_tensor  # noqa: E402
 
 # kernel tolerances, as tests/test_kernels.py holds the Pallas kernels
 ATT_RTOL, ATT_ATOL = 2e-4, 2e-5
 CKA_RTOL = 1e-4
 CKA_HISTORY_ATOL = 1e-4
+WKV_RTOL = WKV_ATOL = 1e-4
+# rwkv6-3b logits: the JAX package's prefill/decode tolerance in bf16
+# (tests/test_models.py:83-84)
+LM_TOL = 3e-2
+# generated tokens must agree where the plain run's top-two logit margin
+# exceeds this
+MARGIN = 6e-2
+KERNELS = ("flash_attention", "cka_terms", "wkv6")
 # published peaks of one H100 SXM (NVIDIA data sheet): fp32 on the CUDA
 # cores and HBM3 bandwidth
 PEAK_FP32_FLOPS = 67e12
@@ -83,6 +106,12 @@ PEAK_BYTES = 3.35e12
 # 16-image batch; the CKA probe flattens [16, 197, 192] to 3152 x 192
 MAIN_ATT = (16, 197, 3, 64)
 MAIN_CKA = (16 * 197, 192)
+# rwkv6-3b prefill: 4 prompts of 512 tokens, 40 heads of 64
+MAIN_WKV = (4, 512, 40, 64)
+DECODE_STEPS = 16
+# the rwkv6-3b kernel/plain pair and prefill/decode check, run in fp32
+# (rwkv_phase says why)
+PAIR_TOL = 1e-3
 THRESHOLD = 0.01
 INFER_BATCH = 16
 
@@ -145,6 +174,31 @@ def check_cka(gen, n, dx, dy) -> float:
     return err
 
 
+def _wkv_inputs(gen, B, T, H, n):
+    """r, k, v standard normal; log-decay drawn like the model's at init
+    (-0.3 to -0.45 per token); bonus u at its init scale."""
+    r, k, v = (torch.randn((B, T, H, n), generator=gen).cuda()
+               for _ in range(3))
+    logw = -(0.3 + 0.15 * torch.rand((B, T, H, n), generator=gen)).cuda()
+    u = (0.3 * torch.randn((H, n), generator=gen)).cuda()
+    return r, k, v, logw, u
+
+
+def check_wkv(gen, B, T, H, n, *, with_s0=False) -> float:
+    inputs = _wkv_inputs(gen, B, T, H, n)
+    s0 = (0.1 * torch.randn((B, H, n, n), generator=gen)).cuda() \
+        if with_s0 else None
+    o, s = wkv_ops.wkv(*inputs, s0=s0, return_state=True)
+    want_o, want_s = wkv_ops.wkv_plain(*inputs, s0=s0)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(o, want_o, rtol=WKV_RTOL, atol=WKV_ATOL)
+    torch.testing.assert_close(s, want_s, rtol=WKV_RTOL, atol=WKV_ATOL)
+    err = max(float((o - want_o).abs().max()), float((s - want_s).abs().max()))
+    print(f"  wkv6 B{B} T{T} H{H} n{n} s0={with_s0}: max_abs_err {err:.3g} "
+          f"(o and final state; max |o| {float(want_o.abs().max()):.3g})")
+    return err
+
+
 def kernel_phase():
     gen = torch.Generator().manual_seed(1234)
     B, S, H, hd = MAIN_ATT
@@ -173,7 +227,17 @@ def kernel_phase():
     if not torch.equal(first, second):
         raise AssertionError(f"two CKA launches differ: {first} {second}")
     print(f"  cka(x, x) = {one!r}; two launches agree bit for bit")
-    return att_err, cka_err
+
+    wkv_err = check_wkv(gen, *MAIN_WKV)  # main path
+    check_wkv(gen, 1, 50, 4, 16)  # ragged T, the reduced head size
+    check_wkv(gen, 2, 130, 3, 32, with_s0=True)
+    inputs = _wkv_inputs(gen, *MAIN_WKV)
+    first = wkv_ops.wkv(*inputs, return_state=True)
+    second = wkv_ops.wkv(*inputs, return_state=True)
+    if not all(torch.equal(a, b) for a, b in zip(first, second)):
+        raise AssertionError("two WKV6 launches differ")
+    print("  wkv6: two launches agree bit for bit (o and final state)")
+    return att_err, cka_err, wkv_err
 
 
 # ---------------------------------------------------------------------------
@@ -328,14 +392,13 @@ def slice_setup(cfg):
 def slice_phase(cfg):
     kmodel, pmodel, common = slice_setup(cfg)
 
-    att_ops.flash_attention.launches = cka_ops.cka_terms.launches = 0
+    zero_launches()
     kern = run_slice(kmodel, *common, use_kernel=True)
-    launches = {"flash_attention": att_ops.flash_attention.launches,
-                "cka_terms": cka_ops.cka_terms.launches}
+    launches = read_launches()
 
-    att_ops.flash_attention.launches = cka_ops.cka_terms.launches = 0
+    zero_launches()
     plain = run_slice(pmodel, *common, use_kernel=False)
-    if att_ops.flash_attention.launches or cka_ops.cka_terms.launches:
+    if any(read_launches().values()):
         raise AssertionError("the plain run launched a kernel")
     window = run_slice(kmodel, *common, use_kernel=True, batch_window=15.0)
 
@@ -350,7 +413,8 @@ def slice_phase(cfg):
           f"(expected {L + 1} x {kern['passes']})")
     if launches["flash_attention"] != L * forwards or \
             launches["cka_terms"] != (L + 1) * kern["passes"] or \
-            not all(launches.values()):
+            not (launches["flash_attention"] and launches["cka_terms"]) or \
+            launches["wkv6"]:
         raise AssertionError(f"unexpected launch counts {launches}")
     if kern["accs"] != plain["accs"]:
         raise AssertionError("per-request accuracies differ from the plain run")
@@ -380,6 +444,172 @@ def slice_phase(cfg):
           f"({rps:.2f} requests/s, probes included), plain "
           f"{plain['wall_s']:.3f} s")
     return launches
+
+
+def zero_launches() -> None:
+    att_ops.flash_attention.launches = cka_ops.cka_terms.launches = 0
+    wkv_ops.wkv.launches = 0
+
+
+def read_launches() -> dict:
+    return {"flash_attention": att_ops.flash_attention.launches,
+            "cka_terms": cka_ops.cka_terms.launches,
+            "wkv6": wkv_ops.wkv.launches}
+
+
+def timed(fn, spans):
+    """`fn` with a pair of CUDA events recorded around every call."""
+    def call(*args):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn(*args)
+        end.record()
+        spans.append((start, end))
+        return out
+    return call
+
+
+def serve(model, params, prompts):
+    """One `ServeEngine.generate` call: tokens [B, steps], the logits that
+    chose them [B, steps, V], and the kernels it launched."""
+    zero_launches()
+    tokens, logits = ServeEngine(model, max_len=prompts.shape[1]
+                                 + DECODE_STEPS).generate(
+        params, prompts, steps=DECODE_STEPS, return_logits=True)
+    torch.cuda.synchronize()
+    if not np.isfinite(logits).all() or \
+            logits.shape != (*prompts.shape[:1], DECODE_STEPS,
+                             model.cfg.vocab_size):
+        raise AssertionError(f"bad logits: shape {logits.shape}")
+    return tokens, logits, read_launches()
+
+
+def agree_on_tokens(kern, plain, plain_logits):
+    """Steps at which the two runs must pick the same token: those where
+    the plain run's top-two logit margin exceeds MARGIN, in each row up to
+    the first step where the runs, at a closer margin, picked differently
+    (after it their inputs differ). Raises on a disagreement; returns
+    (steps compared, steps whose margin was too close)."""
+    top2 = np.sort(plain_logits, axis=-1)[..., -2:]
+    margin = top2[..., 1] - top2[..., 0]
+    compared = close = 0
+    for b in range(kern.shape[0]):
+        for t in range(kern.shape[1]):
+            if margin[b, t] <= MARGIN:
+                close += 1
+                if kern[b, t] != plain[b, t]:
+                    break
+                continue
+            if kern[b, t] != plain[b, t]:
+                raise AssertionError(
+                    f"row {b} step {t}: token {kern[b, t]} against the plain "
+                    f"run's {plain[b, t]} at margin {margin[b, t]:.3g}")
+            compared += 1
+    return compared, close
+
+
+def lm_close(name, got, want, tol) -> None:
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    err = float(np.abs(got - want).max())
+    print(f"  {name}: max_abs_err {err:.4g} (limit rtol = atol = {tol:g}; "
+          f"max |logit| {np.abs(want).max():.4g})")
+    np.testing.assert_allclose(got, want, rtol=tol, atol=tol, err_msg=name)
+
+
+def rwkv_model(cfg, **kw):
+    """The model of `cfg` (with `kw` replaced) and its params, drawn on the
+    card from seed 0."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = build_model(cfg.replace(**kw))
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    print(f"  {cfg.name} {model.cfg.param_dtype}: "
+          f"{sum(t.numel() for t in tree_leaves(params)) / 1e9:.4g}e9 params, "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card, "
+          f"drawn in {time.perf_counter() - t0:.2f} s")
+    return model, params
+
+
+def consistency(model, params, prompts):
+    """Logits of a decode of the last prompt token after a prefill of the
+    others: they must be those of the full prefill (the final state the
+    WKV route hands over is the decode cache)."""
+    tokens = torch.as_tensor(prompts, device=model.device)
+    _, cache = model.prefill(params, {"tokens": tokens[:, :-1]})
+    dec, _ = model.decode(params, tokens[:, -1:], cache, tokens.shape[1] - 1)
+    return dec.float().cpu().numpy()
+
+
+def rwkv_phase(cfg):
+    """rwkv6-3b serving at full width through `ServeEngine.generate`.
+
+    The bf16 kernel run is the main path: its launches and timings are
+    the ones reported. The checks against the plain run (chunked form at
+    chunk 32) and of prefill/decode consistency run in fp32 within 1e-3:
+    in bf16 a one-ulp flip of an activation's rounding compounds over the
+    32 layers, and both bf16 differences exceed the 3e-2 limit (printed
+    beside it, not held; PERF.md)."""
+    L = cfg.num_layers
+    B, S = MAIN_WKV[:2]
+    prompts = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (B, S)).astype(np.int32)
+
+    kmodel, params = rwkv_model(cfg, use_pallas=True)
+    kern_tok, kern_logits, launches = serve(kmodel, params, prompts)
+    print(f"  kernel run: {launches}")
+    if launches != {"flash_attention": 0, "cka_terms": 0, "wkv6": L}:
+        raise AssertionError(f"expected {L} wkv6 launches, one per layer of "
+                             f"the prefill; got {launches}")
+    spans = {"prefill": [], "decode": []}
+    tmodel = dataclasses.replace(
+        kmodel, prefill=timed(kmodel.prefill, spans["prefill"]),
+        decode=timed(kmodel.decode, spans["decode"]))
+    again, _, _ = serve(tmodel, params, prompts)
+    if not np.array_equal(again, kern_tok):
+        raise AssertionError("a repeat of the kernel run chose other tokens")
+    prefill_s = sum(a.elapsed_time(b) for a, b in spans["prefill"]) / 1e3
+    decode_s = sum(a.elapsed_time(b) for a, b in spans["decode"]) / 1e3
+    print(f"  kernel run timed (CUDA events around each call): prefill "
+          f"{prefill_s * 1e3:.2f} ms ({B * S / prefill_s:.0f} tokens/s), "
+          f"decode {decode_s * 1e3 / DECODE_STEPS:.2f} ms per step "
+          f"({B * DECODE_STEPS / decode_s:.1f} tokens/s)")
+    pmodel = build_model(kmodel.cfg.replace(use_pallas=False, ssm_chunk=32))
+    plain_tok, plain_logits, plain_launches = serve(pmodel, params, prompts)
+    if any(plain_launches.values()):
+        raise AssertionError(f"the plain run launched {plain_launches}")
+    bf16_pair = float(np.abs(kern_logits[:, 0] - plain_logits[:, 0]).max())
+    bf16_dec = float(np.abs(consistency(kmodel, params, prompts)
+                            - kern_logits[:, 0]).max())
+    print(f"  bf16, not held: prefill logits kernel against plain max_abs_err "
+          f"{bf16_pair:.4g}, decode after prefill against prefill "
+          f"{bf16_dec:.4g} (limit {LM_TOL:g}); "
+          f"{int((kern_tok == plain_tok).sum())} of {kern_tok.size} tokens "
+          f"equal")
+    del params
+    torch.cuda.empty_cache()
+
+    kmodel, params = rwkv_model(cfg, use_pallas=True, dtype="float32",
+                                param_dtype="float32")
+    kern_tok, kern_logits, _ = serve(kmodel, params, prompts)
+    pmodel = build_model(kmodel.cfg.replace(use_pallas=False, ssm_chunk=32))
+    plain_tok, plain_logits, plain_launches = serve(pmodel, params, prompts)
+    if any(plain_launches.values()):
+        raise AssertionError(f"the plain run launched {plain_launches}")
+    lm_close("fp32 prefill logits, kernel against plain (chunk 32)",
+             kern_logits[:, 0], plain_logits[:, 0], PAIR_TOL)
+    compared, close = agree_on_tokens(kern_tok, plain_tok, plain_logits)
+    print(f"  fp32 tokens: the runs agree at all {compared} steps whose "
+          f"margin exceeds {MARGIN:g} ({close} steps closer; "
+          f"{int((kern_tok == plain_tok).sum())} of {kern_tok.size} equal)")
+    lm_close(f"fp32 decode of token {S} after a {S - 1}-token prefill, "
+             f"against the {S}-token prefill",
+             consistency(kmodel, params, prompts),
+             kern_logits[:, 0], PAIR_TOL)
+    del params
+    torch.cuda.empty_cache()
+    return launches["wkv6"]
 
 
 # ---------------------------------------------------------------------------
@@ -442,18 +672,54 @@ def timing_phase():
           f"without the kernel {feature_ms:.4f} ms; the limit of the "
           f"kernel's example-form design only {design['bound_ms']:.4f} ms "
           f"({design['bound_by']})")
-    return att, cka
+
+    B, T, H, n = MAIN_WKV
+    r, k, v, logw, u = _wkv_inputs(gen, B, T, H, n)
+    wkv = {
+        "ms": time_ms(lambda: wkv_ops.wkv(r, k, v, logw, u,
+                                          return_state=True)),
+        "plain_ms": time_ms(lambda: wkv_ops.wkv_plain(r, k, v, logw, u),
+                            iters=3, warmup=1),
+        "library_ms": None,
+    }
+    # r, k, v, logw read and o written once, u read, the final state
+    # written; ~5n^2 operations per token and head: r.S (2n^2), the decay
+    # of S and the outer product k^T v added to it (3n^2)
+    nbytes = 4.0 * (5 * B * T * H * n + H * n + B * H * n * n)
+    wkv.update(bound(5.0 * n * n * B * T * H, nbytes))
+    chunked_ms = time_ms(lambda: wkv_chunked(r, k, v, logw, u, chunk=32),
+                         iters=10, warmup=2)
+    print(f"  wkv6: kernel {wkv['ms']:.4f} ms, plain {wkv['plain_ms']:.4f} "
+          f"ms, library none, bound {wkv['bound_ms']:.4f} ms "
+          f"({wkv['bound_by']}); the chunked form at chunk 32 "
+          f"{chunked_ms:.4f} ms")
+    return att, cka, wkv
 
 
-def profile_phase(cfg) -> None:
-    """One more kernel run of the slice under torch.profiler: the device's
-    busy share of the run's wall time and the kernels that fill it."""
+def profile_phase(deit, rwkv) -> None:
+    """One more kernel run of each slice under torch.profiler: the
+    device's busy share of the run's wall time and the kernels that fill
+    it. For rwkv6-3b, one `ServeEngine.generate` call in bf16."""
+    kmodel, _, common = slice_setup(deit)
+    report_profile(deit.name, lambda: run_slice(kmodel, *common,
+                                                use_kernel=True))
+    kmodel, params = rwkv_model(rwkv, use_pallas=True)
+    prompts = np.random.default_rng(0).integers(
+        0, rwkv.vocab_size, MAIN_WKV[:2]).astype(np.int32)
+    serve(kmodel, params, prompts)  # warm-up outside the profiled window
+    report_profile(rwkv.name, lambda: serve(kmodel, params, prompts))
+
+
+def report_profile(name, run) -> None:
     from torch.profiler import ProfilerActivity, profile
 
-    kmodel, _, common = slice_setup(cfg)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        res = run_slice(kmodel, *common, use_kernel=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
     # device-side rows only (kernels, copies): operator rows repeat the
     # time of the kernels they launched
     rows = sorted(((e.self_device_time_total, e.key, e.count)
@@ -462,14 +728,15 @@ def profile_phase(cfg) -> None:
                    and e.self_device_time_total > 0), reverse=True)
     busy_us = sum(r[0] for r in rows)
     if not busy_us:
-        print("  the profiler recorded no device time: busy share not measured")
+        print(f"  {name}: the profiler recorded no device time: busy share "
+              f"not measured")
         return
-    print(f"  under the profiler: wall {res['wall_s']:.3f} s, device busy "
-          f"{busy_us / 1e6:.4f} s ({100 * busy_us / 1e6 / res['wall_s']:.1f}% "
-          f"of wall)")
-    for us, name, count in rows[:8]:
+    print(f"  {name} under the profiler: wall {wall:.3f} s, device busy "
+          f"{busy_us / 1e6:.4f} s ({100 * busy_us / 1e6 / wall:.1f}% of "
+          f"wall), {sum(r[2] for r in rows)} device kernels and copies")
+    for us, key, count in rows[:8]:
         print(f"    {us / 1e3:9.3f} ms {100 * us / busy_us:5.1f}% x{count:<5d} "
-              f"{name[:90]}")
+              f"{key[:90]}")
 
 
 def bound(flops: float, nbytes: float) -> dict:
@@ -491,26 +758,29 @@ def main() -> None:
           f"python {sys.version.split()[0]}, "
           f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
     t0 = time.perf_counter()
-    reports = build.build(["flash_attention", "cka_terms"])
+    reports = build.build(KERNELS)
     print(f"phase 1: built {sorted(reports) or 'nothing (cached)'} in "
           f"{time.perf_counter() - t0:.1f} s")
     for name, log in reports.items():
         for line in log.splitlines():
             if "registers" in line or "spill" in line or "smem" in line:
                 print(f"  {name}: {line.strip()}")
-    for name in ("flash_attention", "cka_terms"):
+    for name in KERNELS:
         build.load(name)
     print(f"  CUDA runtime mapped: {mapped_cudart()}")
 
     print("phase 2: kernels against their plain versions")
-    att_err, cka_err = kernel_phase()
+    att_err, cka_err, wkv_err = kernel_phase()
     print("phase 3: DeiT-tiny serving and SimFreeze probes at full width")
     launches = slice_phase(get_config("deit-tiny"))
+    print("phase 3: rwkv6-3b serving at full width and depth")
+    rwkv = get_config("rwkv6-3b")
+    launches["wkv6"] = rwkv_phase(rwkv)
     print("phase 4: timing at the main-path shapes (CUDA events)")
-    att, cka = timing_phase()
+    att, cka, wkv = timing_phase()
     if args.profile:
-        print("phase 5: where the slice's time goes (torch.profiler)")
-        profile_phase(get_config("deit-tiny"))
+        print("phase 5: where the slices' time goes (torch.profiler)")
+        profile_phase(get_config("deit-tiny"), rwkv)
 
     record = {"kernels": [
         {"name": "flash_attention", "route": "cuda",
@@ -522,6 +792,10 @@ def main() -> None:
          "source": "src/repro_torch/csrc/cka_terms.cu",
          "replaces": "src/repro/kernels/cka/kernel.py:56",
          "launches": launches["cka_terms"], "max_abs_err": cka_err, **cka},
+        {"name": "wkv6", "route": "cuda",
+         "source": "src/repro_torch/csrc/wkv6.cu",
+         "replaces": "src/repro/kernels/rwkv/kernel.py:58",
+         "launches": launches["wkv6"], "max_abs_err": wkv_err, **wkv},
     ]}
     print(card)
     print(json.dumps(record))

@@ -6,10 +6,12 @@ module here has a counterpart there (`repro_torch.models.vit` ports
 jax and nothing of `repro`; what it needs of the jax-free modules there,
 it keeps as its own copy.
 
-The two TPU kernels on the serving and probe path are hand-written CUDA
-kernels for Hopper (`csrc/`), each beside a plain PyTorch version of the
-same function in its wrapper module (`kernels/attention/ops.py`,
-`kernels/cka/ops.py`).
+The repo's three TPU kernels are hand-written CUDA kernels for Hopper
+(`csrc/`), each beside a plain PyTorch version of the same function in
+its wrapper module: flash attention (`kernels/attention/ops.py`) and the
+CKA Gram terms (`kernels/cka/ops.py`) on DeiT-tiny serving and the
+SimFreeze probe, and the WKV6 recurrence (`kernels/rwkv/ops.py`) on
+rwkv6-3b serving (`models/rwkv6.py`, `runtime/serve.py`).
 
 Entry points run on CUDA unless the caller passes ``device="cpu"``; with
 no GPU and no explicit request they raise (`resolve_device`).
@@ -37,6 +39,15 @@ def resolve_device(device=None) -> torch.device:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
     return device
+
+
+def tree_leaves(tree) -> list:
+    """The leaves of a params tree of nested dicts and lists, in order."""
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in tree_leaves(v)]
+    if isinstance(tree, (list, tuple)):
+        return [t for v in tree for t in tree_leaves(v)]
+    return [tree]
 
 
 def tree_map(fn, tree):

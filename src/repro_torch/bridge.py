@@ -1,30 +1,57 @@
-"""Carry the JAX package's ViT params across to the port.
+"""Carry the JAX package's params across to the port.
 
-`params_from_jax` takes the params tree of `repro.models.vit.init_vit` as
-nested dicts and lists of **numpy** arrays (for example
+`params_from_jax` takes a params tree of the JAX package as nested dicts,
+lists and tuples of **numpy** arrays (for example
 ``jax.tree.map(np.asarray, params)``), so JAX is never needed where the
 port runs. The port keeps the JAX layouts — dense weights [in, out] used
-as ``x @ W`` — so every leaf crosses unchanged except the patch embed: its
-HWIO kernel (p, p, 3, d) becomes the [p*p*3, d] matrix of the port's
-patch reshape (repro_torch.models.vit.patches), whose (row, column,
-channel) order is the HWIO order.
+as ``x @ W`` — so leaves cross unchanged, except:
+
+- ViT: every leaf becomes fp32, and the patch embed's HWIO kernel
+  (p, p, 3, d) becomes the [p*p*3, d] matrix of the port's patch reshape
+  (repro_torch.models.vit.patches), whose (row, column, channel) order is
+  the HWIO order.
+- LMs: each leaf keeps its own dtype (the rwkv init mixes fp32 and
+  `param_dtype` leaves), and the blocks, which JAX stacks along a leading
+  group axis [G, ...] (``scan_layers``) or keeps as per-group lists, become
+  the port's list of per-layer dicts.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from repro_torch import resolve_device, tree_map
+from repro_torch import resolve_device, tree_leaves, tree_map
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.vit import patch_size
 
 
+def from_numpy(tree, device):
+    """A tree of numpy arrays as tensors on `device`, each in its own
+    dtype. numpy has no bfloat16 of its own: a JAX bf16 array arrives as
+    an ml_dtypes bfloat16 array, which torch rejects, so it crosses as
+    fp32 and is rounded back to bf16 in torch (exact both ways)."""
+    def leaf(a):
+        a = np.asarray(a)
+        if a.dtype.name == "bfloat16":
+            return torch.from_numpy(a.astype(np.float32)).to(
+                device=device, dtype=torch.bfloat16)
+        return torch.from_numpy(np.array(a)).to(device)
+
+    return tree_map(leaf, tree)
+
+
 def params_from_jax(tree: dict, cfg: ModelConfig, device=None) -> dict:
-    """The port's ViT params on `device` from a JAX ViT params tree of
-    numpy arrays. Raises if the tree does not fit `cfg`."""
+    """The port's params on `device` from a JAX params tree of numpy
+    arrays. Raises if the tree does not fit `cfg`."""
     device = resolve_device(device)
-    if cfg.family != "vit":
-        raise NotImplementedError(f"no bridge for {cfg.family!r} params yet")
+    if cfg.family == "vit":
+        return _vit_params(tree, cfg, device)
+    if cfg.is_lm:
+        return _lm_params(tree, cfg, device)
+    raise NotImplementedError(f"no bridge for {cfg.family!r} params yet")
+
+
+def _vit_params(tree: dict, cfg: ModelConfig, device) -> dict:
     p, d = patch_size(cfg), cfg.d_model
     w = np.asarray(tree["patch"]["w"])
     if w.shape != (p, p, 3, d) or len(tree["blocks"]) != cfg.num_layers:
@@ -34,3 +61,24 @@ def params_from_jax(tree: dict, cfg: ModelConfig, device=None) -> dict:
                                           device=device), tree)
     out["patch"]["w"] = out["patch"]["w"].reshape(p * p * 3, d)
     return out
+
+
+def _lm_params(tree: dict, cfg: ModelConfig, device) -> dict:
+    offsets = tree["blocks"]  # one entry per layer offset within a group
+    g = len(offsets)
+    if isinstance(offsets[0], dict):  # stacked: leaves [G, ...]
+        G = len(np.asarray(tree_leaves(offsets[0])[0]))
+        per_group = [[tree_map(lambda a, gi=gi: np.asarray(a)[gi], offsets[o])
+                      for o in range(g)] for gi in range(G)]
+    else:  # unrolled: offsets[o][gi]
+        per_group = [[offsets[o][gi] for o in range(g)]
+                     for gi in range(len(offsets[0]))]
+    blocks = [blk for group in per_group for blk in group]
+    if len(blocks) != cfg.num_layers or \
+            np.asarray(tree["embed"]["tok"]).shape != (cfg.vocab_size,
+                                                      cfg.d_model):
+        raise ValueError(f"params do not fit {cfg.name}: {len(blocks)} "
+                         f"layers, token table "
+                         f"{np.asarray(tree['embed']['tok']).shape}")
+    rest = {k: v for k, v in tree.items() if k != "blocks"}
+    return {**from_numpy(rest, device), "blocks": from_numpy(blocks, device)}

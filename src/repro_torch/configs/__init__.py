@@ -1,10 +1,11 @@
-"""Config registry for the paper models: ``get_config(name)`` (full size)
-and ``get_reduced(name)`` (CPU-runnable)."""
+"""Config registry for the paper models and the ported LMs:
+``get_config(name)`` (full size) and ``get_reduced(name)``
+(CPU-runnable)."""
 from __future__ import annotations
 
 from typing import Dict
 
-from repro_torch.configs import paper_models
+from repro_torch.configs import paper_models, rwkv6_3b
 from repro_torch.configs.base import ModelConfig
 
 PAPER_MODELS: Dict[str, ModelConfig] = {
@@ -14,24 +15,31 @@ PAPER_MODELS: Dict[str, ModelConfig] = {
     "bert-base": paper_models.BERT_BASE,
 }
 
-_PAPER_REDUCED = {
+# the LM architectures ported so far (of the JAX package's ten)
+LM_MODELS: Dict[str, ModelConfig] = {
+    "rwkv6-3b": rwkv6_3b.CONFIG,
+}
+
+_REDUCED = {
     "resnet50": paper_models.resnet_reduced,
     "mobilenetv2": paper_models.mobilenet_reduced,
     "deit-tiny": paper_models.deit_reduced,
     "bert-base": paper_models.bert_reduced,
+    "rwkv6-3b": rwkv6_3b.reduced,
 }
 
 
 def get_config(name: str) -> ModelConfig:
-    if name in PAPER_MODELS:
-        return PAPER_MODELS[name]
-    raise KeyError(f"unknown model {name!r}; known: {sorted(PAPER_MODELS)}")
+    known = {**PAPER_MODELS, **LM_MODELS}
+    if name in known:
+        return known[name]
+    raise KeyError(f"unknown model {name!r}; known: {sorted(known)}")
 
 
 def get_reduced(name: str) -> ModelConfig:
-    if name in _PAPER_REDUCED:
-        return _PAPER_REDUCED[name]()
-    raise KeyError(f"unknown model {name!r}; known: {sorted(_PAPER_REDUCED)}")
+    if name in _REDUCED:
+        return _REDUCED[name]()
+    raise KeyError(f"unknown model {name!r}; known: {sorted(_REDUCED)}")
 
 
-__all__ = ["ModelConfig", "PAPER_MODELS", "get_config", "get_reduced"]
+__all__ = ["LM_MODELS", "ModelConfig", "PAPER_MODELS", "get_config", "get_reduced"]

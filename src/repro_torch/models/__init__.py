@@ -24,7 +24,10 @@ class Model:
     init: Callable                      # (generator) -> params on `device`
     loss: Callable                      # (params, batch, plan) -> (loss, metrics)
     features: Callable                  # (params, batch) -> list of activations
-    num_freeze_units: int               # one per unrolled layer
+    num_freeze_units: int               # one per unrolled layer (LMs: group)
+    prefill: Optional[Callable] = None  # LMs: (params, batch) -> (logits, cache)
+    decode: Optional[Callable] = None   # LMs: (params, tokens, cache, pos) -> (logits, cache)
+    init_cache: Optional[Callable] = None  # LMs: (batch, max_len, dtype) -> cache
     predict: Optional[Callable] = None  # classifiers: (params, batch) -> logits
 
 
@@ -32,6 +35,10 @@ def build_model(cfg: ModelConfig, device=None) -> Model:
     """The model of `cfg` on `device` (CUDA unless the caller passes
     another; raises when no GPU is present and none was named)."""
     device = resolve_device(device)
+    if cfg.is_lm:
+        from repro_torch.models import transformer
+
+        return transformer.build(cfg, device)
     if cfg.family == "vit":
         from repro_torch.models import vit
 

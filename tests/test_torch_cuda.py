@@ -10,6 +10,7 @@ import torch
 
 from repro_torch.kernels.attention import ops as att_ops
 from repro_torch.kernels.cka import ops as cka_ops
+from repro_torch.kernels.rwkv import ops as wkv_ops
 
 pytestmark = pytest.mark.cuda
 
@@ -82,3 +83,39 @@ def test_cka_kernel_is_deterministic_and_one_on_itself(gen):
     assert torch.equal(torch.stack(cka_ops.cka_terms(x, y)),
                        torch.stack(cka_ops.cka_terms(x, y)))
     assert abs(float(cka_ops.cka(x, x)) - 1.0) < 1e-5
+
+
+def _wkv_inputs(gen, B, T, H, n):
+    r, k, v = (_randn(gen, (B, T, H, n)) for _ in range(3))
+    logw = -(0.3 + 0.15 * torch.rand((B, T, H, n), generator=gen)).cuda()
+    return r, k, v, logw, (0.3 * torch.randn((H, n), generator=gen)).cuda()
+
+
+@pytest.mark.parametrize("B,T,H,n", [
+    (4, 512, 40, 64),   # rwkv6-3b prefill
+    (1, 50, 4, 16),     # ragged T, reduced head size
+    (2, 130, 3, 32),
+    (2, 1, 2, 64),
+])
+def test_wkv_kernel_matches_plain(gen, B, T, H, n):
+    inputs = _wkv_inputs(gen, B, T, H, n)
+    s0 = 0.1 * _randn(gen, (B, H, n, n))
+    before = wkv_ops.wkv.launches
+    o, s = wkv_ops.wkv(*inputs, s0=s0, return_state=True)
+    want_o, want_s = wkv_ops.wkv_plain(*inputs, s0=s0)
+    torch.cuda.synchronize()
+    assert wkv_ops.wkv.launches == before + 1
+    torch.testing.assert_close(o, want_o, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(s, want_s, rtol=1e-4, atol=1e-4)
+
+
+def test_wkv_kernel_is_deterministic(gen):
+    inputs = _wkv_inputs(gen, 4, 512, 40, 64)
+    first = wkv_ops.wkv(*inputs, return_state=True)
+    second = wkv_ops.wkv(*inputs, return_state=True)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+def test_wkv_kernel_rejects_unsupported_head_size(gen):
+    with pytest.raises(ValueError, match="head sizes"):
+        wkv_ops.wkv(*_wkv_inputs(gen, 1, 8, 2, 48))

@@ -1,0 +1,429 @@
+"""rwkv6 serving in the port against the JAX package, on the CPU at small
+sizes: the WKV6 plain version against the Pallas kernel (interpret mode)
+and its oracle, the chunked closed form, the time-mix and channel-mix
+blocks, the LM functions and `ServeEngine.generate`. Inputs are numpy
+arrays from a seed; params are JAX's, carried across by
+`repro_torch.bridge.params_from_jax`.
+
+Tolerances: WKV rtol/atol 1e-4 (those of tests/test_kernels.py for the
+Pallas kernel against its oracle); fp32 model outputs 1e-4; bf16 model
+logits 3e-2 (tests/test_models.py's prefill/decode tolerance), since the
+two frameworks round bf16 matmuls in other places.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_reduced as jax_get_reduced
+from repro.kernels.rwkv import ops as jax_wkv_ops
+from repro.kernels.rwkv import ref as jax_wkv_ref
+from repro.models import build_model as jax_build_model
+from repro.models import rwkv6 as jax_rwkv6
+from repro.runtime.serve import ServeEngine as JaxServeEngine
+from repro_torch import tree_leaves
+from repro_torch.bridge import from_numpy, params_from_jax
+from repro_torch.configs import get_config, get_reduced
+from repro_torch.core.freeze_plan import FreezePlan
+from repro_torch.kernels.rwkv import ops as wkv_ops
+from repro_torch.models import build_model, rwkv6
+from repro_torch.runtime.serve import ServeEngine
+
+WKV_TOL = dict(rtol=1e-4, atol=1e-4)
+FP32_TOL = dict(rtol=1e-4, atol=1e-4)
+BF16_TOL = dict(rtol=3e-2, atol=3e-2)
+FP32 = dict(dtype="float32", param_dtype="float32")
+
+RNG = np.random.default_rng(12)
+
+
+def _randn(shape, scale=1.0):
+    return (scale * RNG.normal(size=shape)).astype(np.float32)
+
+
+def _wkv_inputs(B, T, H, n, decay=(0.05, 0.5)):
+    lo, hi = decay
+    r, k, v = _randn((B, T, H, n)), _randn((B, T, H, n)), _randn((B, T, H, n))
+    logw = -RNG.uniform(lo, hi, size=(B, T, H, n)).astype(np.float32)
+    return r, k, v, logw, _randn((H, n))
+
+
+def _t(*arrays):
+    return [torch.from_numpy(a) for a in arrays]
+
+
+# ---------------------------------------------------------------------------
+# the WKV6 recurrence
+
+
+@pytest.mark.parametrize("T,H,n,bt", [(64, 2, 16, 32), (96, 1, 32, 32),
+                                      (128, 4, 16, 64), (50, 2, 16, 32)])
+def test_wkv_plain_matches_ref_and_pallas(T, H, n, bt):
+    inputs = _wkv_inputs(2, T, H, n)
+    want_o, want_s = jax_wkv_ref.wkv_ref(*map(jnp.asarray, inputs))
+    pallas_o = jax_wkv_ops.wkv(*map(jnp.asarray, inputs), bt=bt)
+    o, s = wkv_ops.wkv_plain(*_t(*inputs))
+    np.testing.assert_allclose(o.numpy(), np.asarray(want_o), **WKV_TOL)
+    np.testing.assert_allclose(s.numpy(), np.asarray(want_s), **WKV_TOL)
+    np.testing.assert_allclose(o.numpy(), np.asarray(pallas_o), **WKV_TOL)
+
+
+def test_wkv_plain_carries_an_initial_state():
+    r, k, v, logw, u = _wkv_inputs(2, 40, 2, 16)
+    s0 = _randn((2, 2, 16, 16))
+    want_o, want_s = jax_wkv_ref.wkv_ref(*map(jnp.asarray, (r, k, v, logw, u)),
+                                         s0=jnp.asarray(s0))
+    o, s = wkv_ops.wkv(*_t(r, k, v, logw, u), s0=torch.from_numpy(s0),
+                       return_state=True)
+    np.testing.assert_allclose(o.numpy(), np.asarray(want_o), **WKV_TOL)
+    np.testing.assert_allclose(s.numpy(), np.asarray(want_s), **WKV_TOL)
+
+
+def test_wkv_chunked_matches_jax_at_chunk_32():
+    inputs = _wkv_inputs(2, 64, 2, 16)
+    want_o, want_s = jax_rwkv6.wkv_chunked(*map(jnp.asarray, inputs), chunk=32)
+    o, s = rwkv6.wkv_chunked(*_t(*inputs), chunk=32)
+    np.testing.assert_allclose(o.numpy(), np.asarray(want_o), **WKV_TOL)
+    np.testing.assert_allclose(s.numpy(), np.asarray(want_s), **WKV_TOL)
+    # at this chunk length the closed form is exact
+    ref_o, _ = jax_wkv_ref.wkv_ref(*map(jnp.asarray, inputs))
+    np.testing.assert_allclose(o.numpy(), np.asarray(ref_o), **WKV_TOL)
+
+
+def test_wkv_chunked_clamp_fault_is_the_same_on_both_sides():
+    """At chunk 128 with the model's init decay (log-decay -0.33 to
+    -0.41 per token) the clamp on each half of the decay product bites and
+    the closed form is wrong (ROADMAP C.4); the port is faithful to it."""
+    inputs = _wkv_inputs(1, 128, 4, 16, decay=(0.33, 0.41))
+    want_o, want_s = jax_rwkv6.wkv_chunked(*map(jnp.asarray, inputs),
+                                           chunk=128)
+    o, s = rwkv6.wkv_chunked(*_t(*inputs), chunk=128)
+    np.testing.assert_allclose(o.numpy(), np.asarray(want_o), **WKV_TOL)
+    np.testing.assert_allclose(s.numpy(), np.asarray(want_s), **WKV_TOL)
+    ref_o, ref_s = jax_wkv_ref.wkv_ref(*map(jnp.asarray, inputs))
+    assert np.abs(np.asarray(want_o) - np.asarray(ref_o)).max() > 1.0
+    assert np.abs(o.numpy() - np.asarray(ref_o)).max() > 1.0
+    # the final state is still right
+    np.testing.assert_allclose(s.numpy(), np.asarray(ref_s), **WKV_TOL)
+
+
+def test_wkv_chunked_reshape_fault_is_the_same_on_both_sides():
+    # S = 301 is not a multiple of nc = 301 // 128 = 2 (ROADMAP C.4)
+    inputs = _wkv_inputs(1, 301, 4, 16)
+    with pytest.raises(TypeError):
+        jax_rwkv6.wkv_chunked(*map(jnp.asarray, inputs), chunk=128)
+    with pytest.raises(RuntimeError):
+        rwkv6.wkv_chunked(*_t(*inputs), chunk=128)
+
+
+# ---------------------------------------------------------------------------
+# time-mix and channel-mix blocks
+
+
+@pytest.fixture(scope="module")
+def blocks():
+    jcfg = jax_get_reduced("rwkv6-3b").replace(**FP32)
+    cfg = get_reduced("rwkv6-3b").replace(**FP32)
+    k1, k2 = jax.random.split(jax.random.PRNGKey(3))
+    jtm = jax_rwkv6.init_rwkv_time_mix(k1, jcfg)
+    jcm = jax_rwkv6.init_rwkv_channel_mix(k2, jcfg)
+    tm = from_numpy(jax.tree.map(np.asarray, jtm), "cpu")
+    cm = from_numpy(jax.tree.map(np.asarray, jcm), "cpu")
+    d = cfg.d_model
+    x = _randn((2, 24, d))
+    state = {"s": _randn((2, 4, 16, 16), 0.3), "x_tm": _randn((2, d)),
+             "x_cm": _randn((2, d))}
+    return jcfg, cfg, jtm, jcm, tm, cm, x, state
+
+
+def _close_tree(got, want, tol):
+    assert sorted(got) == sorted(want)
+    for key in want:
+        np.testing.assert_allclose(got[key].numpy(), np.asarray(want[key]),
+                                   err_msg=key, **tol)
+
+
+@pytest.mark.parametrize("use_pallas", [False, True])
+def test_time_mix_train_matches_jax(blocks, use_pallas):
+    jcfg, cfg, jtm, _, tm, _, x, _ = blocks
+    want, wstate = jax_rwkv6.time_mix_train(jtm, jcfg, jnp.asarray(x),
+                                            return_state=True)
+    got, state = rwkv6.time_mix_train(tm, cfg.replace(use_pallas=use_pallas),
+                                      torch.from_numpy(x), return_state=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **FP32_TOL)
+    _close_tree(state, wstate, FP32_TOL)
+
+
+def test_channel_mix_train_matches_jax(blocks):
+    jcfg, cfg, _, jcm, _, cm, x, _ = blocks
+    want, wstate = jax_rwkv6.channel_mix_train(jcm, jcfg, jnp.asarray(x),
+                                               state={}, return_state=True)
+    got, state = rwkv6.channel_mix_train(cm, cfg, torch.from_numpy(x),
+                                         state={}, return_state=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **FP32_TOL)
+    _close_tree(state, wstate, FP32_TOL)
+
+
+@pytest.mark.parametrize("which", ["time", "channel"])
+def test_decode_blocks_match_jax(blocks, which):
+    jcfg, cfg, jtm, jcm, tm, cm, x, state = blocks
+    x1 = x[:, :1]
+    jfn, fn, jp, p = ((jax_rwkv6.time_mix_decode, rwkv6.time_mix_decode,
+                       jtm, tm) if which == "time" else
+                      (jax_rwkv6.channel_mix_decode, rwkv6.channel_mix_decode,
+                       jcm, cm))
+    want, wstate = jfn(jp, jcfg, jnp.asarray(x1),
+                       {k: jnp.asarray(v) for k, v in state.items()})
+    got, gstate = fn(p, cfg, torch.from_numpy(x1),
+                     {k: torch.from_numpy(v) for k, v in state.items()})
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **FP32_TOL)
+    _close_tree(gstate, wstate, FP32_TOL)
+
+
+# ---------------------------------------------------------------------------
+# the LM functions
+
+
+def _lm_pair(dtype_kw, use_pallas, seed=0):
+    jcfg = jax_get_reduced("rwkv6-3b").replace(**dtype_kw)
+    cfg = get_reduced("rwkv6-3b").replace(use_pallas=use_pallas, **dtype_kw)
+    jmodel, model = jax_build_model(jcfg), build_model(cfg, device="cpu")
+    jparams = jmodel.init(jax.random.PRNGKey(seed))
+    params = params_from_jax(jax.tree.map(np.asarray, jparams), cfg,
+                             device="cpu")
+    return jmodel, jparams, model, params
+
+
+@pytest.fixture(scope="module", params=[False, True],
+                ids=["chunked", "wkv_kernel_route"])
+def lm(request):
+    return _lm_pair(FP32, request.param)
+
+
+def _tokens(B, S, vocab=256, seed=4):
+    return np.random.default_rng(seed).integers(0, vocab, (B, S)).astype(
+        np.int32)
+
+
+def _jax_cache_layers(jcache, num_layers):
+    """JAX's stacked caches (a tuple over group offsets of {"rwkv": leaves
+    [G, ...]}) as the port's list of per-layer dicts."""
+    (c,) = jcache
+    return [{k: np.asarray(v)[i] for k, v in c["rwkv"].items()}
+            for i in range(num_layers)]
+
+
+def test_lm_prefill_and_decode_match_jax(lm):
+    jmodel, jparams, model, params = lm
+    tok = _tokens(2, 24)
+    want, jcache = jmodel.prefill(jparams, {"tokens": jnp.asarray(tok)})
+    got, cache = model.prefill(params, {"tokens": torch.from_numpy(tok)})
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **FP32_TOL)
+    L = model.cfg.num_layers
+    for g, w in zip(cache, _jax_cache_layers(jcache, L), strict=True):
+        _close_tree(g, w, FP32_TOL)
+
+    nxt = _tokens(2, 1, seed=5)
+    want, jcache = jmodel.decode(jparams, jnp.asarray(nxt), jcache,
+                                 jnp.int32(24))
+    got, cache = model.decode(params, torch.from_numpy(nxt), cache, 24)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **FP32_TOL)
+    for g, w in zip(cache, _jax_cache_layers(jcache, L), strict=True):
+        _close_tree(g, w, FP32_TOL)
+
+
+def test_lm_features_match_jax(lm):
+    jmodel, jparams, model, params = lm
+    tok = _tokens(2, 24)
+    want = jmodel.features(jparams, {"tokens": jnp.asarray(tok)})
+    got = model.features(params, {"tokens": torch.from_numpy(tok)})
+    assert len(got) == len(want) == model.num_freeze_units == 3
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), **FP32_TOL)
+
+
+@pytest.mark.parametrize("groups,embed,head", [
+    ((), False, False), ((True, False, False), True, False),
+    ((False, True, True), False, True)])
+def test_lm_loss_value_matches_jax(lm, groups, embed, head):
+    from repro.core.freeze_plan import FreezePlan as JaxFreezePlan
+
+    jmodel, jparams, model, params = lm
+    tok, tgt = _tokens(2, 24), _tokens(2, 24, seed=6)
+    mask = (np.arange(24)[None] < np.array([[24], [17]])).astype(np.float32)
+    batch = {"tokens": tok, "targets": tgt, "mask": mask}
+    jplan = JaxFreezePlan(groups, embed, head) if groups else None
+    plan = FreezePlan(groups, embed, head) if groups else None
+    want, wm = jmodel.loss(jparams, {k: jnp.asarray(v) for k, v in batch.items()},
+                           jplan)
+    got, m = model.loss(params, {k: torch.from_numpy(v) for k, v in batch.items()},
+                        plan)
+    np.testing.assert_allclose(float(got), float(want), **FP32_TOL)
+    np.testing.assert_allclose(float(m["logits_mean"]), float(wm["logits_mean"]),
+                               **FP32_TOL)
+    assert float(m["aux_loss"]) == float(wm["aux_loss"]) == 0.0
+
+
+@pytest.mark.parametrize("use_pallas", [False, True])
+def test_bf16_block_matches_jax(use_pallas):
+    """One rwkv block (time-mix, then channel-mix) in bf16, prefill mode,
+    on the same bf16 input: output and decode state within 3e-2.
+
+    The bf16 case is held per block, not on the 3-layer model's logits:
+    there a one-ulp flip of a bf16 rounding compounds over the layers. A
+    1e-5 relative change of the fp32 WKV output alone moves JAX's own bf16
+    logits past 3e-2 at this size
+    (test_bf16_logits_move_with_fp32_rounding_in_jax_itself), and the two
+    frameworks' fp32 sums differ by about that much, so the model's bf16
+    logits differ by up to 0.08."""
+    from repro.models import transformer as jax_transformer
+    from repro_torch.models import transformer
+
+    jmodel, jparams, model, params = _lm_pair({}, use_pallas)
+    assert params["blocks"][0]["mix"]["wr"].dtype == torch.bfloat16
+    x = jnp.asarray(_randn((2, 24, model.cfg.d_model))).astype(jnp.bfloat16)
+    xt = torch.from_numpy(np.array(x.astype(jnp.float32))).bfloat16()
+    jblock = jax.tree.map(lambda a: a[0], jparams["blocks"][0])
+    want, jcache, _ = jax_transformer._apply_block(
+        jblock, jmodel.cfg, x, 0, None, "prefill", None, None)
+    got, cache = transformer._apply_block(params["blocks"][0], model.cfg, xt,
+                                          0, "prefill", None)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want.astype(jnp.float32)),
+                               **BF16_TOL)
+    _close_tree(cache, jcache["rwkv"], BF16_TOL)
+
+
+def test_bf16_logits_move_with_fp32_rounding_in_jax_itself(monkeypatch):
+    """Why bf16 parity is held per block: in the JAX model alone, a 1e-5
+    relative change of the fp32 WKV output, ten times inside the fp32
+    tolerance, moves the 3-layer bf16 logits past the 3e-2 limit."""
+    jmodel, jparams, _, _ = _lm_pair({}, False)
+    batch = {"tokens": jnp.asarray(_tokens(2, 24))}
+    base, _ = jmodel.prefill(jparams, batch)
+    exact = jax_rwkv6.wkv_chunked
+
+    def nudged(*args, **kw):
+        o, s = exact(*args, **kw)
+        return o * (1 + 1e-5), s
+
+    monkeypatch.setattr(jax_rwkv6, "wkv_chunked", nudged)
+    moved, _ = jmodel.prefill(jparams, batch)
+    assert np.abs(np.asarray(moved) - np.asarray(base)).max() > 3e-2
+
+
+def test_serve_engine_generates_jax_tokens():
+    jmodel, jparams, model, params = _lm_pair(FP32, True)
+    prompt = _tokens(2, 12, seed=9)
+    want = JaxServeEngine(jmodel, max_len=32).generate(jparams, prompt, steps=8)
+    engine = ServeEngine(model, max_len=32)
+    got, logits = engine.generate(params, prompt, steps=8, return_logits=True)
+    assert got.dtype == np.int32 and got.shape == (2, 8)
+    np.testing.assert_array_equal(got, np.asarray(want))
+    np.testing.assert_array_equal(logits.argmax(-1), got)
+    assert engine.stats.prefill_tokens == 24 and engine.stats.decode_steps == 8
+
+
+@pytest.mark.parametrize("S", [24, 301])
+@pytest.mark.parametrize("dtype_kw,tol", [(FP32, FP32_TOL), ({}, BF16_TOL)],
+                         ids=["fp32", "bf16"])
+def test_prefill_decode_consistency(S, dtype_kw, tol):
+    """Prefill of S-1 tokens, then a decode of the last one, gives the
+    logits of the full prefill: the final state the WKV route hands over
+    is the decode cache. The kernel route takes any S (the chunked form
+    cannot reshape S = 301)."""
+    cfg = get_reduced("rwkv6-3b").replace(use_pallas=True, **dtype_kw)
+    model = build_model(cfg, device="cpu")
+    params = model.init(torch.Generator().manual_seed(0))
+    tok = torch.from_numpy(_tokens(2, S, seed=S))
+    full, _ = model.prefill(params, {"tokens": tok})
+    _, cache = model.prefill(params, {"tokens": tok[:, :-1]})
+    dec, _ = model.decode(params, tok[:, -1:], cache, S - 1)
+    np.testing.assert_allclose(dec.float().numpy(), full.float().numpy(), **tol)
+
+
+# ---------------------------------------------------------------------------
+# params, init and caches
+
+
+def test_bridge_keeps_each_leaf_dtype_and_unstacks_layers():
+    jmodel, jparams, model, params = _lm_pair({}, False)
+    cfg = model.cfg
+    assert len(params["blocks"]) == cfg.num_layers
+    mix = params["blocks"][1]["mix"]
+    for name in ("wr", "wk", "wv", "wg", "wo"):
+        assert mix[name].dtype == torch.bfloat16
+    for name in ("mu", "w0", "wA", "wB", "u", "ln_x_scale", "ln_x_bias"):
+        assert mix[name].dtype == torch.float32
+    assert params["embed"]["tok"].dtype == torch.bfloat16
+    stacked = np.asarray(jparams["blocks"][0]["mix"]["wr"].astype(jnp.float32))
+    np.testing.assert_array_equal(mix["wr"].float().numpy(), stacked[1])
+    # an unrolled JAX tree (scan_layers=False) crosses to the same params
+    ucfg = jax_get_reduced("rwkv6-3b").replace(scan_layers=False)
+    unrolled = jax.tree.map(np.asarray, jparams)
+    unrolled["blocks"] = ([jax.tree.map(lambda a, i=i: a[i],
+                                        unrolled["blocks"][0])
+                           for i in range(ucfg.num_layers)],)
+    again = params_from_jax(unrolled, cfg, device="cpu")
+    for a, b in zip(again["blocks"], params["blocks"]):
+        assert torch.equal(a["ffn"]["wk"], b["ffn"]["wk"])
+
+
+def test_bridge_rejects_a_tree_of_another_size():
+    _, jparams, _, _ = _lm_pair(FP32, False)
+    with pytest.raises(ValueError, match="do not fit"):
+        params_from_jax(jax.tree.map(np.asarray, jparams),
+                        get_reduced("rwkv6-3b").replace(num_layers=4),
+                        device="cpu")
+
+
+def test_init_matches_jax_structure_shapes_and_dtypes():
+    _, _, model, bridged = _lm_pair({}, False)
+    own = model.init(torch.Generator().manual_seed(1))
+
+    def sig(tree):
+        if isinstance(tree, dict):
+            return {k: sig(v) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [sig(v) for v in tree]
+        return (tuple(tree.shape), tree.dtype, tree.device.type)
+
+    assert sig(own) == sig(bridged)
+
+
+def test_full_config_counts_three_billion_params():
+    """The full config's param count from the init's own shapes, scaled
+    from a one-layer, narrow-vocab draw of the same widths."""
+    cfg = get_config("rwkv6-3b")
+    small = cfg.replace(num_layers=1, vocab_size=8, param_dtype="float32")
+    params = build_model(small, device="cpu").init(
+        torch.Generator().manual_seed(0))
+    block = sum(t.numel() for t in tree_leaves(params["blocks"][0]))
+    d, V = cfg.d_model, cfg.vocab_size
+    total = 2 * V * d + d + cfg.num_layers * block
+    assert 3.0e9 < total < 3.1e9
+    assert rwkv6.num_heads(cfg) == 40 and cfg.layer_kind(0) == "rwkv"
+
+
+def test_extend_cache_pads_only_attention_leaves():
+    engine = ServeEngine(build_model(get_reduced("rwkv6-3b"), device="cpu"),
+                         max_len=16)
+    rwkv = {"s": torch.ones((2, 4, 5, 5)), "x_tm": torch.ones((2, 8)),
+            "x_cm": torch.ones((2, 8))}
+    attn = {"k": torch.ones((2, 5, 4, 8)), "v": torch.ones((2, 5, 4, 8))}
+    out = engine._extend_cache([rwkv, attn], 16)
+    assert all(torch.equal(out[0][k], rwkv[k]) for k in rwkv)
+    assert out[1]["k"].shape == (2, 16, 4, 8)
+    assert torch.equal(out[1]["v"][:, :5], attn["v"])
+    assert not out[1]["v"][:, 5:].any()
+
+
+def test_other_lm_blocks_and_frontends_raise():
+    cfg = get_reduced("rwkv6-3b").replace(family="dense")
+    with pytest.raises(NotImplementedError, match="A.9"):
+        build_model(cfg, device="cpu").init(torch.Generator().manual_seed(0))
+    cfg = get_reduced("rwkv6-3b").replace(frontend="vision_stub")
+    with pytest.raises(NotImplementedError, match="A.9"):
+        build_model(cfg, device="cpu").init(torch.Generator().manual_seed(0))
