@@ -13,8 +13,12 @@ It imports nothing of JAX and nothing of the JAX package, and fails
    which CUDA runtime libraries the process has mapped;
 2. kernel phase: each kernel against its plain PyTorch version on the
    card, at the main-path shapes and at ragged, masked, GQA and head-dim
-   variants; the CKA kernel also for CKA(x, x) = 1, and the CKA and WKV6
-   kernels for two launches that agree bit for bit;
+   variants; flash attention at both block shapes; CKA through both
+   routes (feature and example form) at every shape, with the route the
+   wrapper took printed and held to its rule, including shapes on the
+   route boundary, with a ragged last row split and with the X/Y column
+   boundary inside a tile; CKA(x, x) = 1; and two launches that agree bit
+   for bit for flash attention, both CKA routes and WKV6;
 3. slice phase at full width: DeiT-tiny (`get_config("deit-tiny")`,
    224x224, 12 layers, d=192) with params from a seeded
    `torch.Generator`, serving every inference event of a
@@ -23,7 +27,8 @@ It imports nothing of JAX and nothing of the JAX package, and fails
    again with the plain paths (`use_pallas`/`use_kernel` off); the two
    runs must give the same accuracies, freeze plans and CKA FLOPs, logits
    and CKA histories within the kernel tolerances, and the kernel run must
-   have launched both kernels the expected number of times. Once more
+   have launched both kernels the expected number of times, CKA on the
+   feature route only. Once more
    with coalesced serving (`batch_window` > 0): the same accuracies;
    then rwkv6-3b serving at full width and depth (`get_config("rwkv6-3b")`,
    32 layers, d=2560, bf16, 3.07e9 params from a seeded CUDA generator):
@@ -37,15 +42,18 @@ It imports nothing of JAX and nothing of the JAX package, and fails
    held: they exceed the 3e-2 limit (`rwkv_phase` says why);
 4. timing: each kernel, its plain version and (attention) PyTorch's
    `scaled_dot_product_attention` at the main-path shapes, with CUDA
-   events after a warm-up, beside the bound the card's published peaks
-   set for the least work the function needs; for CKA also the feature
-   form that `core/cka.py` takes without the kernel, for WKV6 also the
-   chunked form at chunk 32; the DeiT-tiny slice's requests per second
-   and rwkv6-3b's prefill and decode tokens per second;
+   events after a warm-up, beside two bounds the card's published peaks
+   set for the least work the function needs: on the fp32 CUDA cores,
+   and as 3xTF32 on the tensor cores (`bound`); flash attention at both
+   block shapes, CKA through both routes; for CKA also the feature form
+   that `core/cka.py` takes without the kernel, for WKV6 also the chunked
+   form at chunk 32; the DeiT-tiny slice's requests per second and
+   rwkv6-3b's prefill and decode tokens per second;
 5. only with --profile: one more kernel run of each slice under
    torch.profiler (the DeiT-tiny slice, one rwkv6-3b `generate`), for
    the device's busy share of its wall time and the kernels that fill
-   it.
+   it, and one SDPA call at the flash main-path shape, for the name of
+   the kernel PyTorch runs there.
 
 The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``.
@@ -98,9 +106,13 @@ LM_TOL = 3e-2
 # exceeds this
 MARGIN = 6e-2
 KERNELS = ("flash_attention", "cka_terms", "wkv6")
+# the CUDA kernels of those sources, as the profiler names them
+PORT_KERNELS = ("flash_fwd_kernel", "cka_gram_kernel", "cka_fold_kernel",
+                "cka_sum_kernel", "cka_tiles_kernel", "wkv6_kernel")
 # published peaks of one H100 SXM (NVIDIA data sheet): fp32 on the CUDA
-# cores and HBM3 bandwidth
+# cores, dense TF32 on the tensor cores and HBM3 bandwidth
 PEAK_FP32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_BYTES = 3.35e12
 # main-path shapes: DeiT-tiny at 224x224 (197 tokens, 3 heads of 64) on a
 # 16-image batch; the CKA probe flattens [16, 197, 192] to 3152 x 192
@@ -137,19 +149,27 @@ def mapped_cudart() -> list:
 
 def check_attention(gen, B, S, Hq, Hkv, hd, *, causal=False, window=0,
                     softcap=0.0) -> float:
+    """The wrapper (default block shape) and the other block shape
+    against the plain version; returns the wrapper's max_abs_err."""
     q = torch.randn((B, S, Hq, hd), generator=gen).cuda()
     k = torch.randn((B, S, Hkv, hd), generator=gen).cuda()
     v = torch.randn((B, S, Hkv, hd), generator=gen).cuda()
-    got = att_ops.flash_attention(q, k, v, causal=causal, window=window,
-                                  softcap=softcap)
     want = att_ops.attention_plain(q, k, v, causal=causal, window=window,
                                    softcap=softcap)
+    got = att_ops.flash_attention(q, k, v, causal=causal, window=window,
+                                  softcap=softcap)
+    other = att_ops._launch(q, k, v, causal, window, softcap,
+                            block_rows=att_ops.BLOCK_ROWS[1])
     torch.cuda.synchronize()
-    torch.testing.assert_close(got, want, rtol=ATT_RTOL, atol=ATT_ATOL)
-    err = float((got - want).abs().max())
+    errs = []
+    for out in (got, other):
+        torch.testing.assert_close(out, want, rtol=ATT_RTOL, atol=ATT_ATOL)
+        errs.append(float((out - want).abs().max()))
     print(f"  flash B{B} S{S} Hq{Hq} Hkv{Hkv} hd{hd} causal={causal} "
-          f"window={window} softcap={softcap}: max_abs_err {err:.3g}")
-    return err
+          f"window={window} softcap={softcap}: max_abs_err {errs[0]:.3g} "
+          f"({att_ops.BLOCK_ROWS[0]}-row blocks), {errs[1]:.3g} "
+          f"({att_ops.BLOCK_ROWS[1]}-row blocks)")
+    return errs[0]
 
 
 def _cka_inputs(gen, n, dx, dy):
@@ -159,19 +179,44 @@ def _cka_inputs(gen, n, dx, dy):
     return x.cuda(), y.cuda()
 
 
+CKA_ROUTES = {"feature": cka_ops._launch_feature,
+              "example": cka_ops._launch_example}
+
+
 def check_cka(gen, n, dx, dy) -> float:
+    """The wrapper, which must take the route of its rule, and both
+    routes called directly, against the plain version; returns the
+    wrapper's max_abs_err."""
     x, y = _cka_inputs(gen, n, dx, dy)
+    before = dict(cka_ops.cka_terms.route_launches)
     got = torch.stack(cka_ops.cka_terms(x, y))
+    took = [r for r, c in cka_ops.cka_terms.route_launches.items()
+            if c != before[r]]
+    route = "feature" if cka_ops.feature_route(n, dx, dy) else "example"
+    if took != [route]:
+        raise AssertionError(f"cka n{n} dx{dx} dy{dy} took {took}, not the "
+                             f"{route} route of the rule")
     xc, yc = cka_ops._prepare(x), cka_ops._prepare(y)
     hsic, kk, ll = cka_ops.cka_terms_plain(xc, yc)
     want = torch.stack([hsic, kk.sqrt(), ll.sqrt()])
-    torch.cuda.synchronize()
-    torch.testing.assert_close(got, want, rtol=CKA_RTOL, atol=0.0)
-    err = float((got - want).abs().max())
-    rel = float(((got - want).abs() / want.abs()).max())
-    print(f"  cka n{n} dx{dx} dy{dy}: max_abs_err {err:.3g} "
-          f"(max_rel_err {rel:.3g})")
-    return err
+    errs = {}
+    for name, out in (("wrapper", got),
+                      *((r, _terms(launch, xc, yc))
+                        for r, launch in CKA_ROUTES.items())):
+        torch.cuda.synchronize()
+        torch.testing.assert_close(out, want, rtol=CKA_RTOL, atol=0.0)
+        errs[name] = float(((out - want).abs() / want.abs()).max())
+    print(f"  cka n{n} dx{dx} dy{dy}: {route} route; max_rel_err "
+          f"{errs['wrapper']:.3g} (feature form {errs['feature']:.3g}, "
+          f"example form {errs['example']:.3g})")
+    return float((got - want).abs().max())
+
+
+def _terms(launch, xc, yc) -> torch.Tensor:
+    """(hsic, sqrt(kk), sqrt(ll)) of one route's launch, as `cka_terms`
+    returns them."""
+    hsic, kk, ll = launch(xc, yc)
+    return torch.stack([hsic, kk.sqrt(), ll.sqrt()])
 
 
 def _wkv_inputs(gen, B, T, H, n):
@@ -212,21 +257,36 @@ def kernel_phase():
     check_attention(gen, 2, 192, 8, 2, 64, causal=True)  # GQA
     for hd in (16, 32, 64, 128):
         check_attention(gen, 2, 130, 4, 4, hd)
+    q, k, v = (torch.randn(MAIN_ATT, generator=gen).cuda() for _ in range(3))
+    for rows in att_ops.BLOCK_ROWS:
+        first = att_ops._launch(q, k, v, False, 0, 0.0, block_rows=rows)
+        second = att_ops._launch(q, k, v, False, 0, 0.0, block_rows=rows)
+        if not torch.equal(first, second):
+            raise AssertionError(f"two flash launches ({rows}-row blocks) "
+                                 f"differ")
+    print("  flash: two launches agree bit for bit at each block shape")
 
     cka_err = check_cka(gen, *MAIN_CKA, MAIN_CKA[1])  # main path
     for n, dx, dy in ((200, 300, 300), (520, 192, 192), (100, 1000, 1000),
-                      (300, 192, 100)):
+                      (300, 192, 100),
+                      (192, 192, 192),   # n = d: the example route
+                      (384, 192, 192),   # n = dx + dy: the feature route
+                      (3153, 192, 192),  # a ragged last row split
+                      (300, 200, 100)):  # dx + dy = n; X/Y boundary in a tile
         check_cka(gen, n, dx, dy)
     x, _ = _cka_inputs(gen, 520, 192, 192)
     one = float(cka_ops.cka(x, x))
     if abs(one - 1.0) >= 1e-5:
         raise AssertionError(f"CKA(x, x) = {one!r}, not 1 within 1e-5")
-    a, b = _cka_inputs(gen, *MAIN_CKA, MAIN_CKA[1])
-    first = torch.stack(cka_ops.cka_terms(a, b))
-    second = torch.stack(cka_ops.cka_terms(a, b))
-    if not torch.equal(first, second):
-        raise AssertionError(f"two CKA launches differ: {first} {second}")
-    print(f"  cka(x, x) = {one!r}; two launches agree bit for bit")
+    a, b = (cka_ops._prepare(t) for t in _cka_inputs(gen, *MAIN_CKA,
+                                                      MAIN_CKA[1]))
+    for route, launch in CKA_ROUTES.items():
+        first, second = _terms(launch, a, b), _terms(launch, a, b)
+        if not torch.equal(first, second):
+            raise AssertionError(f"two CKA {route}-form launches differ: "
+                                 f"{first} {second}")
+    print(f"  cka(x, x) = {one!r}; two launches agree bit for bit on each "
+          f"route")
 
     wkv_err = check_wkv(gen, *MAIN_WKV)  # main path
     check_wkv(gen, 1, 50, 4, 16)  # ragged T, the reduced head size
@@ -410,9 +470,13 @@ def slice_phase(cfg):
           f"unfreezes {kern['unfreezes']}")
     print(f"  launches: flash_attention {launches['flash_attention']} "
           f"(expected {L} x {forwards}), cka_terms {launches['cka_terms']} "
-          f"(expected {L + 1} x {kern['passes']})")
+          f"(expected {L + 1} x {kern['passes']}; feature route "
+          f"{launches['cka_feature']}, example route "
+          f"{launches['cka_example']})")
     if launches["flash_attention"] != L * forwards or \
             launches["cka_terms"] != (L + 1) * kern["passes"] or \
+            launches["cka_feature"] != launches["cka_terms"] or \
+            launches["cka_example"] or \
             not (launches["flash_attention"] and launches["cka_terms"]) or \
             launches["wkv6"]:
         raise AssertionError(f"unexpected launch counts {launches}")
@@ -448,12 +512,15 @@ def slice_phase(cfg):
 
 def zero_launches() -> None:
     att_ops.flash_attention.launches = cka_ops.cka_terms.launches = 0
+    cka_ops.cka_terms.route_launches = {"feature": 0, "example": 0}
     wkv_ops.wkv.launches = 0
 
 
 def read_launches() -> dict:
     return {"flash_attention": att_ops.flash_attention.launches,
             "cka_terms": cka_ops.cka_terms.launches,
+            **{f"cka_{route}": count for route, count
+               in cka_ops.cka_terms.route_launches.items()},
             "wkv6": wkv_ops.wkv.launches}
 
 
@@ -559,7 +626,8 @@ def rwkv_phase(cfg):
     kmodel, params = rwkv_model(cfg, use_pallas=True)
     kern_tok, kern_logits, launches = serve(kmodel, params, prompts)
     print(f"  kernel run: {launches}")
-    if launches != {"flash_attention": 0, "cka_terms": 0, "wkv6": L}:
+    if launches != {"flash_attention": 0, "cka_terms": 0, "cka_feature": 0,
+                    "cka_example": 0, "wkv6": L}:
         raise AssertionError(f"expected {L} wkv6 launches, one per layer of "
                              f"the prefill; got {launches}")
     spans = {"prefill": [], "decode": []}
@@ -617,6 +685,9 @@ def rwkv_phase(cfg):
 
 
 def time_ms(fn, iters=50, warmup=5) -> float:
+    """Eager: CUDA events around `iters` calls. Where the host takes
+    longer to launch a call than the card to run it, this is the host's
+    time."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -630,57 +701,107 @@ def time_ms(fn, iters=50, warmup=5) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_ms(fn, calls=20, replays=10) -> float:
+    """The card's time for one call: `calls` calls captured in a CUDA
+    graph, the graph replayed `replays` times between CUDA events. Free of
+    the host's launch overhead."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm-up outside the capture
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (replays * calls)
+
+
 def timing_phase():
     gen = torch.Generator().manual_seed(99)
     B, S, H, hd = MAIN_ATT
     q, k, v = (torch.randn((B, S, H, hd), generator=gen).cuda()
                for _ in range(3))
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    # the two block shapes in turns (a, b, b, a), the default first
+    rows_ms = {rows: [] for rows in att_ops.BLOCK_ROWS}
+    for rows in (*att_ops.BLOCK_ROWS, *reversed(att_ops.BLOCK_ROWS)):
+        rows_ms[rows].append(device_ms(lambda: att_ops._launch(
+            q, k, v, False, 0, 0.0, block_rows=rows)))
+    rows_ms = {rows: sum(t) / len(t) for rows, t in rows_ms.items()}
+    sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt)  # noqa: E731
     att = {
-        "ms": time_ms(lambda: att_ops.flash_attention(q, k, v, causal=False)),
+        "ms": rows_ms[att_ops.BLOCK_ROWS[0]],
         "plain_ms": time_ms(lambda: att_ops.attention_plain(q, k, v,
                                                             causal=False)),
-        "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt)),
+        "library_ms": device_ms(sdpa),
+        "eager_ms": time_ms(lambda: att_ops.flash_attention(q, k, v,
+                                                            causal=False)),
+        "library_eager_ms": time_ms(sdpa),
+        "block_rows": att_ops.BLOCK_ROWS[0],
+        "ms_by_block_rows": rows_ms,
     }
     flops = 4.0 * B * H * S * S * hd
     nbytes = 4.0 * 4 * B * S * H * hd
-    att.update(bound(flops, nbytes))
+    att.update(bound(flops, nbytes, tensor_cores=True))
 
     n, d = MAIN_CKA
     x, y = _cka_inputs(gen, n, d, d)
     xc, yc = cka_ops._prepare(x), cka_ops._prepare(y)
     cka = {
-        "ms": time_ms(lambda: cka_ops._launch(xc, yc)),
+        "ms": device_ms(lambda: cka_ops._launch_feature(xc, yc)),
         "plain_ms": time_ms(lambda: cka_ops.cka_terms_plain(xc, yc)),
         "library_ms": None,
+        "eager_ms": time_ms(lambda: cka_ops._launch_feature(xc, yc)),
+        "example_route_ms": device_ms(lambda: cka_ops._launch_example(xc,
+                                                                      yc)),
+        "example_route_eager_ms": time_ms(
+            lambda: cka_ops._launch_example(xc, yc)),
     }
-    # the least work: the feature form, Y^T X and the upper triangles of
-    # X^T X and Y^T Y
+    # the least work, which the feature route does: Y^T X and the upper
+    # triangles of X^T X and Y^T Y
     flops = 2.0 * n * (d * d + d * (d + 1))
     nbytes = 4.0 * n * (d + d) + 4 * 3
-    cka.update(bound(flops, nbytes))
-    # the kernel's own design tiles the upper triangle of both n x n Grams
+    cka.update(bound(flops, nbytes, tensor_cores=True))
+    # the example route tiles the upper triangle of both n x n Grams
     design = bound(2.0 * (d + d) * n * (n + 1) / 2, nbytes)
     feature_ms = time_ms(lambda: cka_feature_form(xc, yc, use_kernel=False))
+    print("  kernel and library times: the card's, from CUDA graphs "
+          "(device_ms); eager: CUDA events around eager calls (time_ms)")
     for name, t in (("flash_attention", att), ("cka_terms", cka)):
         lib = "n/a" if t["library_ms"] is None else f"{t['library_ms']:.4f}"
-        print(f"  {name}: kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} "
-              f"ms, library {lib} ms, bound {t['bound_ms']:.4f} ms "
-              f"({t['bound_by']})")
-    print(f"  cka_terms: the plain feature form that core/cka.py takes "
-          f"without the kernel {feature_ms:.4f} ms; the limit of the "
-          f"kernel's example-form design only {design['bound_ms']:.4f} ms "
-          f"({design['bound_by']})")
+        print(f"  {name}: kernel {t['ms']:.4f} ms (eager {t['eager_ms']:.4f}"
+              f"), plain {t['plain_ms']:.4f} ms, library {lib} ms, bound "
+              f"{t['bound_ms']:.4f} ms ({t['bound_by']}, {t['bound_kind']}; "
+              f"on the fp32 CUDA cores {t['bound_fp32_ms']:.4f} ms)")
+    print(f"  flash_attention: SDPA eager {att['library_eager_ms']:.4f} ms; "
+          f"by block shape (query rows): " + ", ".join(
+              f"{rows} rows {t:.4f} ms" for rows, t in rows_ms.items()))
+    print(f"  cka_terms: the example route {cka['example_route_ms']:.4f} ms "
+          f"(eager {cka['example_route_eager_ms']:.4f}; its design's own "
+          f"limit {design['bound_ms']:.4f} ms, {design['bound_by']}, fp32 "
+          f"CUDA cores); the plain feature form that core/cka.py takes "
+          f"without the kernel {feature_ms:.4f} ms")
 
     B, T, H, n = MAIN_WKV
     r, k, v, logw, u = _wkv_inputs(gen, B, T, H, n)
+    kernel = lambda: wkv_ops.wkv(r, k, v, logw, u,  # noqa: E731
+                                 return_state=True)
     wkv = {
-        "ms": time_ms(lambda: wkv_ops.wkv(r, k, v, logw, u,
-                                          return_state=True)),
+        "ms": device_ms(kernel, calls=5),
         "plain_ms": time_ms(lambda: wkv_ops.wkv_plain(r, k, v, logw, u),
                             iters=3, warmup=1),
         "library_ms": None,
+        "eager_ms": time_ms(kernel),
     }
     # r, k, v, logw read and o written once, u read, the final state
     # written; ~5n^2 operations per token and head: r.S (2n^2), the decay
@@ -689,8 +810,9 @@ def timing_phase():
     wkv.update(bound(5.0 * n * n * B * T * H, nbytes))
     chunked_ms = time_ms(lambda: wkv_chunked(r, k, v, logw, u, chunk=32),
                          iters=10, warmup=2)
-    print(f"  wkv6: kernel {wkv['ms']:.4f} ms, plain {wkv['plain_ms']:.4f} "
-          f"ms, library none, bound {wkv['bound_ms']:.4f} ms "
+    print(f"  wkv6: kernel {wkv['ms']:.4f} ms (eager {wkv['eager_ms']:.4f}), "
+          f"plain {wkv['plain_ms']:.4f} ms, library none, bound "
+          f"{wkv['bound_ms']:.4f} ms "
           f"({wkv['bound_by']}); the chunked form at chunk 32 "
           f"{chunked_ms:.4f} ms")
     return att, cka, wkv
@@ -700,6 +822,13 @@ def profile_phase(deit, rwkv) -> None:
     """One more kernel run of each slice under torch.profiler: the
     device's busy share of the run's wall time and the kernels that fill
     it. For rwkv6-3b, one `ServeEngine.generate` call in bf16."""
+    gen = torch.Generator().manual_seed(99)
+    qt, kt, vt = (torch.randn(MAIN_ATT, generator=gen).cuda().transpose(1, 2)
+                  .contiguous() for _ in range(3))
+    F.scaled_dot_product_attention(qt, kt, vt)  # warm-up
+    report_profile("10 x F.scaled_dot_product_attention fp32 [16,3,197,64]",
+                   lambda: [F.scaled_dot_product_attention(qt, kt, vt)
+                            for _ in range(10)])
     kmodel, _, common = slice_setup(deit)
     report_profile(deit.name, lambda: run_slice(kmodel, *common,
                                                 use_kernel=True))
@@ -734,15 +863,30 @@ def report_profile(name, run) -> None:
     print(f"  {name} under the profiler: wall {wall:.3f} s, device busy "
           f"{busy_us / 1e6:.4f} s ({100 * busy_us / 1e6 / wall:.1f}% of "
           f"wall), {sum(r[2] for r in rows)} device kernels and copies")
-    for us, key, count in rows[:8]:
-        print(f"    {us / 1e3:9.3f} ms {100 * us / busy_us:5.1f}% x{count:<5d} "
-              f"{key[:90]}")
+    # the top rows, and the port's own kernels wherever they rank
+    for rank, (us, key, count) in enumerate(rows):
+        if rank < 8 or any(k in key for k in PORT_KERNELS):
+            print(f"    {us / 1e3:9.3f} ms {100 * us / busy_us:5.1f}% "
+                  f"x{count:<5d} {us / count / 1e3:8.4f} ms each  "
+                  f"{key[:90]}")
 
 
-def bound(flops: float, nbytes: float) -> dict:
-    t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES
+def bound(flops: float, nbytes: float, tensor_cores: bool = False) -> dict:
+    """The least time for `flops` fp32-accurate operations on `nbytes`
+    bytes at the published peaks, two ways: fp32 FMAs on the CUDA cores,
+    and 3xTF32 on the tensor cores (three TF32 products for each fp32
+    one). `bound_ms` is the second for a kernel that runs 3xTF32
+    (`tensor_cores`), else the first."""
+    t_bytes = nbytes / PEAK_BYTES
+    t_fp32 = flops / PEAK_FP32_FLOPS
+    t_tc = 3 * flops / PEAK_TF32_FLOPS
+    t_ops = t_tc if tensor_cores else t_fp32
     return {"bound_ms": max(t_ops, t_bytes) * 1e3,
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "bound_kind": "3xTF32 tensor cores" if tensor_cores
+            else "fp32 CUDA cores",
+            "bound_fp32_ms": max(t_fp32, t_bytes) * 1e3,
+            "bound_3xtf32_ms": max(t_tc, t_bytes) * 1e3}
 
 
 def main() -> None:
@@ -791,7 +935,10 @@ def main() -> None:
         {"name": "cka_terms", "route": "cuda",
          "source": "src/repro_torch/csrc/cka_terms.cu",
          "replaces": "src/repro/kernels/cka/kernel.py:56",
-         "launches": launches["cka_terms"], "max_abs_err": cka_err, **cka},
+         "launches": launches["cka_terms"],
+         "launches_by_route": {"feature": launches["cka_feature"],
+                               "example": launches["cka_example"]},
+         "max_abs_err": cka_err, **cka},
         {"name": "wkv6", "route": "cuda",
          "source": "src/repro_torch/csrc/wkv6.cu",
          "replaces": "src/repro/kernels/rwkv/kernel.py:58",

@@ -11,9 +11,11 @@ Two equal ways to evaluate CKA(X, Y) for centered X [n, dx], Y [n, dy]
   L = Y Y^T: Grams over examples, cheap when n << d.
 
 ``cka(X, Y)`` picks the cheaper form. With ``use_kernel`` it always goes
-through the CKA Gram-term kernel (repro_torch.kernels.cka), which tiles
-the *example* form, whatever the shape — the JAX package routes it the
-same way (through its feature-form entry point).
+through the CKA Gram-term kernels (repro_torch.kernels.cka), whatever the
+shape — the JAX package routes it the same way (through its feature-form
+entry point). On the card that module picks the form by the same rule:
+the feature form (one Gram of [X | Y]) when dx + dy <= n, the example
+form otherwise.
 """
 from __future__ import annotations
 

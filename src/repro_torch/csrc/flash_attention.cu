@@ -1,4 +1,4 @@
-// Flash-attention forward for Hopper (sm_90a), fp32, by hand.
+// Flash-attention forward for Hopper (sm_90a), fp32-accurate, by hand.
 //
 // Replaces: src/repro/kernels/attention/kernel.py, flash_attention_pallas
 // (kernel body _flash_kernel), the Pallas TPU kernel that the JAX ViT/BERT
@@ -6,45 +6,57 @@
 // fp32 accumulation, causal mask, sliding window, logit softcap and GQA,
 // skipping kv tiles that are masked whole.
 //
-// What bounds it on this card: operations. At the DeiT-tiny main-path
-// shape q,k,v [16,197,3,64] one launch does 4*B*H*Sq*Sk*hd = 0.48 GFLOP
-// and must move q, k, v in and o out, 9.7 MB. Against the published
-// peaks (67 TFLOP/s fp32 on the CUDA cores, 3.35 TB/s) that is 7.1 us of
-// arithmetic and 2.9 us of memory. The reference computes in full fp32 and
-// the parity tolerance (rtol 2e-4, atol 2e-5) depends on it, so the
-// products stay fp32 FMAs: no TF32 and no tensor cores in this version.
+// What bounds it on this card: operations and bytes about equally. At the
+// DeiT-tiny main-path shape q,k,v [16,197,3,64] one launch does
+// 4*B*H*Sq*Sk*hd = 0.48 GFLOP and must move q, k, v in and o out, 9.7 MB.
+// The parity tolerance (rtol 2e-4, atol 2e-5) needs fp32 accuracy, which
+// one TF32 product (10 mantissa bits) does not give; three do (3xTF32,
+// tf32x3.cuh). At the published 495 TFLOP/s of TF32 tensor cores the
+// three products take 2.9 us, the bytes 2.9 us at 3.35 TB/s; the fp32
+// CUDA cores (67 TFLOP/s) alone would need 7.1 us.
 //
-// Design: one block per (batch*q-head, 64-row q tile), 256 threads as a
-// 16x16 grid. The q tile stays in shared memory; the loop walks 64-row kv
-// tiles staged in shared memory. Each thread holds a 4x4 register tile of
-// scores (rows 4*ty.., keys tx+16*j), so every shared-memory load feeds
-// four FMAs; the row max and row sum of the online softmax are reduced
-// across the 16 threads of a row group with warp shuffles, and each thread
-// keeps the running max, sum and its 4 x hd/16 slice of the accumulator in
-// registers. q, k and v are read in place from [B, S, H, hd] through their
-// strides (no transposing copy); the kv head is h / (Hq / Hkv). Keys are
-// masked by the true Sk, so a ragged last tile (197 = 3*64 + 5) needs no
-// padding. Row pitches are padded by one float so that column reads are
-// free of bank conflicts. Tiles are loaded synchronously: cp.async/TMA
-// double buffering and wgmma are for a later version.
+// Design: both products run on the tensor cores as 3xTF32 mma.sync
+// m16n8k8. One block per (batch*q-head, NW*16-row q tile); each warp owns
+// 16 query rows, loads its Q fragments once, splits them into big and
+// small TF32 parts and keeps them in registers for the whole kv loop. K
+// and V tiles of 32 keys go to shared memory by cp.async into two buffers:
+// the next tile's copy is issued before this tile's products. A row
+// pitch of hd+4 words makes every fragment load free of bank conflicts
+// (a warp reads K at rows g, columns t and V at rows 2t, 2t+1, columns
+// g: its 32 lanes fall on 32 banks for each hd built). S =
+// Q K^T stays in accumulator registers; the online softmax's row max and
+// row sum are taken across the quad of lanes that share a row
+// (__shfl_xor_sync 1, 2; the sum only once, at the end), in fp32 with the
+// accurate expf. O += P V takes P straight from those registers: its
+// columns are where the A operand wants them once the key order inside
+// each 8-key step is permuted, and V's rows are read in the same order
+// (tf32x3::acc_key), so no shuffle, no shared memory and no block barrier
+// lie between the two products. q, k and v are read in place from
+// [B, S, H, hd] through their strides; the kv head is h / (Hq / Hkv).
+// Keys are masked by the true Sk, so a ragged last tile (197 = 6*32 + 5)
+// needs no padding: its missing rows are zero-filled by cp.async. Two
+// block shapes are built, 4 and 2 warps (64 and 32 query rows); the
+// wrapper takes 64, the faster at the main-path shape (PERF.md), and
+// chip_smoke.py times both. wgmma and TMA are for a later version.
 
 #include <cuda_runtime.h>
 
+#include "tf32x3.cuh"
+
 namespace {
 
-constexpr int BQ = 64;         // query rows per block
-constexpr int BK = 64;         // keys per kv tile
-constexpr int THREADS = 256;   // 16 x 16
 constexpr float NEG_INF = -1e30f;  // the reference's mask value
+// keys per kv tile: at 197 keys, 32 wastes 27 padded keys where 64 would
+// waste 59, and keeps the score registers and shared memory small
+constexpr int BK = 32;
 
 template <int HD>
 constexpr size_t smem_bytes() {
-  return sizeof(float) *
-         (BQ * (HD + 1) + BK * (HD + 1) + BK * HD + BQ * (BK + 1));
+  return sizeof(float) * 2 * 2 * BK * (HD + 4);  // [buf][K, V][BK][HD + 4]
 }
 
-template <int HD>
-__global__ void __launch_bounds__(THREADS)
+template <int HD, int NW>
+__global__ void __launch_bounds__(NW * 32)
 flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ o,
                  int Sq, int Sk, int Hq, int group,
@@ -52,136 +64,174 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  long long ksb, long long kss, long long ksh,
                  long long vsb, long long vss, long long vsh,
                  int causal, int window, float softcap, float scale) {
-  constexpr int QK_LD = HD + 1;
-  constexpr int P_LD = BK + 1;
-  constexpr int CPT = HD / 16;  // accumulator columns per thread
-  extern __shared__ float smem[];
-  float* Qs = smem;              // [BQ][QK_LD]
-  float* Ks = Qs + BQ * QK_LD;   // [BK][QK_LD]
-  float* Vs = Ks + BK * QK_LD;   // [BK][HD]
-  float* Ps = Vs + BK * HD;      // [BQ][P_LD]
+  using namespace tf32x3;
+  constexpr int BQ = 16 * NW;        // query rows per block
+  constexpr int LD = HD + 4;         // shared-memory row pitch
+  constexpr int KD = HD / 8;         // 8-wide steps over hd
+  constexpr int KN = BK / 8;         // 8-key steps over a tile
+  constexpr int THREADS = NW * 32;
+  extern __shared__ float smem[];    // [2 buffers][K, V][BK][LD]
 
-  const int tid = threadIdx.x;
-  const int ty = tid / 16, tx = tid % 16;
+  const int warp = threadIdx.x / 32;
   const int b = blockIdx.x / Hq, h = blockIdx.x % Hq;
   const int q_lo = blockIdx.y * BQ;
+  // this lane's rows: row0 in c0/c1 of every tile, row0 + 8 in c2/c3
+  const int row0 = q_lo + 16 * warp + lane_g();
   const float* qb = q + b * qsb + h * qsh;
   const float* kb = k + b * ksb + (h / group) * ksh;
   const float* vb = v + b * vsb + (h / group) * vsh;
 
-  for (int i = tid; i < BQ * HD; i += THREADS) {
-    const int r = i / HD, c = i % HD, s = q_lo + r;
-    Qs[r * QK_LD + c] = s < Sq ? qb[s * qss + c] : 0.f;
-  }
-
-  float m[4], l[4], acc[4][CPT];
+  // this warp's Q fragments, split once: A[m][d] = q[q_lo + 16 warp + m][d]
+  uint32_t qbig[KD][4], qsmall[KD][4];
 #pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    m[a] = NEG_INF;
-    l[a] = 0.f;
+  for (int kd = 0; kd < KD; ++kd)
 #pragma unroll
-    for (int c = 0; c < CPT; ++c) acc[a][c] = 0.f;
-  }
+    for (int i = 0; i < 4; ++i) {
+      const int s = q_lo + 16 * warp + a_row(i);
+      const float x = s < Sq ? qb[s * qss + 8 * kd + a_col(i)] : 0.f;
+      split(x, qbig[kd][i], qsmall[kd][i]);
+    }
 
+  // kv tiles this block needs: the same skip tests as the TPU kernel,
+  // taken on the block's indices, so every thread runs the same loop
   const int nk = (Sk + BK - 1) / BK;
-  for (int t = 0; t < nk; ++t) {
-    const int k_lo = t * BK;
-    // the same skip test as the TPU kernel; it depends on the block's
-    // indices only, so every thread takes the same branch
-    if (causal && k_lo > q_lo + BQ - 1) break;  // later tiles are dead too
-    if (window && k_lo + BK - 1 < q_lo - window + 1) continue;
+  int t_end = nk, t_begin = 0;
+  if (causal) t_end = min(nk, (q_lo + BQ - 1) / BK + 1);
+  if (window) t_begin = max(q_lo - window + 1, 0) / BK;
 
-    __syncthreads();  // the previous tile's Ks/Vs/Ps are no longer read
-    for (int i = tid; i < BK * HD; i += THREADS) {
-      const int r = i / HD, c = i % HD, s = k_lo + r;
-      const bool in = s < Sk;
-      Ks[r * QK_LD + c] = in ? kb[s * kss + c] : 0.f;
-      Vs[r * HD + c] = in ? vb[s * vss + c] : 0.f;
+  auto stage = [&](int tile, int buf) {
+    float* Ks = smem + buf * 2 * BK * LD;
+    float* Vs = Ks + BK * LD;
+    for (int c = threadIdx.x; c < BK * HD / 4; c += THREADS) {
+      const int r = c / (HD / 4), col = 4 * (c % (HD / 4));
+      const int s = tile * BK + r;
+      const bool in = s < Sk;  // rows past Sk are zero-filled
+      const long long sr = in ? s : 0;
+      cp_async<16>(Ks + r * LD + col, kb + sr * kss + col, in);
+      cp_async<16>(Vs + r * LD + col, vb + sr * vss + col, in);
     }
-    __syncthreads();
+    cp_async_commit();
+  };
 
-    float s[4][4];
+  float m[2] = {NEG_INF, NEG_INF};  // running max of rows row0, row0+8
+  float l[2] = {0.f, 0.f};          // this lane's share of the row sums
+  float acc[KD][4];                 // O, 16 x hd, as KD accumulator tiles
 #pragma unroll
-    for (int a = 0; a < 4; ++a)
+  for (int kd = 0; kd < KD; ++kd)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[a][j] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < HD; ++d) {
-      float qv[4], kv[4];
+    for (int i = 0; i < 4; ++i) acc[kd][i] = 0.f;
+
+  if (t_begin < t_end) stage(t_begin, 0);
+  for (int tile = t_begin; tile < t_end; ++tile) {
+    const int buf = (tile - t_begin) & 1;
+    if (tile + 1 < t_end) {
+      stage(tile + 1, buf ^ 1);  // in flight while this tile is computed
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();  // this tile's K and V are in shared memory
+    const float* Ks = smem + buf * 2 * BK * LD;
+    const float* Vs = Ks + BK * LD;
+
+    // S = Q K^T: B[d][key] = K[key][d], n-tile kn covers keys 8kn..8kn+7
+    float s[KN][4];
 #pragma unroll
-      for (int a = 0; a < 4; ++a) qv[a] = Qs[(4 * ty + a) * QK_LD + d];
+    for (int kn = 0; kn < KN; ++kn) {
 #pragma unroll
-      for (int j = 0; j < 4; ++j) kv[j] = Ks[(tx + 16 * j) * QK_LD + d];
+      for (int i = 0; i < 4; ++i) s[kn][i] = 0.f;
 #pragma unroll
-      for (int a = 0; a < 4; ++a)
+      for (int kd = 0; kd < KD; ++kd) {
+        uint32_t bbig[2], bsmall[2];
 #pragma unroll
-        for (int j = 0; j < 4; ++j) s[a][j] = fmaf(qv[a], kv[j], s[a][j]);
+        for (int i = 0; i < 2; ++i)
+          split(Ks[(8 * kn + b_col()) * LD + 8 * kd + b_row(i)], bbig[i],
+                bsmall[i]);
+        mma3(s[kn], qbig[kd], qsmall[kd], bbig, bsmall);
+      }
     }
 
+    // online softmax over this tile's keys, rows row0 (c0, c1) and
+    // row0 + 8 (c2, c3)
+    const int k_lo = tile * BK;
+    float mx[2] = {NEG_INF, NEG_INF};
 #pragma unroll
-    for (int a = 0; a < 4; ++a) {
-      const int qp = q_lo + 4 * ty + a;
-      float mx = NEG_INF;
+    for (int kn = 0; kn < KN; ++kn)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int kp = k_lo + tx + 16 * j;
-        float x = s[a][j] * scale;
+      for (int i = 0; i < 4; ++i) {
+        const int qp = row0 + 8 * (i >> 1);
+        const int kp = k_lo + 8 * kn + c_col(i);
+        float x = s[kn][i] * scale;
         if (softcap != 0.f) x = softcap * tanhf(x / softcap);
         bool live = kp < Sk;
         if (causal) live = live && kp <= qp;
         if (window) live = live && (qp - kp) < window;
-        s[a][j] = live ? x : NEG_INF;
-        mx = fmaxf(mx, s[a][j]);
+        s[kn][i] = live ? x : NEG_INF;
+        mx[i >> 1] = fmaxf(mx[i >> 1], s[kn][i]);
       }
-      // the 16 threads of a row group are lanes 0-15 or 16-31 of a warp
+    float corr[2];
 #pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_new = fmaxf(m[a], mx);
-      const float corr = expf(m[a] - m_new);
-      float rs = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = expf(s[a][j] - m_new);
-        Ps[(4 * ty + a) * P_LD + tx + 16 * j] = p;
-        rs += p;
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        rs += __shfl_xor_sync(0xffffffffu, rs, off);
-      l[a] = l[a] * corr + rs;
-#pragma unroll
-      for (int c = 0; c < CPT; ++c) acc[a][c] *= corr;
-      m[a] = m_new;
+    for (int r = 0; r < 2; ++r) {
+      // the 4 lanes of a quad (same g) hold one row between them
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float m_new = fmaxf(m[r], mx[r]);
+      corr[r] = expf(m[r] - m_new);
+      m[r] = m_new;
+      l[r] *= corr[r];
     }
-    __syncthreads();  // Ps complete
+#pragma unroll
+    for (int kn = 0; kn < KN; ++kn)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        s[kn][i] = expf(s[kn][i] - m[i >> 1]);
+        l[i >> 1] += s[kn][i];
+      }
+#pragma unroll
+    for (int kd = 0; kd < KD; ++kd)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[kd][i] *= corr[i >> 1];
 
-#pragma unroll 4
-    for (int j = 0; j < BK; ++j) {
-      float pv[4];
+    // O += P V, k over the tile's keys: A = P from the S registers in the
+    // permuted key order, B[key][d] = V[key][d] read in the same order
 #pragma unroll
-      for (int a = 0; a < 4; ++a) pv[a] = Ps[(4 * ty + a) * P_LD + j];
+    for (int kn = 0; kn < KN; ++kn) {
+      uint32_t pbig[4], psmall[4];
+      const float pa[4] = {s[kn][0], s[kn][2], s[kn][1], s[kn][3]};
 #pragma unroll
-      for (int c = 0; c < CPT; ++c) {
-        const float vv = Vs[j * HD + tx + 16 * c];
+      for (int i = 0; i < 4; ++i) split(pa[i], pbig[i], psmall[i]);
 #pragma unroll
-        for (int a = 0; a < 4; ++a) acc[a][c] = fmaf(pv[a], vv, acc[a][c]);
+      for (int kd = 0; kd < KD; ++kd) {
+        uint32_t bbig[2], bsmall[2];
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+          split(Vs[(8 * kn + acc_key(b_row(i))) * LD + 8 * kd + b_col()],
+                bbig[i], bsmall[i]);
+        mma3(acc[kd], pbig, psmall, bbig, bsmall);
       }
     }
+    __syncthreads();  // every warp is done with `buf` before it is refilled
   }
 
 #pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    const int s = q_lo + 4 * ty + a;
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int s = row0 + 8 * r;
     if (s >= Sq) continue;
-    const float denom = fmaxf(l[a], 1e-30f);
+    const float denom = fmaxf(l[r], 1e-30f);
     float* orow = o + ((static_cast<long long>(b) * Sq + s) * Hq + h) * HD;
 #pragma unroll
-    for (int c = 0; c < CPT; ++c) orow[tx + 16 * c] = acc[a][c] / denom;
+    for (int kd = 0; kd < KD; ++kd)
+      *reinterpret_cast<float2*>(orow + 8 * kd + c_col(2 * r)) =
+          make_float2(acc[kd][2 * r] / denom, acc[kd][2 * r + 1] / denom);
   }
 }
 
-template <int HD>
+template <int HD, int NW>
 cudaError_t launch(const float* q, const float* k, const float* v, float* o,
                    int B, int Sq, int Sk, int Hq, int Hkv,
                    long long qsb, long long qss, long long qsh,
@@ -191,11 +241,11 @@ cudaError_t launch(const float* q, const float* k, const float* v, float* o,
                    cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<HD>();
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_fwd_kernel<HD, NW>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  const dim3 grid(B * Hq, (Sq + BQ - 1) / BQ);
-  flash_fwd_kernel<HD><<<grid, THREADS, smem, stream>>>(
+  const dim3 grid(B * Hq, (Sq + 16 * NW - 1) / (16 * NW));
+  flash_fwd_kernel<HD, NW><<<grid, NW * 32, smem, stream>>>(
       q, k, v, o, Sq, Sk, Hq, Hq / Hkv, qsb, qss, qsh, ksb, kss, ksh,
       vsb, vss, vsh, causal, window, softcap, scale);
   return cudaGetLastError();
@@ -204,8 +254,31 @@ cudaError_t launch(const float* q, const float* k, const float* v, float* o,
 }  // namespace
 
 // q [B,Sq,Hq,hd], k/v [B,Sk,Hkv,hd] fp32 with unit stride on hd and the
-// given element strides on batch, sequence and head; o [B,Sq,Hq,hd] fp32
-// contiguous. Returns a cudaError_t (0 = launched).
+// given element strides on batch, sequence and head; k and v 16-byte
+// aligned with strides that are multiples of 4; o [B,Sq,Hq,hd] fp32
+// contiguous. block_rows is 32 or 64 query rows per block. Returns a
+// cudaError_t (0 = launched).
+extern "C" int flash_attention_fwd_rows(
+    const float* q, const float* k, const float* v, float* o,
+    int B, int Sq, int Sk, int Hq, int Hkv, int hd,
+    long long qsb, long long qss, long long qsh,
+    long long ksb, long long kss, long long ksh,
+    long long vsb, long long vss, long long vsh,
+    int causal, int window, float softcap, float scale, void* stream,
+    int block_rows) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define FLASH_CASE(D, NW)                                                   \
+  if (hd == D && block_rows == 16 * NW)                                     \
+    return launch<D, NW>(q, k, v, o, B, Sq, Sk, Hq, Hkv, qsb, qss, qsh,     \
+                         ksb, kss, ksh, vsb, vss, vsh, causal, window,      \
+                         softcap, scale, st);
+  FLASH_CASE(16, 2) FLASH_CASE(32, 2) FLASH_CASE(64, 2) FLASH_CASE(128, 2)
+  FLASH_CASE(16, 4) FLASH_CASE(32, 4) FLASH_CASE(64, 4) FLASH_CASE(128, 4)
+#undef FLASH_CASE
+  return cudaErrorInvalidValue;
+}
+
+// the entry point at the default block shape (64 query rows)
 extern "C" int flash_attention_fwd(
     const float* q, const float* k, const float* v, float* o,
     int B, int Sq, int Sk, int Hq, int Hkv, int hd,
@@ -213,19 +286,7 @@ extern "C" int flash_attention_fwd(
     long long ksb, long long kss, long long ksh,
     long long vsb, long long vss, long long vsh,
     int causal, int window, float softcap, float scale, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define FLASH_CASE(D)                                                       \
-  case D:                                                                   \
-    return launch<D>(q, k, v, o, B, Sq, Sk, Hq, Hkv, qsb, qss, qsh, ksb,    \
-                     kss, ksh, vsb, vss, vsh, causal, window, softcap,      \
-                     scale, st);
-  switch (hd) {
-    FLASH_CASE(16)
-    FLASH_CASE(32)
-    FLASH_CASE(64)
-    FLASH_CASE(128)
-    default:
-      return cudaErrorInvalidValue;
-  }
-#undef FLASH_CASE
+  return flash_attention_fwd_rows(q, k, v, o, B, Sq, Sk, Hq, Hkv, hd, qsb,
+                                  qss, qsh, ksb, kss, ksh, vsb, vss, vsh,
+                                  causal, window, softcap, scale, stream, 64);
 }

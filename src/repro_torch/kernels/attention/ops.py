@@ -8,7 +8,9 @@ the output is fp32 [B, Sq, Hq, hd].
 
 `flash_attention` chooses by device: a CPU tensor goes to
 `attention_plain`, a CUDA tensor launches the kernel or raises. The
-kernel tiles are fixed at 64 query rows by 64 keys, so the TPU wrapper's
+kernel computes both products on the tensor cores as 3xTF32
+(`csrc/tf32x3.cuh`), to fp32 accuracy. Its tiles are fixed, 64 query rows
+(or 32, `BLOCK_ROWS`) by 32 keys, so the TPU wrapper's
 `bq`/`bk`/`interpret` arguments have no counterpart. Unlike the TPU
 wrapper, which zero-pads Sk and masks the padded keys only through the
 causal test, the kernel masks keys by the true Sk, so non-causal ragged
@@ -25,11 +27,12 @@ from repro_torch.kernels import build
 
 NEG_INF = -1e30
 HEAD_DIMS = (16, 32, 64, 128)  # the kernel's template instances
+BLOCK_ROWS = (64, 32)  # query rows per block: the default, then the other
 
 _ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
              + [ctypes.c_longlong] * 9
              + [ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_float,
-                ctypes.c_void_p])
+                ctypes.c_void_p, ctypes.c_int])
 
 
 def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -91,15 +94,26 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 flash_attention.launches = 0
 
 
-def _launch(q, k, v, causal, window, softcap):
+def _copyable(t: torch.Tensor) -> torch.Tensor:
+    """`t` itself when cp.async can copy its rows in 16-byte units (unit
+    stride on hd, other strides multiples of 4 floats, 16-byte aligned),
+    else a contiguous copy, which is."""
+    if t.stride(3) == 1 and t.data_ptr() % 16 == 0 and \
+            all(s % 4 == 0 for s in t.stride()[:3]):
+        return t
+    return t.clone(memory_format=torch.contiguous_format)
+
+
+def _launch(q, k, v, causal, window, softcap, block_rows=BLOCK_ROWS[0]):
     B, Sq, Hq, hd = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
     if hd not in HEAD_DIMS:
         raise ValueError(f"the flash kernel takes head dims {HEAD_DIMS}; "
                          f"got {hd}")
-    if q.stride(3) != 1 or k.stride(3) != 1 or v.stride(3) != 1:
-        raise ValueError("q, k, v need unit stride on the head dim")
-    fn = build.load("flash_attention").flash_attention_fwd
+    if block_rows not in BLOCK_ROWS:
+        raise ValueError(f"block_rows must be one of {BLOCK_ROWS}")
+    q, k, v = (_copyable(t) for t in (q, k, v))
+    fn = build.load("flash_attention").flash_attention_fwd_rows
     fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
     o = torch.empty((B, Sq, Hq, hd), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
@@ -108,7 +122,7 @@ def _launch(q, k, v, causal, window, softcap):
                  *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
                  int(causal), int(window), float(softcap),
                  1.0 / math.sqrt(hd),
-                 torch.cuda.current_stream(q.device).cuda_stream)
+                 torch.cuda.current_stream(q.device).cuda_stream, block_rows)
     if err:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
                            f"error {err}")

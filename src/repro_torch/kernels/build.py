@@ -4,8 +4,9 @@ Each kernel is one source in `repro_torch/csrc/` with a plain C interface.
 It is compiled with nvcc for Hopper (`sm_90a`) into a shared library and
 loaded with ctypes; no PyTorch header is compiled, which keeps a build to
 seconds. Libraries go to `build/kernels/` at the root of the checkout
-(listed in .gitignore) under a name that carries a hash of the source and
-flags, so an edited source is rebuilt and an unchanged one is reused.
+(listed in .gitignore) under a name that carries a hash of the source,
+the shared headers (`csrc/*.cuh`) and the flags, so an edited source or
+header is rebuilt and an unchanged one is reused.
 
 Nothing is built or loaded when a module is imported: the first launch
 builds what it needs, and `build` compiles several sources at once, one
@@ -47,8 +48,11 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    digest = h.hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
 

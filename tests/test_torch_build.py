@@ -25,6 +25,28 @@ def test_library_names_carry_the_source_hash(tmp_path, monkeypatch):
     assert build.library_path("k") != first
 
 
+def test_library_names_carry_the_shared_headers_hash(tmp_path, monkeypatch):
+    # the sources include csrc/*.cuh (tf32x3.cuh): an edited header must
+    # give every library a new name, or a stale build would be loaded
+    monkeypatch.setattr(build, "CSRC", tmp_path)
+    (tmp_path / "k.cu").write_text('#include "h.cuh"')
+    (tmp_path / "h.cuh").write_text("// one")
+    first = build.library_path("k")
+    (tmp_path / "h.cuh").write_text("// two")
+    second = build.library_path("k")
+    assert second != first
+    (tmp_path / "g.cuh").write_text("// a new header")
+    assert build.library_path("k") not in (first, second)
+    assert build.library_path("k") == build.library_path("k")
+
+
+def test_kernel_sources_share_the_tf32x3_header():
+    assert (build.CSRC / "tf32x3.cuh").is_file()
+    for name in ("flash_attention", "cka_terms"):
+        source = (build.CSRC / f"{name}.cu").read_text()
+        assert '#include "tf32x3.cuh"' in source
+
+
 def test_build_without_nvcc_raises(tmp_path, monkeypatch):
     monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "kernels")
     monkeypatch.setattr(build.shutil, "which", lambda name: None)

@@ -50,13 +50,22 @@ def test_flash_kernel_matches_plain(gen, B, S, Hq, Hkv, hd, causal, window,
     torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-5)
 
 
-def test_flash_kernel_reads_strided_inputs(gen):
+@pytest.mark.parametrize("block_rows", att_ops.BLOCK_ROWS)
+def test_flash_kernel_reads_strided_inputs(gen, block_rows):
     # q, k, v as views into one fused [B, S, 3, H, hd] projection
     qkv = _randn(gen, (2, 197, 3, 3, 64))
     q, k, v = qkv.unbind(2)
-    torch.testing.assert_close(att_ops.flash_attention(q, k, v, causal=False),
-                               att_ops.attention_plain(q, k, v, causal=False),
-                               rtol=2e-4, atol=2e-5)
+    torch.testing.assert_close(
+        att_ops._launch(q, k, v, False, 0, 0.0, block_rows=block_rows),
+        att_ops.attention_plain(q, k, v, causal=False), rtol=2e-4, atol=2e-5)
+
+
+@pytest.mark.parametrize("block_rows", att_ops.BLOCK_ROWS)
+def test_flash_kernel_is_deterministic(gen, block_rows):
+    q, k, v = (_randn(gen, (16, 197, 3, 64)) for _ in range(3))
+    first = att_ops._launch(q, k, v, False, 0, 0.0, block_rows=block_rows)
+    second = att_ops._launch(q, k, v, False, 0, 0.0, block_rows=block_rows)
+    assert torch.equal(first, second)
 
 
 def test_flash_kernel_rejects_unsupported_head_dim(gen):
@@ -65,24 +74,43 @@ def test_flash_kernel_rejects_unsupported_head_dim(gen):
         att_ops.flash_attention(q, q, q)
 
 
+CKA_ROUTES = {"feature": cka_ops._launch_feature,
+              "example": cka_ops._launch_example}
+
+
 @pytest.mark.parametrize("n,dx,dy", [(3152, 192, 192), (200, 300, 300),
                                      (520, 192, 192), (100, 1000, 1000),
-                                     (300, 192, 100)])
+                                     (300, 192, 100), (192, 192, 192),
+                                     (384, 192, 192), (3153, 192, 192),
+                                     (300, 200, 100), (97, 30, 50)])
 def test_cka_kernel_matches_plain(gen, n, dx, dy):
     x, y = _randn(gen, (n, dx)), _randn(gen, (n, dy))
     y[:, :min(dx, dy)] += 0.3 * x[:, :min(dx, dy)]
+    before = dict(cka_ops.cka_terms.route_launches)
     got = torch.stack(cka_ops.cka_terms(x, y))
-    hsic, kk, ll = cka_ops.cka_terms_plain(cka_ops._prepare(x),
-                                           cka_ops._prepare(y))
-    torch.testing.assert_close(got, torch.stack([hsic, kk.sqrt(), ll.sqrt()]),
-                               rtol=1e-4, atol=0.0)
+    route = "feature" if cka_ops.feature_route(n, dx, dy) else "example"
+    assert cka_ops.cka_terms.route_launches == {
+        r: c + (r == route) for r, c in before.items()}
+    xc, yc = cka_ops._prepare(x), cka_ops._prepare(y)
+    hsic, kk, ll = cka_ops.cka_terms_plain(xc, yc)
+    want = torch.stack([hsic, kk.sqrt(), ll.sqrt()])
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=0.0)
+    # both routes, whichever the rule picks
+    for launch in CKA_ROUTES.values():
+        hsic, kk, ll = launch(xc, yc)
+        torch.testing.assert_close(torch.stack([hsic, kk.sqrt(), ll.sqrt()]),
+                                   want, rtol=1e-4, atol=0.0)
 
 
-def test_cka_kernel_is_deterministic_and_one_on_itself(gen):
+@pytest.mark.parametrize("route", CKA_ROUTES)
+def test_cka_kernel_is_deterministic_and_one_on_itself(gen, route):
     x, y = _randn(gen, (3152, 192)), _randn(gen, (3152, 192))
-    assert torch.equal(torch.stack(cka_ops.cka_terms(x, y)),
-                       torch.stack(cka_ops.cka_terms(x, y)))
-    assert abs(float(cka_ops.cka(x, x)) - 1.0) < 1e-5
+    xc, yc = cka_ops._prepare(x), cka_ops._prepare(y)
+    launch = CKA_ROUTES[route]
+    assert torch.equal(torch.stack(launch(xc, yc)),
+                       torch.stack(launch(xc, yc)))
+    hsic, kk, ll = launch(xc, xc)
+    assert abs(float(hsic / (kk.sqrt() * ll.sqrt())) - 1.0) < 1e-5
 
 
 def _wkv_inputs(gen, B, T, H, n):

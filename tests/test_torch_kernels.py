@@ -1,7 +1,11 @@
 """The port's kernel modules on the CPU against the JAX package: the plain
 versions that `flash_attention` and `cka_terms` take for CPU tensors, held
 against the Pallas kernels (interpret mode) and their `ref.py` oracles on
-the same numpy inputs, plus the wrappers' input checks."""
+the same numpy inputs, plus the wrappers' input checks; and the arithmetic
+of the kernels that only the card runs (3xTF32 products, the CKA feature
+route's plan), emulated in plain torch."""
+import math
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -11,6 +15,7 @@ from repro.core.cka import cka as jax_cka
 from repro.kernels.attention import ops as jax_att_ops
 from repro.kernels.attention import ref as jax_att_ref
 from repro.kernels.cka import ops as jax_cka_ops
+from repro.kernels.cka import ref as jax_cka_ref
 from repro_torch.core.cka import cka
 from repro_torch.kernels.attention import ops as att_ops
 from repro_torch.kernels.cka import ops as cka_ops
@@ -118,3 +123,211 @@ def test_core_cka_matches_jax(shape, use_kernel):
     got = float(cka(torch.from_numpy(x), torch.from_numpy(y),
                     use_kernel=use_kernel))
     np.testing.assert_allclose(got, want, rtol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# the kernels' arithmetic, which the card alone runs: 3xTF32 products
+# (csrc/tf32x3.cuh) and the CKA feature route's plan (kernels/cka/ops.py)
+
+
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """fp32 rounded to TF32's 10 mantissa bits, to nearest with ties away
+    from zero, as `cvt.rna.tf32.f32` rounds."""
+    bits = x.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _mm(a: torch.Tensor, b: torch.Tensor, products: int) -> torch.Tensor:
+    """a @ b from TF32 operands: the 3xTF32 step (small products first,
+    then big x big, each product of two TF32 values exact in fp32), or a
+    single TF32 product."""
+    a_big, b_big = _tf32(a), _tf32(b)
+    if products == 1:
+        return a_big @ b_big
+    a_small, b_small = _tf32(a - a_big), _tf32(b - b_big)
+    return (a_small @ b_big + a_big @ b_small) + a_big @ b_big
+
+
+def _attention_tf32(q, k, v, causal, products):
+    """`attention_plain` with both products taken as `_mm`."""
+    B, Sq, H, hd = q.shape
+    qh, kh, vh = (t.permute(0, 2, 1, 3) for t in (q, k, v))
+    s = _mm(qh, kh.transpose(-1, -2), products) / math.sqrt(hd)
+    if causal:
+        mask = torch.ones((Sq, Sq), dtype=torch.bool).tril()
+        s = s.masked_fill(~mask, att_ops.NEG_INF)
+    return _mm(torch.softmax(s, dim=-1), vh, products).permute(0, 2, 1, 3)
+
+
+def _cka_terms_tf32(x, y, products):
+    """(hsic, kk, ll) from G = Z^T Z, Z = [X | Y], G in `_mm`."""
+    dx = x.shape[1]
+    z = torch.cat([x, y], dim=1)
+    g = _mm(z.T.contiguous(), z, products).double()
+    return ((g[:dx, dx:] ** 2).sum(), (g[:dx, :dx] ** 2).sum(),
+            (g[dx:, dx:] ** 2).sum())
+
+
+def test_tf32_rounding_keeps_ten_mantissa_bits():
+    x = torch.tensor([1.0, 1 + 2 ** -11, 1 + 3 * 2 ** -11, -(1 + 2 ** -11),
+                      1 + 2 ** -10, 3.0e-3])
+    got = _tf32(x)
+    # ties go away from zero; 2^-10 is kept; the low 13 bits are zero
+    assert got[:5].tolist() == [1.0, 1 + 2 ** -10, 1 + 2 * 2 ** -10,
+                                -(1 + 2 ** -10), 1 + 2 ** -10]
+    assert int((got.view(torch.int32) & 0x1FFF).abs().sum()) == 0
+    assert abs(float(got[5]) - 3.0e-3) <= 3.0e-3 * 2 ** -11
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_3xtf32_attention_meets_the_kernel_tolerance(causal):
+    q, k, v = (_randn((2, 197, 3, 64)) for _ in range(3))
+    want = np.asarray(jax_att_ref.attention_ref(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=causal))
+    tq, tk, tv = (torch.from_numpy(t) for t in (q, k, v))
+    got = _attention_tf32(tq, tk, tv, causal, products=3)
+    np.testing.assert_allclose(got.numpy(), want, rtol=2e-4, atol=2e-5)
+    # one TF32 product keeps ~3 decimal digits: it misses the tolerance,
+    # which is why the kernel takes three
+    single = _attention_tf32(tq, tk, tv, causal, products=1)
+    with pytest.raises(AssertionError):
+        np.testing.assert_allclose(single.numpy(), want, rtol=2e-4,
+                                   atol=2e-5)
+
+
+def _cka_inputs(n, dx, dy):
+    x = _randn((n, dx))
+    y = _randn((n, dy))
+    m = min(dx, dy)
+    y[:, :m] += 0.3 * x[:, :m]
+    return x - x.mean(0), y - y.mean(0)
+
+
+def _max_rel_err(got, want):
+    return max(abs(float(g) - float(w)) / abs(float(w))
+               for g, w in zip(got, want))
+
+
+@pytest.mark.parametrize("n,dx,dy", [(3152, 192, 192), (520, 192, 192),
+                                     (300, 200, 100)])
+def test_3xtf32_cka_terms_meet_the_kernel_tolerance(n, dx, dy):
+    x, y = _cka_inputs(n, dx, dy)
+    want = jax_cka_ref.cka_terms_ref(jnp.asarray(x), jnp.asarray(y))
+    tx, ty = torch.from_numpy(x), torch.from_numpy(y)
+    three = _max_rel_err(_cka_terms_tf32(tx, ty, products=3), want)
+    single = _max_rel_err(_cka_terms_tf32(tx, ty, products=1), want)
+    assert three < 1e-4
+    # unlike attention, one TF32 product would pass here too: its rounding
+    # errors average out over the squared Gram entries. The three products
+    # buy margin, not the pass
+    assert three < single < 1e-4
+
+
+def _plan_terms(x, y, plan):
+    """The feature route's arithmetic in plain torch, block by block as
+    the kernels walk `plan`: each split's partial tile, the splits summed
+    in order, squared, sorted into XX, YY and mixed by column, weighted 2
+    off the diagonal, the mixed sum halved."""
+    T = cka_ops.TILE
+    z = torch.zeros((plan.n, plan.tiles * T))
+    z[:, :plan.dx], z[:, plan.dx:plan.dx + plan.dy] = x, y
+    col = torch.arange(plan.tiles * T)
+    terms = torch.zeros(3, dtype=torch.float64)
+    for p in range(plan.pairs):
+        i, j = plan.pair(p)
+        g = torch.zeros((T, T))
+        for s in range(plan.splits):
+            r0, r1 = plan.row_range(s)
+            g += z[r0:r1, i * T:(i + 1) * T].T @ z[r0:r1, j * T:(j + 1) * T]
+        a = col[i * T:(i + 1) * T, None]
+        b = col[None, j * T:(j + 1) * T]
+        xx = (a < plan.dx) & (b < plan.dx)
+        yy = (a >= plan.dx) & (b >= plan.dx)
+        weight = 1.0 if i == j else 2.0
+        sq = (g * g).double()
+        terms += weight * torch.stack([0.5 * sq[~xx & ~yy].sum(),
+                                       sq[xx].sum(), sq[yy].sum()])
+    return terms
+
+
+RAGGED = [(3152, 192, 192), (3153, 192, 192), (300, 200, 100),
+          (97, 30, 50), (1000, 64, 1), (65, 1, 64)]
+
+
+@pytest.mark.parametrize("n,dx,dy", RAGGED)
+def test_feature_plan_covers_the_gram_once(n, dx, dy):
+    plan = cka_ops.feature_plan(n, dx, dy)
+    T, D = cka_ops.TILE, dx + dy
+    assert (plan.tiles - 1) * T < D <= plan.tiles * T
+    assert plan.rows % cka_ops.SPLIT_ROWS == 0
+    # every row in exactly one split, the last split non-empty
+    rows = torch.zeros(n, dtype=torch.int64)
+    for s in range(plan.splits):
+        r0, r1 = plan.row_range(s)
+        assert r0 < r1
+        rows[r0:r1] += 1
+    assert bool((rows == 1).all())
+    # every entry of G once: a block's tile directly, an off-diagonal
+    # tile's mirror through its weight of 2
+    seen = torch.zeros((plan.tiles * T,) * 2, dtype=torch.int64)
+    pairs = [plan.pair(p) for p in range(plan.pairs)]
+    assert len(set(pairs)) == plan.pairs and all(i <= j for i, j in pairs)
+    for i, j in pairs:
+        seen[i * T:(i + 1) * T, j * T:(j + 1) * T] += 1
+        if i != j:
+            seen[j * T:(j + 1) * T, i * T:(i + 1) * T] += 1
+    assert bool((seen == 1).all())
+
+
+def test_feature_plan_at_the_main_probe():
+    plan = cka_ops.feature_plan(3152, 192, 192)
+    assert (plan.tiles, plan.pairs, plan.splits, plan.rows) == (6, 21, 25, 128)
+    assert plan.row_range(plan.splits - 1) == (3072, 3152)
+
+
+@pytest.mark.parametrize("n,dx,dy", RAGGED[1:4])
+def test_plan_evaluation_matches_jax_cka_terms(n, dx, dy):
+    x, y = _cka_inputs(n, dx, dy)
+    want = jax_cka_ref.cka_terms_ref(jnp.asarray(x), jnp.asarray(y))
+    got = _plan_terms(torch.from_numpy(x), torch.from_numpy(y),
+                      cka_ops.feature_plan(n, dx, dy))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want, np.float64),
+                               rtol=1e-4)
+
+
+@pytest.mark.parametrize("shape,feature", [((3152, 192, 192), True),
+                                           ((100, 1000, 1000), False),
+                                           ((384, 192, 192), True),
+                                           ((383, 192, 192), False),
+                                           ((192, 192, 192), False)])
+def test_cka_route_rule(shape, feature):
+    n, dx, dy = shape
+    assert cka_ops.feature_route(n, dx, dy) is feature
+    # the rule is the one that does less work
+    assert feature == (n * (dx + dy) * (dx + dy + 1)
+                       <= n * (n + 1) * (dx + dy))
+
+
+def test_accumulator_reused_as_a_operand_with_permuted_keys():
+    """flash_attention.cu takes P for O += P V straight from the S
+    accumulator registers (a = c0, c2, c1, c3) and reads V's rows in the
+    order tf32x3::acc_key gives. One warp's m16n8k8 simulated from the
+    PTX fragment tables (the comments in tf32x3.cuh) must give P V."""
+    g, t = np.arange(32) // 4, np.arange(32) % 4
+    a_at = [(g, t), (g + 8, t), (g, t + 4), (g + 8, t + 4)]
+    b_at = [(t, g), (t + 4, g)]
+    c_at = [(g, 2 * t), (g, 2 * t + 1), (g + 8, 2 * t), (g + 8, 2 * t + 1)]
+
+    def acc_key(k):
+        return np.where(k < 4, 2 * k, 2 * (k - 4) + 1)
+
+    P, V = _randn((16, 8)), _randn((8, 8))
+    c = [P[r, col] for r, col in c_at]       # P as an accumulator tile
+    a = [c[0], c[2], c[1], c[3]]              # reused as A, no shuffle
+    b = [V[acc_key(k), col] for k, col in b_at]
+    A, B = np.zeros((16, 8), np.float32), np.zeros((8, 8), np.float32)
+    for reg, (r, col) in zip(a, a_at):
+        A[r, col] = reg
+    for reg, (k, col) in zip(b, b_at):
+        B[k, col] = reg
+    np.testing.assert_allclose(A @ B, P @ V, rtol=1e-6, atol=1e-6)
