@@ -13,12 +13,13 @@ It imports nothing of JAX and nothing of the JAX package, and fails
    which CUDA runtime libraries the process has mapped;
 2. kernel phase: each kernel against its plain PyTorch version on the
    card, at the main-path shapes and at ragged, masked, GQA and head-dim
-   variants; flash attention at both block shapes; CKA through both
-   routes (feature and example form) at every shape, with the route the
-   wrapper took printed and held to its rule, including shapes on the
-   route boundary, with a ragged last row split and with the X/Y column
-   boundary inside a tile; CKA(x, x) = 1; and two launches that agree bit
-   for bit for flash attention, both CKA routes and WKV6;
+   variants; CKA through both routes (feature and example form) at every
+   shape, with the route the wrapper took printed and held to its rule,
+   including shapes on the route boundary, with a ragged last row split
+   and with the X/Y column boundary inside a tile; the feature route's
+   3xTF32 products against float64 on inputs one TF32 product cannot hold;
+   CKA(x, x) = 1; and two launches that agree bit for bit for flash
+   attention, both CKA routes and WKV6;
 3. slice phase at full width: DeiT-tiny (`get_config("deit-tiny")`,
    224x224, 12 layers, d=192) with params from a seeded
    `torch.Generator`, serving every inference event of a
@@ -42,10 +43,11 @@ It imports nothing of JAX and nothing of the JAX package, and fails
    held: they exceed the 3e-2 limit (`rwkv_phase` says why);
 4. timing: each kernel, its plain version and (attention) PyTorch's
    `scaled_dot_product_attention` at the main-path shapes, with CUDA
-   events after a warm-up, beside two bounds the card's published peaks
-   set for the least work the function needs: on the fp32 CUDA cores,
-   and as 3xTF32 on the tensor cores (`bound`); flash attention at both
-   block shapes, CKA through both routes; for CKA also the feature form
+   events around eager calls after a warm-up (`ms`) and from CUDA graphs
+   (`device_ms`, the card's own time), beside two bounds the card's
+   published peaks set for the least work the function needs: on the
+   fp32 CUDA cores, and as 3xTF32 on the tensor cores (`bound`); CKA
+   through both routes; for CKA also the feature form
    that `core/cka.py` takes without the kernel, for WKV6 also the chunked
    form at chunk 32; the DeiT-tiny slice's requests per second and
    rwkv6-3b's prefill and decode tokens per second;
@@ -97,6 +99,9 @@ from repro_torch.runtime.train_loop import as_tensor  # noqa: E402
 # kernel tolerances, as tests/test_kernels.py holds the Pallas kernels
 ATT_RTOL, ATT_ATOL = 2e-4, 2e-5
 CKA_RTOL = 1e-4
+# the CKA feature route against float64 on entries +-(1 + 2^-12): one TF32
+# product is off by ~1e-3 there (check_cka_precision), 3xTF32 must not be
+TF32X3_RTOL = 1e-5
 CKA_HISTORY_ATOL = 1e-4
 WKV_RTOL = WKV_ATOL = 1e-4
 # rwkv6-3b logits: the JAX package's prefill/decode tolerance in bf16
@@ -149,8 +154,7 @@ def mapped_cudart() -> list:
 
 def check_attention(gen, B, S, Hq, Hkv, hd, *, causal=False, window=0,
                     softcap=0.0) -> float:
-    """The wrapper (default block shape) and the other block shape
-    against the plain version; returns the wrapper's max_abs_err."""
+    """The wrapper against the plain version; returns its max_abs_err."""
     q = torch.randn((B, S, Hq, hd), generator=gen).cuda()
     k = torch.randn((B, S, Hkv, hd), generator=gen).cuda()
     v = torch.randn((B, S, Hkv, hd), generator=gen).cuda()
@@ -158,18 +162,12 @@ def check_attention(gen, B, S, Hq, Hkv, hd, *, causal=False, window=0,
                                    softcap=softcap)
     got = att_ops.flash_attention(q, k, v, causal=causal, window=window,
                                   softcap=softcap)
-    other = att_ops._launch(q, k, v, causal, window, softcap,
-                            block_rows=att_ops.BLOCK_ROWS[1])
     torch.cuda.synchronize()
-    errs = []
-    for out in (got, other):
-        torch.testing.assert_close(out, want, rtol=ATT_RTOL, atol=ATT_ATOL)
-        errs.append(float((out - want).abs().max()))
+    torch.testing.assert_close(got, want, rtol=ATT_RTOL, atol=ATT_ATOL)
+    err = float((got - want).abs().max())
     print(f"  flash B{B} S{S} Hq{Hq} Hkv{Hkv} hd{hd} causal={causal} "
-          f"window={window} softcap={softcap}: max_abs_err {errs[0]:.3g} "
-          f"({att_ops.BLOCK_ROWS[0]}-row blocks), {errs[1]:.3g} "
-          f"({att_ops.BLOCK_ROWS[1]}-row blocks)")
-    return errs[0]
+          f"window={window} softcap={softcap}: max_abs_err {err:.3g}")
+    return err
 
 
 def _cka_inputs(gen, n, dx, dy):
@@ -219,6 +217,65 @@ def _terms(launch, xc, yc) -> torch.Tensor:
     return torch.stack([hsic, kk.sqrt(), ll.sqrt()])
 
 
+def tf32(t: torch.Tensor) -> torch.Tensor:
+    """fp32 rounded to TF32's 10 mantissa bits as `cvt.rna.tf32.f32`
+    rounds (to nearest, ties away from zero): the operand of one TF32
+    product."""
+    bits = t.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def cka_terms64(x, y) -> torch.Tensor:
+    """(hsic, kk, ll) in float64, from the feature form."""
+    x, y = x.double(), y.double()
+    return torch.stack([(y.T @ x).square().sum(), (x.T @ x).square().sum(),
+                        (y.T @ y).square().sum()])
+
+
+def _rel_err(got, want) -> float:
+    return float(((got.double() - want) / want).abs().max())
+
+
+def beyond_tf32(gen, n, dx, dy):
+    """X [n, dx], Y [n, dy] of entries +-(1 + 2^-12), rows in +- pairs so
+    every column is centered. TF32 rounds each entry to +-1, so one TF32
+    product is off by 1 - (1 + 2^-12)^-4 ~ 1e-3 in every term; 3xTF32
+    holds the 2^-12 in the small part exactly."""
+    half = torch.randn((n // 2, dx + dy), generator=gen).sign()
+    z = (torch.cat([half, -half]) * (1 + 2 ** -12)).cuda()
+    return z[:, :dx].contiguous(), z[:, dx:].contiguous()
+
+
+def check_cka_precision(gen) -> None:
+    """The feature route's products are 3xTF32, not one TF32 product. At
+    the main shape, its relative error against float64 and that of one
+    TF32 product (inputs rounded to TF32, the rest exact) are printed on
+    Gaussian inputs, where the two are of one size (TF32's rounding
+    errors average out over the squared entries, and the kernel's own
+    error, most likely from the tensor cores' fp32 accumulation, is of
+    that size), and held on `beyond_tf32` inputs, where they are three
+    orders apart."""
+    n, d = MAIN_CKA
+    xc, yc = (cka_ops._prepare(t) for t in _cka_inputs(gen, n, d, d))
+    want = cka_terms64(xc, yc)
+    gauss = (_rel_err(torch.stack(cka_ops._launch_feature(xc, yc)), want),
+             _rel_err(cka_terms64(tf32(xc), tf32(yc)), want))
+    x, y = beyond_tf32(gen, n, d, d)
+    want = cka_terms64(x, y)
+    held = (_rel_err(torch.stack(cka_ops._launch_feature(x, y)), want),
+            _rel_err(cka_terms64(tf32(x), tf32(y)), want))
+    print(f"  cka feature route against float64, max relative error of "
+          f"(hsic, kk, ll) at n{n} d{d}: Gaussian inputs {gauss[0]:.3g} "
+          f"(one TF32 product {gauss[1]:.3g}; not held); entries "
+          f"+-(1 + 2^-12) {held[0]:.3g} (one TF32 product {held[1]:.3g}; "
+          f"limit {TF32X3_RTOL:g})")
+    if not held[0] < TF32X3_RTOL < held[1]:
+        raise AssertionError(f"the CKA feature route is off by {held[0]:.3g} "
+                             f"on inputs TF32 cannot hold, where one TF32 "
+                             f"product is off by {held[1]:.3g}: limit "
+                             f"{TF32X3_RTOL:g}")
+
+
 def _wkv_inputs(gen, B, T, H, n):
     """r, k, v standard normal; log-decay drawn like the model's at init
     (-0.3 to -0.45 per token); bonus u at its init scale."""
@@ -258,13 +315,11 @@ def kernel_phase():
     for hd in (16, 32, 64, 128):
         check_attention(gen, 2, 130, 4, 4, hd)
     q, k, v = (torch.randn(MAIN_ATT, generator=gen).cuda() for _ in range(3))
-    for rows in att_ops.BLOCK_ROWS:
-        first = att_ops._launch(q, k, v, False, 0, 0.0, block_rows=rows)
-        second = att_ops._launch(q, k, v, False, 0, 0.0, block_rows=rows)
-        if not torch.equal(first, second):
-            raise AssertionError(f"two flash launches ({rows}-row blocks) "
-                                 f"differ")
-    print("  flash: two launches agree bit for bit at each block shape")
+    first = att_ops.flash_attention(q, k, v, causal=False)
+    second = att_ops.flash_attention(q, k, v, causal=False)
+    if not torch.equal(first, second):
+        raise AssertionError("two flash launches differ")
+    print("  flash: two launches agree bit for bit")
 
     cka_err = check_cka(gen, *MAIN_CKA, MAIN_CKA[1])  # main path
     for n, dx, dy in ((200, 300, 300), (520, 192, 192), (100, 1000, 1000),
@@ -287,6 +342,7 @@ def kernel_phase():
                                  f"{first} {second}")
     print(f"  cka(x, x) = {one!r}; two launches agree bit for bit on each "
           f"route")
+    check_cka_precision(gen)
 
     wkv_err = check_wkv(gen, *MAIN_WKV)  # main path
     check_wkv(gen, 1, 50, 4, 16)  # ragged T, the reduced head size
@@ -732,23 +788,16 @@ def timing_phase():
     q, k, v = (torch.randn((B, S, H, hd), generator=gen).cuda()
                for _ in range(3))
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-    # the two block shapes in turns (a, b, b, a), the default first
-    rows_ms = {rows: [] for rows in att_ops.BLOCK_ROWS}
-    for rows in (*att_ops.BLOCK_ROWS, *reversed(att_ops.BLOCK_ROWS)):
-        rows_ms[rows].append(device_ms(lambda: att_ops._launch(
-            q, k, v, False, 0, 0.0, block_rows=rows)))
-    rows_ms = {rows: sum(t) / len(t) for rows, t in rows_ms.items()}
+    kernel = lambda: att_ops.flash_attention(  # noqa: E731
+        q, k, v, causal=False)
     sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt)  # noqa: E731
     att = {
-        "ms": rows_ms[att_ops.BLOCK_ROWS[0]],
+        "ms": time_ms(kernel),
         "plain_ms": time_ms(lambda: att_ops.attention_plain(q, k, v,
                                                             causal=False)),
-        "library_ms": device_ms(sdpa),
-        "eager_ms": time_ms(lambda: att_ops.flash_attention(q, k, v,
-                                                            causal=False)),
-        "library_eager_ms": time_ms(sdpa),
-        "block_rows": att_ops.BLOCK_ROWS[0],
-        "ms_by_block_rows": rows_ms,
+        "library_ms": time_ms(sdpa),
+        "device_ms": device_ms(kernel),
+        "library_device_ms": device_ms(sdpa),
     }
     flops = 4.0 * B * H * S * S * hd
     nbytes = 4.0 * 4 * B * S * H * hd
@@ -757,15 +806,15 @@ def timing_phase():
     n, d = MAIN_CKA
     x, y = _cka_inputs(gen, n, d, d)
     xc, yc = cka_ops._prepare(x), cka_ops._prepare(y)
+    feature = lambda: cka_ops._launch_feature(xc, yc)  # noqa: E731
+    example = lambda: cka_ops._launch_example(xc, yc)  # noqa: E731
     cka = {
-        "ms": device_ms(lambda: cka_ops._launch_feature(xc, yc)),
+        "ms": time_ms(feature),
         "plain_ms": time_ms(lambda: cka_ops.cka_terms_plain(xc, yc)),
         "library_ms": None,
-        "eager_ms": time_ms(lambda: cka_ops._launch_feature(xc, yc)),
-        "example_route_ms": device_ms(lambda: cka_ops._launch_example(xc,
-                                                                      yc)),
-        "example_route_eager_ms": time_ms(
-            lambda: cka_ops._launch_example(xc, yc)),
+        "device_ms": device_ms(feature),
+        "example_route_ms": time_ms(example),
+        "example_route_device_ms": device_ms(example),
     }
     # the least work, which the feature route does: Y^T X and the upper
     # triangles of X^T X and Y^T Y
@@ -775,19 +824,19 @@ def timing_phase():
     # the example route tiles the upper triangle of both n x n Grams
     design = bound(2.0 * (d + d) * n * (n + 1) / 2, nbytes)
     feature_ms = time_ms(lambda: cka_feature_form(xc, yc, use_kernel=False))
-    print("  kernel and library times: the card's, from CUDA graphs "
-          "(device_ms); eager: CUDA events around eager calls (time_ms)")
+    print("  eager: CUDA events around 50 eager calls (ms; the host's time "
+          "where launching is slower than the card); device: CUDA graphs "
+          "(device_ms)")
     for name, t in (("flash_attention", att), ("cka_terms", cka)):
-        lib = "n/a" if t["library_ms"] is None else f"{t['library_ms']:.4f}"
-        print(f"  {name}: kernel {t['ms']:.4f} ms (eager {t['eager_ms']:.4f}"
-              f"), plain {t['plain_ms']:.4f} ms, library {lib} ms, bound "
-              f"{t['bound_ms']:.4f} ms ({t['bound_by']}, {t['bound_kind']}; "
-              f"on the fp32 CUDA cores {t['bound_fp32_ms']:.4f} ms)")
-    print(f"  flash_attention: SDPA eager {att['library_eager_ms']:.4f} ms; "
-          f"by block shape (query rows): " + ", ".join(
-              f"{rows} rows {t:.4f} ms" for rows, t in rows_ms.items()))
+        lib = "n/a" if t["library_ms"] is None else \
+            f"{t['library_ms']:.4f} (device {t['library_device_ms']:.4f})"
+        print(f"  {name}: kernel {t['ms']:.4f} ms (device "
+              f"{t['device_ms']:.4f}), plain {t['plain_ms']:.4f} ms, library "
+              f"{lib} ms, bound {t['bound_ms']:.4f} ms ({t['bound_by']}, "
+              f"{t['bound_kind']}; on the fp32 CUDA cores "
+              f"{t['bound_fp32_ms']:.4f} ms)")
     print(f"  cka_terms: the example route {cka['example_route_ms']:.4f} ms "
-          f"(eager {cka['example_route_eager_ms']:.4f}; its design's own "
+          f"(device {cka['example_route_device_ms']:.4f}; its design's own "
           f"limit {design['bound_ms']:.4f} ms, {design['bound_by']}, fp32 "
           f"CUDA cores); the plain feature form that core/cka.py takes "
           f"without the kernel {feature_ms:.4f} ms")
@@ -797,11 +846,11 @@ def timing_phase():
     kernel = lambda: wkv_ops.wkv(r, k, v, logw, u,  # noqa: E731
                                  return_state=True)
     wkv = {
-        "ms": device_ms(kernel, calls=5),
+        "ms": time_ms(kernel),
         "plain_ms": time_ms(lambda: wkv_ops.wkv_plain(r, k, v, logw, u),
                             iters=3, warmup=1),
         "library_ms": None,
-        "eager_ms": time_ms(kernel),
+        "device_ms": device_ms(kernel, calls=5),
     }
     # r, k, v, logw read and o written once, u read, the final state
     # written; ~5n^2 operations per token and head: r.S (2n^2), the decay
@@ -810,8 +859,9 @@ def timing_phase():
     wkv.update(bound(5.0 * n * n * B * T * H, nbytes))
     chunked_ms = time_ms(lambda: wkv_chunked(r, k, v, logw, u, chunk=32),
                          iters=10, warmup=2)
-    print(f"  wkv6: kernel {wkv['ms']:.4f} ms (eager {wkv['eager_ms']:.4f}), "
-          f"plain {wkv['plain_ms']:.4f} ms, library none, bound "
+    print(f"  wkv6: kernel {wkv['ms']:.4f} ms (device "
+          f"{wkv['device_ms']:.4f}), plain {wkv['plain_ms']:.4f} ms, "
+          f"library none, bound "
           f"{wkv['bound_ms']:.4f} ms "
           f"({wkv['bound_by']}); the chunked form at chunk 32 "
           f"{chunked_ms:.4f} ms")

@@ -16,7 +16,7 @@
 // CUDA cores (67 TFLOP/s) alone would need 7.1 us.
 //
 // Design: both products run on the tensor cores as 3xTF32 mma.sync
-// m16n8k8. One block per (batch*q-head, NW*16-row q tile); each warp owns
+// m16n8k8. One block per (batch*q-head, 64-row q tile); each warp owns
 // 16 query rows, loads its Q fragments once, splits them into big and
 // small TF32 parts and keeps them in registers for the whole kv loop. K
 // and V tiles of 32 keys go to shared memory by cp.async into two buffers:
@@ -34,10 +34,9 @@
 // lie between the two products. q, k and v are read in place from
 // [B, S, H, hd] through their strides; the kv head is h / (Hq / Hkv).
 // Keys are masked by the true Sk, so a ragged last tile (197 = 6*32 + 5)
-// needs no padding: its missing rows are zero-filled by cp.async. Two
-// block shapes are built, 4 and 2 warps (64 and 32 query rows); the
-// wrapper takes 64, the faster at the main-path shape (PERF.md), and
-// chip_smoke.py times both. wgmma and TMA are for a later version.
+// needs no padding: its missing rows are zero-filled by cp.async. A block
+// is 4 warps (64 query rows), which beat 2 warps (32 rows, 336 blocks) at
+// the main-path shape (PERF.md). wgmma and TMA are for a later version.
 
 #include <cuda_runtime.h>
 
@@ -55,7 +54,9 @@ constexpr size_t smem_bytes() {
   return sizeof(float) * 2 * 2 * BK * (HD + 4);  // [buf][K, V][BK][HD + 4]
 }
 
-template <int HD, int NW>
+constexpr int NW = 4;  // warps per block, 16 query rows each
+
+template <int HD>
 __global__ void __launch_bounds__(NW * 32)
 flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ o,
@@ -231,7 +232,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-template <int HD, int NW>
+template <int HD>
 cudaError_t launch(const float* q, const float* k, const float* v, float* o,
                    int B, int Sq, int Sk, int Hq, int Hkv,
                    long long qsb, long long qss, long long qsh,
@@ -240,12 +241,15 @@ cudaError_t launch(const float* q, const float* k, const float* v, float* o,
                    int causal, int window, float softcap, float scale,
                    cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<HD>();
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<HD, NW>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  const dim3 grid(B * Hq, (Sq + 16 * NW - 1) / (16 * NW));
-  flash_fwd_kernel<HD, NW><<<grid, NW * 32, smem, stream>>>(
+  if constexpr (smem > 48 * 1024) {  // past the default limit: hd 128
+    const cudaError_t err = cudaFuncSetAttribute(
+        flash_fwd_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+  }
+  constexpr int BQ = 16 * NW;
+  const dim3 grid(B * Hq, (Sq + BQ - 1) / BQ);
+  flash_fwd_kernel<HD><<<grid, NW * 32, smem, stream>>>(
       q, k, v, o, Sq, Sk, Hq, Hq / Hkv, qsb, qss, qsh, ksb, kss, ksh,
       vsb, vss, vsh, causal, window, softcap, scale);
   return cudaGetLastError();
@@ -256,29 +260,7 @@ cudaError_t launch(const float* q, const float* k, const float* v, float* o,
 // q [B,Sq,Hq,hd], k/v [B,Sk,Hkv,hd] fp32 with unit stride on hd and the
 // given element strides on batch, sequence and head; k and v 16-byte
 // aligned with strides that are multiples of 4; o [B,Sq,Hq,hd] fp32
-// contiguous. block_rows is 32 or 64 query rows per block. Returns a
-// cudaError_t (0 = launched).
-extern "C" int flash_attention_fwd_rows(
-    const float* q, const float* k, const float* v, float* o,
-    int B, int Sq, int Sk, int Hq, int Hkv, int hd,
-    long long qsb, long long qss, long long qsh,
-    long long ksb, long long kss, long long ksh,
-    long long vsb, long long vss, long long vsh,
-    int causal, int window, float softcap, float scale, void* stream,
-    int block_rows) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define FLASH_CASE(D, NW)                                                   \
-  if (hd == D && block_rows == 16 * NW)                                     \
-    return launch<D, NW>(q, k, v, o, B, Sq, Sk, Hq, Hkv, qsb, qss, qsh,     \
-                         ksb, kss, ksh, vsb, vss, vsh, causal, window,      \
-                         softcap, scale, st);
-  FLASH_CASE(16, 2) FLASH_CASE(32, 2) FLASH_CASE(64, 2) FLASH_CASE(128, 2)
-  FLASH_CASE(16, 4) FLASH_CASE(32, 4) FLASH_CASE(64, 4) FLASH_CASE(128, 4)
-#undef FLASH_CASE
-  return cudaErrorInvalidValue;
-}
-
-// the entry point at the default block shape (64 query rows)
+// contiguous. Returns a cudaError_t (0 = launched).
 extern "C" int flash_attention_fwd(
     const float* q, const float* k, const float* v, float* o,
     int B, int Sq, int Sk, int Hq, int Hkv, int hd,
@@ -286,7 +268,19 @@ extern "C" int flash_attention_fwd(
     long long ksb, long long kss, long long ksh,
     long long vsb, long long vss, long long vsh,
     int causal, int window, float softcap, float scale, void* stream) {
-  return flash_attention_fwd_rows(q, k, v, o, B, Sq, Sk, Hq, Hkv, hd, qsb,
-                                  qss, qsh, ksb, kss, ksh, vsb, vss, vsh,
-                                  causal, window, softcap, scale, stream, 64);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define FLASH_CASE(D)                                                       \
+  case D:                                                                   \
+    return launch<D>(q, k, v, o, B, Sq, Sk, Hq, Hkv, qsb, qss, qsh, ksb,    \
+                     kss, ksh, vsb, vss, vsh, causal, window, softcap,      \
+                     scale, st);
+  switch (hd) {
+    FLASH_CASE(16)
+    FLASH_CASE(32)
+    FLASH_CASE(64)
+    FLASH_CASE(128)
+    default:
+      return cudaErrorInvalidValue;
+  }
+#undef FLASH_CASE
 }

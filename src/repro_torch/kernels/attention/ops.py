@@ -10,11 +10,10 @@ the output is fp32 [B, Sq, Hq, hd].
 `attention_plain`, a CUDA tensor launches the kernel or raises. The
 kernel computes both products on the tensor cores as 3xTF32
 (`csrc/tf32x3.cuh`), to fp32 accuracy. Its tiles are fixed, 64 query rows
-(or 32, `BLOCK_ROWS`) by 32 keys, so the TPU wrapper's
-`bq`/`bk`/`interpret` arguments have no counterpart. Unlike the TPU
-wrapper, which zero-pads Sk and masks the padded keys only through the
-causal test, the kernel masks keys by the true Sk, so non-causal ragged
-shapes agree with `ref.attention_ref`.
+by 32 keys, so the TPU wrapper's `bq`/`bk`/`interpret` arguments have no
+counterpart. Unlike the TPU wrapper, which zero-pads Sk and masks the
+padded keys only through the causal test, the kernel masks keys by the
+true Sk, so non-causal ragged shapes agree with `ref.attention_ref`.
 """
 from __future__ import annotations
 
@@ -27,12 +26,11 @@ from repro_torch.kernels import build
 
 NEG_INF = -1e30
 HEAD_DIMS = (16, 32, 64, 128)  # the kernel's template instances
-BLOCK_ROWS = (64, 32)  # query rows per block: the default, then the other
 
 _ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
              + [ctypes.c_longlong] * 9
              + [ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_float,
-                ctypes.c_void_p, ctypes.c_int])
+                ctypes.c_void_p])
 
 
 def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -77,7 +75,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if min(B, Sq, Hq, hd, k.shape[1], k.shape[2]) < 1 or Hq % k.shape[2]:
         raise ValueError(f"empty shape or Hq={Hq} not a multiple of "
                          f"Hkv={k.shape[2]}")
-    if not all(t.is_floating_point() for t in (q, k, v)):
+    if not (q.is_floating_point() and k.is_floating_point()
+            and v.is_floating_point()):
         raise TypeError("q, k, v must be floating point")
     if not (q.device == k.device == v.device):
         raise ValueError("q, k, v must be on one device")
@@ -98,31 +97,26 @@ def _copyable(t: torch.Tensor) -> torch.Tensor:
     """`t` itself when cp.async can copy its rows in 16-byte units (unit
     stride on hd, other strides multiples of 4 floats, 16-byte aligned),
     else a contiguous copy, which is."""
-    if t.stride(3) == 1 and t.data_ptr() % 16 == 0 and \
-            all(s % 4 == 0 for s in t.stride()[:3]):
+    sb, ss, sh, sd = t.stride()
+    if sd == 1 and not (sb | ss | sh) & 3 and not t.data_ptr() & 15:
         return t
     return t.clone(memory_format=torch.contiguous_format)
 
 
-def _launch(q, k, v, causal, window, softcap, block_rows=BLOCK_ROWS[0]):
+def _launch(q, k, v, causal, window, softcap):
     B, Sq, Hq, hd = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
     if hd not in HEAD_DIMS:
         raise ValueError(f"the flash kernel takes head dims {HEAD_DIMS}; "
                          f"got {hd}")
-    if block_rows not in BLOCK_ROWS:
-        raise ValueError(f"block_rows must be one of {BLOCK_ROWS}")
-    q, k, v = (_copyable(t) for t in (q, k, v))
-    fn = build.load("flash_attention").flash_attention_fwd_rows
-    fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
+    q, k, v = _copyable(q), _copyable(k), _copyable(v)
+    fn = build.entry("flash_attention", "flash_attention_fwd", _ARGTYPES)
     o = torch.empty((B, Sq, Hq, hd), dtype=torch.float32, device=q.device)
-    with torch.cuda.device(q.device):
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                 B, Sq, Sk, Hq, Hkv, hd,
-                 *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-                 int(causal), int(window), float(softcap),
-                 1.0 / math.sqrt(hd),
-                 torch.cuda.current_stream(q.device).cuda_stream, block_rows)
+    err = build.call(fn, q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                     o.data_ptr(), B, Sq, Sk, Hq, Hkv, hd,
+                     *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+                     int(causal), int(window), float(softcap),
+                     1.0 / math.sqrt(hd))
     if err:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
                            f"error {err}")

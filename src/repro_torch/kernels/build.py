@@ -10,7 +10,8 @@ header is rebuilt and an unchanged one is reused.
 
 Nothing is built or loaded when a module is imported: the first launch
 builds what it needs, and `build` compiles several sources at once, one
-nvcc process each.
+nvcc process each. `entry` and `call` keep the host's share of a launch
+small: the wrappers run eagerly, hundreds of launches a slice run.
 """
 from __future__ import annotations
 
@@ -20,7 +21,9 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Any, Dict, Iterable, Sequence, Tuple
+
+import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -37,6 +40,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # loaded libraries, one per source for the life of the process (ctypes
 # would map the same file once anyway)
 _LIBS: Dict[str, ctypes.CDLL] = {}
+# C entry points with their argument types set, by (source, symbol)
+_ENTRIES: Dict[Tuple[str, str], Any] = {}
 
 
 def _nvcc() -> str:
@@ -97,3 +102,30 @@ def load(name: str) -> ctypes.CDLL:
             build([name])
         lib = _LIBS[name] = ctypes.CDLL(str(path))
     return lib
+
+
+def entry(name: str, symbol: str, argtypes: Sequence[Any]):
+    """The C function `symbol` of `csrc/<name>.cu`, returning a
+    cudaError_t as an int. Its argument types are set once, on the first
+    call: setting them again on every launch costs the host microseconds
+    a launch."""
+    fn = _ENTRIES.get((name, symbol))
+    if fn is None:
+        fn = getattr(load(name), symbol)
+        fn.argtypes, fn.restype = list(argtypes), ctypes.c_int
+        _ENTRIES[(name, symbol)] = fn
+    return fn
+
+
+def call(fn, device: torch.device, *args) -> int:
+    """`fn(*args, stream)` with `device`'s current stream, `device` made
+    the current one for the call where it is not. The stream is read on
+    every call (a CUDA graph captures on a stream of its own) as the raw
+    handle that torch's compiled kernels take, without the Stream object
+    `torch.cuda.current_stream` builds."""
+    idx = device.index
+    stream = torch._C._cuda_getCurrentRawStream(idx)
+    if idx == torch.cuda.current_device():
+        return fn(*args, stream)
+    with torch.cuda.device(idx):
+        return fn(*args, stream)

@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 
 import torch
 
@@ -87,6 +88,7 @@ class FeaturePlan:
         return s * self.rows, min(self.n, (s + 1) * self.rows)
 
 
+@functools.lru_cache(maxsize=None)
 def feature_plan(n: int, dx: int, dy: int) -> FeaturePlan:
     """Enough row splits that pairs x splits comes near TARGET_BLOCKS,
     each a whole number of SPLIT_ROWS-row steps. At the DeiT-tiny probe
@@ -153,31 +155,25 @@ def _launch_example(x, y):
     """The example-form kernel on centered, contiguous fp32 x and y."""
     n, dx = x.shape
     dy = y.shape[1]
-    fn = build.load("cka_terms").cka_terms_fwd
-    fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
+    fn = build.entry("cka_terms", "cka_terms_fwd", _ARGTYPES)
     partials = torch.empty(3 * num_tile_pairs(n), dtype=torch.float32,
                            device=x.device)
     out = torch.empty(3, dtype=torch.float32, device=x.device)
-    with torch.cuda.device(x.device):
-        err = fn(x.data_ptr(), y.data_ptr(), n, dx, dy, partials.data_ptr(),
-                 out.data_ptr(),
-                 torch.cuda.current_stream(x.device).cuda_stream)
+    err = build.call(fn, x.device, x.data_ptr(), y.data_ptr(), n, dx, dy,
+                     partials.data_ptr(), out.data_ptr())
     return _counted("example", err, out)
 
 
 def _launch_feature(x, y):
     """The feature-form kernels on centered, contiguous fp32 x and y."""
     plan = feature_plan(x.shape[0], x.shape[1], y.shape[1])
-    fn = build.load("cka_terms").cka_terms_feature_fwd
-    fn.argtypes, fn.restype = _FEATURE_ARGTYPES, ctypes.c_int
+    fn = build.entry("cka_terms", "cka_terms_feature_fwd", _FEATURE_ARGTYPES)
     gram = torch.empty(plan.splits * plan.pairs * TILE * TILE,
                        dtype=torch.float32, device=x.device)
     partials = torch.empty(3 * plan.pairs * FOLD_PARTS, dtype=torch.float32,
                            device=x.device)
     out = torch.empty(3, dtype=torch.float32, device=x.device)
-    with torch.cuda.device(x.device):
-        err = fn(x.data_ptr(), y.data_ptr(), plan.n, plan.dx, plan.dy,
-                 plan.tiles, plan.splits, plan.rows, gram.data_ptr(),
-                 partials.data_ptr(), out.data_ptr(),
-                 torch.cuda.current_stream(x.device).cuda_stream)
+    err = build.call(fn, x.device, x.data_ptr(), y.data_ptr(), plan.n,
+                     plan.dx, plan.dy, plan.tiles, plan.splits, plan.rows,
+                     gram.data_ptr(), partials.data_ptr(), out.data_ptr())
     return _counted("feature", err, out)

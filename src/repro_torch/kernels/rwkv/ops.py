@@ -96,13 +96,11 @@ def _launch(r, k, v, logw, u, s0):
     s_out = torch.empty((B, H, n, n), dtype=torch.float32, device=r.device)
     if B * H == 0:
         return o, s_out
-    fn = build.load("wkv6").wkv6_fwd
-    fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
-    with torch.cuda.device(r.device):
-        err = fn(r.data_ptr(), k.data_ptr(), v.data_ptr(), logw.data_ptr(),
-                 u.data_ptr(), None if s0 is None else s0.data_ptr(),
-                 o.data_ptr(), s_out.data_ptr(), B, T, H, n,
-                 torch.cuda.current_stream(r.device).cuda_stream)
+    fn = build.entry("wkv6", "wkv6_fwd", _ARGTYPES)
+    err = build.call(fn, r.device, r.data_ptr(), k.data_ptr(), v.data_ptr(),
+                     logw.data_ptr(), u.data_ptr(),
+                     None if s0 is None else s0.data_ptr(), o.data_ptr(),
+                     s_out.data_ptr(), B, T, H, n)
     if err:
         raise RuntimeError(f"wkv6 kernel launch failed: CUDA error {err}")
     wkv.launches += 1

@@ -2,6 +2,9 @@
 libraries go, when they are rebuilt, and what happens where no kernel can
 run. The kernels themselves build and run only on a GPU machine
 (tests/test_torch_cuda.py)."""
+import ctypes
+import types
+
 import pytest
 import torch
 
@@ -59,6 +62,83 @@ def test_build_skips_sources_already_built(tmp_path, monkeypatch):
     monkeypatch.setattr(build, "BUILD_DIR", tmp_path)
     build.library_path("cka_terms").write_bytes(b"")
     assert build.build(["cka_terms"]) == {}
+
+
+def test_entry_sets_argument_types_once(monkeypatch):
+    loads = []
+    lib = types.SimpleNamespace(fwd=types.SimpleNamespace())
+
+    def load(name):
+        loads.append(name)
+        return lib
+
+    monkeypatch.setattr(build, "load", load)
+    monkeypatch.setattr(build, "_ENTRIES", {})
+    fn = build.entry("k", "fwd", [ctypes.c_int])
+    assert fn is lib.fwd and fn.argtypes == [ctypes.c_int]
+    assert fn.restype is ctypes.c_int
+    fn.argtypes = None  # set again only if the entry were looked up anew
+    assert build.entry("k", "fwd", [ctypes.c_int]) is fn
+    assert fn.argtypes is None and loads == ["k"]
+
+
+@pytest.mark.parametrize("current,guarded", [(0, False), (1, True)])
+def test_call_passes_the_raw_stream_and_guards_another_device(
+        monkeypatch, current, guarded):
+    entered = []
+
+    class Guard:
+        def __init__(self, idx):
+            self.idx = idx
+
+        def __enter__(self):
+            entered.append(self.idx)
+
+        def __exit__(self, *exc):
+            return False
+
+    monkeypatch.setattr(torch._C, "_cuda_getCurrentRawStream",
+                        lambda idx: 1000 + idx, raising=False)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: current)
+    monkeypatch.setattr(torch.cuda, "device", Guard)
+    got = build.call(lambda *args: args, torch.device("cuda", 0), 7, 8)
+    assert got == (7, 8, 1000)
+    assert entered == ([0] if guarded else [])
+
+
+def _hd_stride_2(t):
+    return torch.stack([t, torch.zeros_like(t)], dim=-1)[..., 0]
+
+
+def _misaligned(t):
+    flat = torch.empty(t.numel() + 1)
+    out = flat[1:].view(t.shape)  # 4 bytes past an aligned allocation
+    out.copy_(t)
+    return out
+
+
+def _row_stride_odd(t):
+    padded = torch.zeros((*t.shape[:3], t.shape[3] + 1))
+    padded[..., :-1] = t
+    return padded[..., :-1]
+
+
+@pytest.mark.parametrize("layout,kept", [
+    (lambda t: t, True),
+    (lambda t: torch.stack([t, t, t], dim=2).unbind(2)[1], True),  # fused qkv
+    (_hd_stride_2, False),
+    (_misaligned, False),
+    (_row_stride_odd, False),
+])
+def test_flash_inputs_are_copied_only_where_cp_async_cannot_read(layout,
+                                                                 kept):
+    t = layout(torch.randn((2, 5, 3, 16), generator=torch.Generator()
+                           .manual_seed(0)))
+    out = att_ops._copyable(t)
+    assert (out is t) == kept
+    assert torch.equal(out, t) and out.stride(3) == 1
+    assert out.data_ptr() % 16 == 0
+    assert all(s % 4 == 0 for s in out.stride()[:3])
 
 
 @pytest.mark.parametrize("call", [

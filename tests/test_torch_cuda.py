@@ -50,21 +50,53 @@ def test_flash_kernel_matches_plain(gen, B, S, Hq, Hkv, hd, causal, window,
     torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-5)
 
 
-@pytest.mark.parametrize("block_rows", att_ops.BLOCK_ROWS)
-def test_flash_kernel_reads_strided_inputs(gen, block_rows):
+def test_flash_kernel_reads_strided_inputs(gen):
     # q, k, v as views into one fused [B, S, 3, H, hd] projection
     qkv = _randn(gen, (2, 197, 3, 3, 64))
     q, k, v = qkv.unbind(2)
+    torch.testing.assert_close(att_ops.flash_attention(q, k, v, causal=False),
+                               att_ops.attention_plain(q, k, v, causal=False),
+                               rtol=2e-4, atol=2e-5)
+
+
+def _hd_stride_2(t):
+    return torch.stack([t, torch.zeros_like(t)], dim=-1)[..., 0]
+
+
+def _misaligned(t):
+    flat = torch.empty(t.numel() + 1, device=t.device)
+    out = flat[1:].view(t.shape)  # 4 bytes past a 16-byte boundary
+    out.copy_(t)
+    return out
+
+
+def _row_stride_odd(t):
+    padded = torch.zeros((*t.shape[:3], t.shape[3] + 1), device=t.device)
+    padded[..., :-1] = t
+    return padded[..., :-1]
+
+
+@pytest.mark.parametrize("layout", [_hd_stride_2, _misaligned,
+                                    _row_stride_odd])
+def test_flash_kernel_copies_inputs_cp_async_cannot_read(gen, layout):
+    # k and v that cp.async cannot copy in 16-byte units are copied
+    # contiguous first (attention ops._copyable); q takes the same path
+    q, k, v = (_randn(gen, (2, 130, 2, 32)) for _ in range(3))
+    q, k, v = layout(q), layout(k), layout(v)
+    assert k.stride(3) != 1 or k.data_ptr() % 16 or k.stride(2) % 4
+    before = att_ops.flash_attention.launches
+    got = att_ops.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert att_ops.flash_attention.launches == before + 1
     torch.testing.assert_close(
-        att_ops._launch(q, k, v, False, 0, 0.0, block_rows=block_rows),
-        att_ops.attention_plain(q, k, v, causal=False), rtol=2e-4, atol=2e-5)
+        got, att_ops.attention_plain(q, k, v, causal=True),
+        rtol=2e-4, atol=2e-5)
 
 
-@pytest.mark.parametrize("block_rows", att_ops.BLOCK_ROWS)
-def test_flash_kernel_is_deterministic(gen, block_rows):
+def test_flash_kernel_is_deterministic(gen):
     q, k, v = (_randn(gen, (16, 197, 3, 64)) for _ in range(3))
-    first = att_ops._launch(q, k, v, False, 0, 0.0, block_rows=block_rows)
-    second = att_ops._launch(q, k, v, False, 0, 0.0, block_rows=block_rows)
+    first = att_ops.flash_attention(q, k, v, causal=False)
+    second = att_ops.flash_attention(q, k, v, causal=False)
     assert torch.equal(first, second)
 
 
@@ -111,6 +143,22 @@ def test_cka_kernel_is_deterministic_and_one_on_itself(gen, route):
                        torch.stack(launch(xc, yc)))
     hsic, kk, ll = launch(xc, xc)
     assert abs(float(hsic / (kk.sqrt() * ll.sqrt())) - 1.0) < 1e-5
+    # and through the public wrapper, which takes the feature route here
+    assert abs(float(cka_ops.cka(x, x)) - 1.0) < 1e-5
+
+
+def test_cka_feature_route_products_are_3xtf32(gen):
+    # entries +-(1 + 2^-12), rows in +- pairs so the columns are centered:
+    # TF32 rounds every entry to +-1, so one TF32 product would be off by
+    # 1 - (1 + 2^-12)^-4 ~ 1e-3 in every term; 3xTF32 keeps the 2^-12
+    half = torch.randn((1576, 384), generator=gen).sign()
+    z = (torch.cat([half, -half]) * (1 + 2 ** -12)).cuda()
+    x, y = z[:, :192].contiguous(), z[:, 192:].contiguous()
+    got = torch.stack(cka_ops._launch_feature(x, y)).double()
+    x, y = x.double(), y.double()
+    want = torch.stack([(y.T @ x).square().sum(), (x.T @ x).square().sum(),
+                        (y.T @ y).square().sum()])
+    assert float(((got - want) / want).abs().max()) < 1e-5
 
 
 def _wkv_inputs(gen, B, T, H, n):

@@ -223,6 +223,32 @@ def test_3xtf32_cka_terms_meet_the_kernel_tolerance(n, dx, dy):
     assert three < single < 1e-4
 
 
+def _beyond_tf32(n, dx, dy):
+    """X, Y of entries +-(1 + 2^-12), rows in +- pairs so the columns are
+    centered: TF32 rounds every entry to +-1."""
+    half = np.sign(_randn((n // 2, dx + dy)))
+    z = (np.concatenate([half, -half]) * (1 + 2 ** -12)).astype(np.float32)
+    return np.ascontiguousarray(z[:, :dx]), np.ascontiguousarray(z[:, dx:])
+
+
+def test_one_tf32_product_misses_what_tf32_cannot_hold():
+    # chip_smoke.py holds the CKA feature route to 1e-5 of float64 on
+    # these inputs, to tell 3xTF32 from one TF32 product: 3xTF32 meets
+    # that, one product misses even rtol 1e-4 (it is off by
+    # 1 - (1 + 2^-12)^-4 ~ 1e-3 in every term)
+    x, y = _beyond_tf32(3152, 192, 192)
+    x64, y64 = x.astype(np.float64), y.astype(np.float64)
+    want = [np.sum((y64.T @ x64) ** 2), np.sum((x64.T @ x64) ** 2),
+            np.sum((y64.T @ y64) ** 2)]
+    np.testing.assert_allclose(
+        np.asarray(jax_cka_ref.cka_terms_ref(jnp.asarray(x), jnp.asarray(y)),
+                   np.float64), want, rtol=1e-5)
+    tx, ty = torch.from_numpy(x), torch.from_numpy(y)
+    three = _max_rel_err(_cka_terms_tf32(tx, ty, products=3), want)
+    single = _max_rel_err(_cka_terms_tf32(tx, ty, products=1), want)
+    assert three < 1e-5 < 1e-4 < single
+
+
 def _plan_terms(x, y, plan):
     """The feature route's arithmetic in plain torch, block by block as
     the kernels walk `plan`: each split's partial tile, the splits summed
