@@ -113,7 +113,8 @@ MARGIN = 6e-2
 KERNELS = ("flash_attention", "cka_terms", "wkv6")
 # the CUDA kernels of those sources, as the profiler names them
 PORT_KERNELS = ("flash_fwd_kernel", "cka_gram_kernel", "cka_fold_kernel",
-                "cka_sum_kernel", "cka_tiles_kernel", "wkv6_kernel")
+                "cka_sum_kernel", "cka_tiles_kernel", "wkv6_scan_kernel",
+                "wkv6_carry_kernel")
 # published peaks of one H100 SXM (NVIDIA data sheet): fp32 on the CUDA
 # cores, dense TF32 on the tensor cores and HBM3 bandwidth
 PEAK_FP32_FLOPS = 67e12
@@ -276,29 +277,48 @@ def check_cka_precision(gen) -> None:
                              f"{TF32X3_RTOL:g}")
 
 
-def _wkv_inputs(gen, B, T, H, n):
-    """r, k, v standard normal; log-decay drawn like the model's at init
-    (-0.3 to -0.45 per token); bonus u at its init scale."""
+def _wkv_inputs(gen, B, T, H, n, draw="init"):
+    """r, k, v standard normal; bonus u at its init scale; log-decay drawn
+    like the model's at init (-0.3 to -0.45 per token) or, with draw
+    "wide", as -exp(U(-8, 2)) (-7.4 to -3e-4 per token, the range a
+    trained RWKV-6's decays take), where a chunk-start factorization
+    exp(c_t) exp(-c_s) overflows."""
     r, k, v = (torch.randn((B, T, H, n), generator=gen).cuda()
                for _ in range(3))
-    logw = -(0.3 + 0.15 * torch.rand((B, T, H, n), generator=gen)).cuda()
+    if draw == "init":
+        logw = -(0.3 + 0.15 * torch.rand((B, T, H, n), generator=gen))
+    else:
+        logw = -torch.exp(-8 + 10 * torch.rand((B, T, H, n), generator=gen))
     u = (0.3 * torch.randn((H, n), generator=gen)).cuda()
-    return r, k, v, logw, u
+    return r, k, v, logw.cuda(), u
 
 
-def check_wkv(gen, B, T, H, n, *, with_s0=False) -> float:
-    inputs = _wkv_inputs(gen, B, T, H, n)
+def check_wkv(gen, B, T, H, n, *, with_s0=False, draw="init",
+              segments=0) -> float:
+    """The wrapper (or, with `segments`, the kernel at about that many
+    time segments) against the plain version; returns its max_abs_err."""
+    inputs = _wkv_inputs(gen, B, T, H, n, draw)
     s0 = (0.1 * torch.randn((B, H, n, n), generator=gen)).cuda() \
         if with_s0 else None
-    o, s = wkv_ops.wkv(*inputs, s0=s0, return_state=True)
+    if segments:
+        o, s = wkv_ops._launch(*inputs, s0, segments=segments)
+    else:
+        o, s = wkv_ops.wkv(*inputs, s0=s0, return_state=True)
     want_o, want_s = wkv_ops.wkv_plain(*inputs, s0=s0)
     torch.cuda.synchronize()
     torch.testing.assert_close(o, want_o, rtol=WKV_RTOL, atol=WKV_ATOL)
     torch.testing.assert_close(s, want_s, rtol=WKV_RTOL, atol=WKV_ATOL)
     err = max(float((o - want_o).abs().max()), float((s - want_s).abs().max()))
-    print(f"  wkv6 B{B} T{T} H{H} n{n} s0={with_s0}: max_abs_err {err:.3g} "
-          f"(o and final state; max |o| {float(want_o.abs().max()):.3g})")
+    P, L = wkv_ops.segment_plan(B, T, H, n, segments)
+    print(f"  wkv6 B{B} T{T} H{H} n{n} s0={with_s0} {draw} draw, {P} "
+          f"segment(s) of {L}{' (forced)' if segments else ''}: max_abs_err "
+          f"{err:.3g} (o and final state; max |o| "
+          f"{float(want_o.abs().max()):.3g})")
     return err
+
+
+# a shape the plan cuts into segments: one prompt of a few heads
+SEG_WKV = (1, 256, 4, 64)
 
 
 def kernel_phase():
@@ -344,15 +364,29 @@ def kernel_phase():
           f"route")
     check_cka_precision(gen)
 
-    wkv_err = check_wkv(gen, *MAIN_WKV)  # main path
-    check_wkv(gen, 1, 50, 4, 16)  # ragged T, the reduced head size
-    check_wkv(gen, 2, 130, 3, 32, with_s0=True)
-    inputs = _wkv_inputs(gen, *MAIN_WKV)
-    first = wkv_ops.wkv(*inputs, return_state=True)
-    second = wkv_ops.wkv(*inputs, return_state=True)
-    if not all(torch.equal(a, b) for a, b in zip(first, second)):
-        raise AssertionError("two WKV6 launches differ")
-    print("  wkv6: two launches agree bit for bit (o and final state)")
+    wkv_err = 0.0
+    for draw in ("init", "wide"):
+        wkv_err = max(wkv_err, check_wkv(gen, *MAIN_WKV, draw=draw))  # main
+        for P in (2, 4, 8):  # the carry passes at the main shape
+            check_wkv(gen, *MAIN_WKV, draw=draw, segments=P, with_s0=True)
+        check_wkv(gen, 2, 1, 4, 64, draw=draw, with_s0=True)  # T = 1
+        check_wkv(gen, 1, 50, 4, 16, draw=draw)  # ragged T, head size 16
+        check_wkv(gen, 2, 130, 3, 32, draw=draw, with_s0=True)
+        B, T, H, n = SEG_WKV
+        P, L = wkv_ops.segment_plan(*SEG_WKV)
+        if P < 2:
+            raise AssertionError(f"{SEG_WKV} plans {P} segment(s)")
+        for t in (P * L, P * L + 1):  # at and one past a segment boundary
+            check_wkv(gen, B, t, H, n, draw=draw, with_s0=True)
+    for shape, segments in ((MAIN_WKV, 0), (MAIN_WKV, 4), (SEG_WKV, 0)):
+        inputs = _wkv_inputs(gen, *shape, "wide")
+        first = wkv_ops._launch(*inputs, None, segments=segments)
+        second = wkv_ops._launch(*inputs, None, segments=segments)
+        if not all(torch.equal(a, b) for a, b in zip(first, second)):
+            raise AssertionError(f"two WKV6 launches differ at {shape}, "
+                                 f"segments {segments or 'planned'}")
+    print("  wkv6: two launches agree bit for bit (o and final state), at "
+          "one segment and at four")
     return att_err, cka_err, wkv_err
 
 
@@ -851,6 +885,7 @@ def timing_phase():
                             iters=3, warmup=1),
         "library_ms": None,
         "device_ms": device_ms(kernel, calls=5),
+        "segments": wkv_ops.segment_plan(B, T, H, n)[0],
     }
     # r, k, v, logw read and o written once, u read, the final state
     # written; ~5n^2 operations per token and head: r.S (2n^2), the decay
@@ -860,11 +895,37 @@ def timing_phase():
     chunked_ms = time_ms(lambda: wkv_chunked(r, k, v, logw, u, chunk=32),
                          iters=10, warmup=2)
     print(f"  wkv6: kernel {wkv['ms']:.4f} ms (device "
-          f"{wkv['device_ms']:.4f}), plain {wkv['plain_ms']:.4f} ms, "
-          f"library none, bound "
+          f"{wkv['device_ms']:.4f}, {wkv['segments']} segment(s)), plain "
+          f"{wkv['plain_ms']:.4f} ms, library none, bound "
           f"{wkv['bound_ms']:.4f} ms "
           f"({wkv['bound_by']}); the chunked form at chunk 32 "
           f"{chunked_ms:.4f} ms")
+    wkv["device_ms_by_segments"] = {}
+    for shape in (MAIN_WKV, (1, *MAIN_WKV[1:])):
+        ins = _wkv_inputs(gen, *shape)
+        by_p = {P: device_ms(lambda: wkv_ops._launch(  # noqa: B023
+            *ins, None, segments=P), calls=5) for P in (1, 2, 3, 4, 6, 8)}
+        wkv["device_ms_by_segments"][str(list(shape))] = by_p
+        print(f"  wkv6 at {list(shape)}, device ms by segments P (forced; "
+              f"the plan takes P = {wkv_ops.segment_plan(*shape)[0]}): "
+              + ", ".join(f"P={P} {t:.4f}" for P, t in by_p.items()))
+    for shape in (MAIN_WKV, (1, *MAIN_WKV[1:])):
+        ins = _wkv_inputs(gen, *shape, "wide")
+        want = wkv_ops.wkv_plain(*ins)
+        shapes = ((64, 4, 8), (32, 4, 8), (64, 4, 4), (64, 4, 16),
+                  (64, 2, 8), (64, 8, 8), (16, 1, 4))
+        for c, j, g in shapes:
+            for P in (1, 2, 3, 4, 8):
+                got = wkv_ops._launch(*ins, None, segments=P, shape=(c, j, g))
+                for a, b in zip(got, want):
+                    torch.testing.assert_close(a, b, rtol=WKV_RTOL,
+                                               atol=WKV_ATOL)
+        by_shape = {f"{c}/{j}/{g} P{P}": device_ms(lambda: wkv_ops._launch(  # noqa: B023
+            *ins, None, segments=P, shape=(c, j, g)), calls=5)  # noqa: B023
+            for c, j, g in shapes for P in (1, 2, 3, 4, 8)}
+        print(f"  wkv6 at {list(shape)}, device ms by block "
+              f"shape (columns a block / a thread / lanes a column): "
+              + ", ".join(f"{k} {t:.4f}" for k, t in by_shape.items()))
     return att, cka, wkv
 
 

@@ -13,103 +13,606 @@
 // What bounds it on this card: bytes, in principle. At the rwkv6-3b
 // prefill shape (B=4, T=512, H=40, n=64) the function reads r, k, v, logw
 // (84 MB) and writes o (21 MB) and the final state (2.6 MB): 32 us at
-// 3.35 TB/s. Its ~5n^2 operations per token and head (r.S, the decay and
-// the outer product) are 1.7 GFLOP, 25 us at the published 67 TFLOP/s
-// fp32. In practice it is bound by latency: the time loop is sequential
-// and there are only B*H = 160 blocks of n = 64 threads, about one block
-// of two warps per SM, so little is in flight to hide each step's
-// dependent FMA chain and the next token's loads.
+// 3.35 TB/s. Its ~5n^2 operations per token and head are 1.7 GFLOP, 25 us
+// at the published 67 TFLOP/s fp32. The time loop is sequential, so the
+// design's task is to keep enough independent work in flight beside it.
 //
-// Design: the TPU kernel keeps S in VMEM across a sequential time grid in
-// blocks of up to 512 tokens and pads T with logw = 0, k = 0. Here one
-// block owns one (b, h) and runs the whole time loop itself, so nothing
-// is padded and the loop ends at the true T. Thread j keeps column j of S
-// in registers (n floats). Each step a thread stages its own channel of
-// (r, k, exp(logw), r*u*k) as one float4 in shared memory, one barrier
-// later every thread reads all n of them as 16-byte broadcasts and updates
-// its column. The staging buffer is double-buffered, so one barrier per
-// step suffices, and the next token's inputs are loaded into registers
-// before the step's arithmetic, so the loads are in flight while it runs.
-// Inputs are read in place from the [B, T, H, n] layout (consecutive
-// threads read consecutive channels), with no transpose. Everything is
-// fp32 with the accurate expf (no fast math): the parity limit against
-// the exact recurrence is rtol/atol 1e-4. No atomics: two launches on the
-// same inputs agree bit for bit.
+// Design. Column j of S, and o_t[j], depend only on v_t[j] and the shared
+// r_t, k_t, w_t, so one block owns (segment p, b, h, a group of COLS value
+// columns), with no reduction between blocks; the groups of one head sit
+// on adjacent blockIdx, so the r/k/logw rows they all read come from L2.
+// Inside the block LANES lanes share a column: lane l keeps rows
+// 4(l + LANES m) + e of it in registers (n / LANES of them), and o_t[j] is
+// the lanes' partial sums added by __shfl_xor in a fixed order. The only
+// chain carried from token to token is one FMA per entry of S. Inputs are
+// staged by cp.async in tiles of TILE tokens, STAGES tiles ahead, with two
+// barriers a tile: when a tile lands, exp(logw) replaces logw in place and
+// each warp sums r.u.k for some of its tokens, once for all columns.
+//
+// Time segments (wkv6_scan_kernel + wkv6_carry_kernel). Where the shape
+// gives too few blocks to fill the card (kernels/rwkv/ops.py::
+// segment_plan, from the shape only), time is cut into P segments of L
+// tokens, all scanned at once:
+//   pass 1 (scan): each segment runs the recurrence from S = 0 (the first
+//     from s0), writes its partial o, its end state S_end[p] and the sum
+//     of its log-decays c[p];
+//   pass 2 (carry, first part): a block of segment p >= 1 carries its
+//     incoming state S_in[p] = diag(exp c[p-1]) S_in[p-1] + S_end[p-1]
+//     (S_in[1] = S_end[0]) for its columns; the last also writes the final
+//     state diag(exp c[P-1]) S_in[P-1] + S_end[P-1];
+//   pass 3 (carry, second part): o_t += (r_t * exp(c_{t-1} - c_start)) .
+//     S_in[p] over the segment, in fp32 FMAs.
+// Every decay factor is exp of a sum of log-decays over a stretch of
+// tokens, <= 0, so it lies in [0, 1]: no exp(-c) is ever formed, and an
+// underflow to 0 is the true limit. With P = 1 the scan alone runs and
+// writes the final state itself.
+//
+// Everything is fp32 with the accurate expf (no fast math): the parity
+// limit against the exact recurrence is rtol/atol 1e-4 for any logw <= 0.
+// No atomics, and every sum in a fixed order: two launches on the same
+// inputs agree bit for bit.
 
 #include <cuda_runtime.h>
 
+#include "tf32x3.cuh"  // the cp.async helpers
+
 namespace {
 
-template <int N>
-__global__ void __launch_bounds__(N)
-wkv6_kernel(const float* __restrict__ r, const float* __restrict__ k,
-            const float* __restrict__ v, const float* __restrict__ logw,
-            const float* __restrict__ u, const float* __restrict__ s0,
-            float* __restrict__ o, float* __restrict__ s_out, int T, int H) {
-  __shared__ float4 stage[2][N];
-  const int j = threadIdx.x;
-  const int b = blockIdx.x / H, h = blockIdx.x % H;
-  const long long row = static_cast<long long>(H) * N;  // stride of t
-  const long long base = static_cast<long long>(b) * T * row +
-                         static_cast<long long>(h) * N + j;
-  const long long s_base = static_cast<long long>(blockIdx.x) * N * N + j;
+using tf32x3::cp_async;
+using tf32x3::cp_async_commit;
+using tf32x3::cp_async_wait;
 
-  float S[N];
-#pragma unroll
-  for (int i = 0; i < N; ++i) S[i] = s0 ? s0[s_base + i * N] : 0.f;
-  const float uj = u[h * N + j];
+constexpr int TILE = 8;    // tokens per staged tile: one a lane quad
+constexpr int STAGES = 4;  // tiles in the ring
+static_assert(TILE * 4 == 32, "r.u.k takes four lanes of a warp a token");
 
-  float rn = 0.f, kn = 0.f, vn = 0.f, wn = 0.f;
-  if (T > 0) {
-    rn = r[base]; kn = k[base]; vn = v[base]; wn = logw[base];
+template <int N, int C>
+struct ScanTile {
+  float r[TILE * N];
+  float k[TILE * N];
+  float w[TILE * N];  // logw as it lands, exp(logw) once transformed
+  float v[TILE * C];  // this block's value columns only
+  float ruk[TILE];    // sum_i r_i u_i k_i per token
+};
+
+template <int N, int C>
+struct CarryTile {
+  float r[TILE * N];  // r as it lands, r * exp(c_{t-1} - c_start) once transformed
+  float w[TILE * N];  // logw
+  float o[TILE * C];  // pass 1's o of this block's columns
+};
+
+// The block's place: segment seg, (b, h) as bh, column group grp. Thread
+// (column slot cs, lane l) holds columns j0 + jj (jj < J, j0 = grp * C +
+// cs * J) of rows row(l, m, e) = 4(l + G m) + e of S.
+template <int N, int C, int J, int G>
+struct Place {
+  static constexpr int NG = N / C, NT = C / J * G, M = N / (4 * G);
+  static_assert(NT % 32 == 0 && M >= 1 && J <= G && C % J == 0,
+                "block shape");
+  int grp, bh, seg, l, j0;
+  __device__ Place(int block, int BH, int first_seg) {
+    grp = block % NG;
+    bh = (block / NG) % BH;
+    seg = block / (NG * BH) + first_seg;
+    l = threadIdx.x % G;
+    j0 = grp * C + threadIdx.x / G * J;
   }
-  for (int t = 0; t < T; ++t) {
-    const float vj = vn;
-    stage[t & 1][j] = make_float4(rn, kn, expf(wn), rn * uj * kn);
-    __syncthreads();
-    if (t + 1 < T) {  // the next token's loads overlap this step
-      const long long at = base + (t + 1) * row;
-      rn = r[at]; kn = k[at]; vn = v[at]; wn = logw[at];
-    }
-    float acc = 0.f, ruk = 0.f;
+  __device__ static int row(int l, int m, int e) { return 4 * (l + G * m) + e; }
+  // after lane_sum, the column (0 <= jj < J) lane l holds, and whether it
+  // writes it (G / J lanes hold each)
+  __device__ static int col(int l) {
+    int jj = 0;
 #pragma unroll
-    for (int i = 0; i < N; ++i) {
-      const float4 c = stage[t & 1][i];  // (r_i, k_i, w_i, r_i u_i k_i)
-      acc = fmaf(c.x, S[i], acc);
-      ruk += c.w;
-      S[i] = fmaf(c.z, S[i], c.y * vj);
-    }
-    o[base + t * row] = fmaf(ruk, vj, acc);
+    for (int w = J, off = G / 2; w > 1; w /= 2, off /= 2)
+      if (l & off) jj += w / 2;
+    return jj;
   }
-#pragma unroll
-  for (int i = 0; i < N; ++i) s_out[s_base + i * N] = S[i];
+  __device__ static bool writes(int l) { return l % (G / J) == 0; }
+};
+
+__device__ __forceinline__ float part(const float4& a, int e) {
+  return e == 0 ? a.x : e == 1 ? a.y : e == 2 ? a.z : a.w;
 }
 
+// The G lanes of a column slot add their J partial sums of each of the
+// TILE tokens, in a fixed order: each of the first log2(J) xor steps
+// swaps half the columns, so a lane ends with one column (Place::col)
+// summed over all G lanes. Every step runs over all tokens at once, so
+// the shuffles' latencies overlap; x[t][0] holds the sums after.
+template <int J, int G>
+__device__ __forceinline__ void lane_sums(float (&x)[TILE][J], int l) {
+#pragma unroll
+  for (int w = J, off = G / 2; w > 1; w /= 2, off /= 2) {
+    const bool hi = l & off;
+#pragma unroll
+    for (int q = 0; q < w / 2; ++q)
+#pragma unroll
+      for (int t = 0; t < TILE; ++t) {
+        const float send = hi ? x[t][q] : x[t][q + w / 2];
+        const float keep = hi ? x[t][q + w / 2] : x[t][q];
+        x[t][q] = keep + __shfl_xor_sync(0xffffffffu, send, off);
+      }
+  }
+#pragma unroll
+  for (int off = G / (2 * J); off > 0; off >>= 1)
+#pragma unroll
+    for (int t = 0; t < TILE; ++t)
+      x[t][0] += __shfl_xor_sync(0xffffffffu, x[t][0], off);
+}
+
+// J consecutive floats of shared memory (at a multiple of J) into x
+template <int J>
+__device__ __forceinline__ void load_cols(float (&x)[J], const float* p) {
+  if constexpr (J % 4 == 0) {
+#pragma unroll
+    for (int q = 0; q < J / 4; ++q) {
+      const float4 a = reinterpret_cast<const float4*>(p)[q];
+      x[4 * q] = a.x; x[4 * q + 1] = a.y; x[4 * q + 2] = a.z; x[4 * q + 3] = a.w;
+    }
+  } else if constexpr (J == 2) {
+    const float2 a = *reinterpret_cast<const float2*>(p);
+    x[0] = a.x; x[1] = a.y;
+  } else {
+    x[0] = p[0];
+  }
+}
+
+// Named barriers between the producer warp and the consumer warps: tile
+// slot s is FULL (staged and transformed) or EMPTY (consumed). Barrier 0
+// is __syncthreads, which the kernels do not use.
+__device__ __forceinline__ int full_bar(int slot) { return 1 + slot; }
+__device__ __forceinline__ int empty_bar(int slot) { return 1 + STAGES + slot; }
+__device__ __forceinline__ void bar_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;" :: "r"(id), "r"(count) : "memory");
+}
+__device__ __forceinline__ void bar_arrive(int id, int count) {
+  asm volatile("bar.arrive %0, %1;" :: "r"(id), "r"(count) : "memory");
+}
+
+// cp.async, by the 32 lanes of the producer warp, one tile's rows of n
+// floats (at `base`, stride `row` floats a token) into dst
 template <int N>
+__device__ __forceinline__ void stage_rows(float* dst, const float* src,
+                                           long long base, long long row,
+                                           int nt, int lane) {
+  constexpr int Q = N / 4;
+#pragma unroll
+  for (int it = 0; it < (TILE * Q + 31) / 32; ++it) {
+    const int idx = lane + 32 * it;
+    const int t = idx / Q, q = idx % Q;
+    if (t < nt)
+      cp_async<16>(dst + t * N + 4 * q, src + base + t * row + 4 * q, true);
+  }
+}
+
+// The producer's loop, shared by both kernels: hand each tile to the
+// consumers once it landed and `transform` ran on it, then refill the slot
+// the consumers freed last, so STAGES - 1 tiles of copies stay in flight
+// and the transform of tile kt + 1 overlaps the consumers' work on tile
+// kt. The consumers arrive on a slot's EMPTY barrier only where the
+// producer waits for it.
+template <typename Stage, typename Transform>
+__device__ __forceinline__ void produce(int ntiles, int count, Stage stage,
+                                        Transform transform) {
+#pragma unroll
+  for (int kt = 0; kt < STAGES - 1; ++kt) {
+    if (kt < ntiles) stage(kt);
+    cp_async_commit();
+  }
+  for (int kt = 0; kt < ntiles; ++kt) {
+    cp_async_wait<STAGES - 2>();  // this lane's copies of tile kt landed
+    __syncwarp();                 // and every lane's
+    transform(kt);
+    bar_arrive(full_bar(kt % STAGES), count);
+    const int next = kt + STAGES - 1;  // into the slot of tile kt - 1
+    if (next < ntiles) {
+      if (kt > 0) bar_sync(empty_bar(next % STAGES), count);
+      stage(next);
+    }
+    cp_async_commit();
+  }
+  cp_async_wait<0>();
+}
+
+// The consumers' loop: wait for each tile, use it, free its slot.
+template <typename Consume>
+__device__ __forceinline__ void consume(int ntiles, int count,
+                                        Consume use) {
+  for (int kt = 0; kt < ntiles; ++kt) {
+    bar_sync(full_bar(kt % STAGES), count);
+    use(kt);
+    if (kt + STAGES < ntiles) bar_arrive(empty_bar(kt % STAGES), count);
+  }
+}
+
+// One staged tile of the recurrence: first the FMAs of every token (the
+// chain from token to token is one FMA an entry of S), keeping each
+// token's partial sums; then the lanes' sums of all tokens, whose shuffle
+// latencies overlap; o_t = sum + (r.u.k) v_t[j].
+template <int N, int C, int J, int G, bool FULL>
+__device__ __forceinline__ void scan_tile(const ScanTile<N, C>& s,
+                                          float (&S)[N / G][J], float* o,
+                                          long long row, int nt,
+                                          const Place<N, C, J, G>& at) {
+  constexpr int M = N / (4 * G);
+  const float4* r4 = reinterpret_cast<const float4*>(s.r);
+  const float4* k4 = reinterpret_cast<const float4*>(s.k);
+  const float4* w4 = reinterpret_cast<const float4*>(s.w);
+  const float* v = s.v + at.j0 - at.grp * C;
+  float acc[TILE][J] = {};
+#pragma unroll
+  for (int t = 0; t < TILE; ++t) {
+    if (!FULL && t >= nt) break;
+    float vj[J];
+    load_cols<J>(vj, v + t * C);
+#pragma unroll
+    for (int m = 0; m < M; ++m) {
+      const int q = t * (N / 4) + at.l + G * m;
+      const float4 rr = r4[q], kk = k4[q], ww = w4[q];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float ri = part(rr, e), ki = part(kk, e), wi = part(ww, e);
+#pragma unroll
+        for (int jj = 0; jj < J; ++jj) {
+          float& x = S[4 * m + e][jj];
+          acc[t][jj] = fmaf(ri, x, acc[t][jj]);
+          x = fmaf(wi, x, ki * vj[jj]);
+        }
+      }
+    }
+  }
+  lane_sums<J, G>(acc, at.l);  // every token's, tokens past nt add zeros
+  if (at.writes(at.l)) {
+    const int col = at.col(at.l);
+#pragma unroll
+    for (int t = 0; t < TILE; ++t)
+      if (FULL || t < nt)
+        o[t * row] = fmaf(s.ruk[t], v[t * C + col], acc[t][0]);
+  }
+}
+
+// Pass 3 on one staged tile: o_t += r_hat_t . S_in, batched as scan_tile.
+template <int N, int C, int J, int G, bool FULL>
+__device__ __forceinline__ void carry_tile(const CarryTile<N, C>& s,
+                                           const float (&S)[N / G][J],
+                                           float* o, long long row, int nt,
+                                           const Place<N, C, J, G>& at) {
+  constexpr int M = N / (4 * G);
+  const float4* r4 = reinterpret_cast<const float4*>(s.r);
+  float acc[TILE][J] = {};
+#pragma unroll
+  for (int t = 0; t < TILE; ++t) {
+    if (!FULL && t >= nt) break;
+#pragma unroll
+    for (int m = 0; m < M; ++m) {
+      const float4 rr = r4[t * (N / 4) + at.l + G * m];
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+#pragma unroll
+        for (int jj = 0; jj < J; ++jj)
+          acc[t][jj] = fmaf(part(rr, e), S[4 * m + e][jj], acc[t][jj]);
+    }
+  }
+  lane_sums<J, G>(acc, at.l);
+  if (at.writes(at.l)) {
+    const int col = at.j0 - at.grp * C + at.col(at.l);
+#pragma unroll
+    for (int t = 0; t < TILE; ++t)
+      if (FULL || t < nt) o[t * row] = s.o[t * C + col] + acc[t][0];
+  }
+}
+
+// Where a block's segment lies: its tokens [t0, t0 + len) of (b, h), the
+// offset of (b, t0, h, 0) and the stride of a token.
+struct Span {
+  int h, len, ntiles;
+  long long base, row;
+  __device__ Span(int bh, int seg, int T, int H, int N, int L) {
+    const int b = bh / H, t0 = seg * L;
+    h = bh % H;
+    len = max(0, min(T, t0 + L) - t0);
+    ntiles = (len + TILE - 1) / TILE;
+    row = static_cast<long long>(H) * N;
+    base = (static_cast<long long>(b) * T + t0) * row +
+           static_cast<long long>(h) * N;
+  }
+  __device__ int tokens(int kt) const { return min(TILE, len - kt * TILE); }
+  __device__ long long at(int kt) const {
+    return base + static_cast<long long>(kt) * TILE * row;
+  }
+};
+
+template <int N, int C, int J, int G>
+__global__ void __launch_bounds__(C / J * G + 32)
+wkv6_scan_kernel(const float* __restrict__ r, const float* __restrict__ k,
+                 const float* __restrict__ v, const float* __restrict__ logw,
+                 const float* __restrict__ u, const float* __restrict__ s0,
+                 float* __restrict__ o, float* __restrict__ s_end,
+                 float* __restrict__ seg_logw, int T, int H, int BH, int L) {
+  using At = Place<N, C, J, G>;
+  constexpr int M = At::M, COUNT = At::NT + 32;
+  extern __shared__ __align__(16) unsigned char smem[];
+  auto* tiles = reinterpret_cast<ScanTile<N, C>*>(smem);
+  const At at(blockIdx.x, BH, 0);
+  const Span sp(at.bh, at.seg, T, H, N, L);
+
+  if (threadIdx.x >= At::NT) {  // the producer warp
+    const int lane = threadIdx.x - At::NT;
+    // r.u.k: lane (t, q) = (lane / 4, lane % 4) takes the float4 chunks
+    // q + 4m of token t's row, the four lanes of a token add theirs
+    constexpr int Q = N / 4, QL = Q / 4;
+    float4 uq[QL];
+#pragma unroll
+    for (int m = 0; m < QL; ++m)
+      uq[m] = reinterpret_cast<const float4*>(u + sp.h * N)[lane % 4 + 4 * m];
+    constexpr int RL = N >= 32 ? N / 32 : 1;  // rows of logw a lane sums
+    float csum[RL] = {};
+    produce(sp.ntiles, COUNT, [&](int kt) {
+      ScanTile<N, C>& s = tiles[kt % STAGES];
+      const int nt = sp.tokens(kt);
+      stage_rows<N>(s.r, r, sp.at(kt), sp.row, nt, lane);
+      stage_rows<N>(s.k, k, sp.at(kt), sp.row, nt, lane);
+      stage_rows<N>(s.w, logw, sp.at(kt), sp.row, nt, lane);
+      stage_rows<C>(s.v, v, sp.at(kt) + at.grp * C, sp.row, nt, lane);
+    }, [&](int kt) {
+      ScanTile<N, C>& s = tiles[kt % STAGES];
+      const int nt = sp.tokens(kt);
+#pragma unroll
+      for (int it = 0; it < TILE * N / 32; ++it) {  // exp(logw) in place
+        const int e = lane + 32 * it;  // row e % N
+        if (e < nt * N) {
+          const float lw = s.w[e];
+          csum[it % RL] += lw;
+          s.w[e] = expf(lw);
+        }
+      }
+      const int t = lane / 4;
+      float acc = 0.f;
+      if (t < nt) {
+        const float4* r4 = reinterpret_cast<const float4*>(s.r) + t * Q;
+        const float4* k4 = reinterpret_cast<const float4*>(s.k) + t * Q;
+#pragma unroll
+        for (int m = 0; m < QL; ++m) {
+          const float4 rr = r4[lane % 4 + 4 * m], kk = k4[lane % 4 + 4 * m];
+          acc = fmaf(rr.x * uq[m].x, kk.x, acc);
+          acc = fmaf(rr.y * uq[m].y, kk.y, acc);
+          acc = fmaf(rr.z * uq[m].z, kk.z, acc);
+          acc = fmaf(rr.w * uq[m].w, kk.w, acc);
+        }
+      }
+      acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+      acc += __shfl_xor_sync(0xffffffffu, acc, 2);
+      if (t < nt && lane % 4 == 0) s.ruk[t] = acc;
+    });
+    if (seg_logw != nullptr && at.grp == 0) {  // the segment's sums of logw
+#pragma unroll
+      for (int off = N; off < 32; off *= 2)  // lanes that share a row
+        csum[0] += __shfl_xor_sync(0xffffffffu, csum[0], off);
+      float* dst = seg_logw + (static_cast<long long>(at.seg) * BH + at.bh) * N;
+#pragma unroll
+      for (int q = 0; q < RL; ++q)
+        if (lane + 32 * q < N) dst[lane + 32 * q] = csum[q];
+    }
+    return;
+  }
+
+  const long long sb = static_cast<long long>(at.bh) * N * N;
+  float S[N / G][J];
+#pragma unroll
+  for (int m = 0; m < M; ++m)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+#pragma unroll
+      for (int jj = 0; jj < J; ++jj)
+        S[4 * m + e][jj] = (at.seg == 0 && s0)
+            ? s0[sb + at.row(at.l, m, e) * N + at.j0 + jj] : 0.f;
+  const long long out = at.j0 + at.col(at.l);
+  consume(sp.ntiles, COUNT, [&](int kt) {
+    const int nt = sp.tokens(kt);
+    if (nt == TILE)
+      scan_tile<N, C, J, G, true>(tiles[kt % STAGES], S, o + sp.at(kt) + out,
+                                  sp.row, TILE, at);
+    else
+      scan_tile<N, C, J, G, false>(tiles[kt % STAGES], S, o + sp.at(kt) + out,
+                                   sp.row, nt, at);
+  });
+  float* dst = s_end + static_cast<long long>(at.seg) * BH * N * N + sb;
+#pragma unroll
+  for (int m = 0; m < M; ++m)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+#pragma unroll
+      for (int jj = 0; jj < J; ++jj)
+        dst[at.row(at.l, m, e) * N + at.j0 + jj] = S[4 * m + e][jj];
+}
+
+template <int N, int C, int J, int G>
+__global__ void __launch_bounds__(C / J * G + 32)
+wkv6_carry_kernel(const float* __restrict__ r,
+                  const float* __restrict__ logw,
+                  const float* __restrict__ s_end,
+                  const float* __restrict__ seg_logw, float* __restrict__ o,
+                  float* __restrict__ s_out, int T, int H, int BH, int L,
+                  int P) {
+  using At = Place<N, C, J, G>;
+  constexpr int M = At::M, COUNT = At::NT + 32;
+  extern __shared__ __align__(16) unsigned char smem[];
+  auto* tiles = reinterpret_cast<CarryTile<N, C>*>(smem);
+  const At at(blockIdx.x, BH, 1);
+  const int p = at.seg;
+  const Span sp(at.bh, p, T, H, N, L);
+
+  if (threadIdx.x >= At::NT) {  // the producer warp
+    const int lane = threadIdx.x - At::NT;
+    constexpr int RL = (N + 31) / 32;  // rows lane + 32 q
+    float c[RL] = {};  // their sums of logw from the segment start
+    produce(sp.ntiles, COUNT, [&](int kt) {
+      CarryTile<N, C>& s = tiles[kt % STAGES];
+      const int nt = sp.tokens(kt);
+      stage_rows<N>(s.r, r, sp.at(kt), sp.row, nt, lane);
+      stage_rows<N>(s.w, logw, sp.at(kt), sp.row, nt, lane);
+      stage_rows<C>(s.o, o, sp.at(kt) + at.grp * C, sp.row, nt, lane);
+    }, [&](int kt) {  // r_hat = r * exp(c_{t-1} - c_start), row by row
+      CarryTile<N, C>& s = tiles[kt % STAGES];
+      const int nt = sp.tokens(kt);
+#pragma unroll
+      for (int q = 0; q < RL; ++q) {
+        const int i = lane + 32 * q;
+        if (i < N) {
+          float before[TILE];
+#pragma unroll
+          for (int t = 0; t < TILE; ++t) {
+            before[t] = c[q];
+            if (t < nt) c[q] += s.w[t * N + i];
+          }
+#pragma unroll
+          for (int t = 0; t < TILE; ++t)
+            if (t < nt) s.r[t * N + i] *= expf(before[t]);
+        }
+      }
+    });
+    return;
+  }
+
+  // pass 2: S_in[p] = diag(exp c[q]) S_in[q] + S_end[q] over q < p for
+  // this thread's entries, one segment's loads at a time
+  const long long NN = static_cast<long long>(N) * N;
+  const long long sb = static_cast<long long>(at.bh) * NN;
+  float S[N / G][J];
+  auto carry_from = [&](int q, float (&X)[N / G][J], float* dst) {
+    const long long qs = static_cast<long long>(q) * BH;
+#pragma unroll
+    for (int m = 0; m < M; ++m)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = at.row(at.l, m, e);
+        const float d = expf(seg_logw[(qs + at.bh) * N + i]);
+#pragma unroll
+        for (int jj = 0; jj < J; ++jj) {
+          const float x = fmaf(d, X[4 * m + e][jj],
+                               s_end[qs * NN + sb + i * N + at.j0 + jj]);
+          if (dst) dst[sb + i * N + at.j0 + jj] = x;
+          else X[4 * m + e][jj] = x;
+        }
+      }
+  };
+#pragma unroll
+  for (int m = 0; m < M; ++m)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+#pragma unroll
+      for (int jj = 0; jj < J; ++jj)
+        S[4 * m + e][jj] = s_end[sb + at.row(at.l, m, e) * N + at.j0 + jj];
+  for (int q = 1; q < p; ++q) carry_from(q, S, nullptr);
+  if (p == P - 1) carry_from(p, S, s_out);  // the final state
+
+  // pass 3: o_t += (r_t * exp(c_{t-1} - c_start)) . S_in[p]
+  const long long out = at.j0 + at.col(at.l);
+  consume(sp.ntiles, COUNT, [&](int kt) {
+    const int nt = sp.tokens(kt);
+    if (nt == TILE)
+      carry_tile<N, C, J, G, true>(tiles[kt % STAGES], S, o + sp.at(kt) + out,
+                                   sp.row, TILE, at);
+    else
+      carry_tile<N, C, J, G, false>(tiles[kt % STAGES], S,
+                                    o + sp.at(kt) + out, sp.row, nt, at);
+  });
+}
+
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, size_t bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(bytes));
+}
+
+template <int N, int C, int J, int G>
 cudaError_t launch(const float* r, const float* k, const float* v,
                    const float* logw, const float* u, const float* s0,
-                   float* o, float* s_out, int B, int T, int H,
-                   cudaStream_t stream) {
-  wkv6_kernel<N><<<B * H, N, 0, stream>>>(r, k, v, logw, u, s0, o, s_out,
-                                          T, H);
+                   float* o, float* s_out, float* s_end, float* seg_logw,
+                   int B, int T, int H, int P, int L, cudaStream_t stream) {
+  constexpr int NG = N / C, NT = C / J * G + 32;
+  constexpr size_t scan_smem = STAGES * sizeof(ScanTile<N, C>);
+  constexpr size_t carry_smem = STAGES * sizeof(CarryTile<N, C>);
+  static const cudaError_t ready = [] {
+    const cudaError_t err =
+        allow_smem(wkv6_scan_kernel<N, C, J, G>, scan_smem);
+    return err != cudaSuccess
+        ? err : allow_smem(wkv6_carry_kernel<N, C, J, G>, carry_smem);
+  }();
+  if (ready != cudaSuccess) return ready;
+  const int BH = B * H;
+  if (P == 1) {
+    wkv6_scan_kernel<N, C, J, G><<<NG * BH, NT, scan_smem, stream>>>(
+        r, k, v, logw, u, s0, o, s_out, nullptr, T, H, BH, L);
+    return cudaGetLastError();
+  }
+  wkv6_scan_kernel<N, C, J, G><<<NG * BH * P, NT, scan_smem, stream>>>(
+      r, k, v, logw, u, s0, o, s_end, seg_logw, T, H, BH, L);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  wkv6_carry_kernel<N, C, J, G><<<NG * BH * (P - 1), NT, carry_smem,
+                                  stream>>>(r, logw, s_end, seg_logw, o,
+                                            s_out, T, H, BH, L, P);
   return cudaGetLastError();
+}
+
+bool bad_plan(int B, int T, int H, int P, int L) {
+  return B <= 0 || H <= 0 || T < 0 || P < 1 || L < 0 ||
+         static_cast<long long>(P) * L < T || (P > 1 && (P - 1) * L >= T);
 }
 
 }  // namespace
 
-// Plain C interface for ctypes. All tensors fp32, contiguous: r, k, v,
-// logw and o [B, T, H, n]; u [H, n]; s0 (may be null) and s_out
-// [B, H, n, n]. Returns the CUDA error of the launch (0 on success);
-// cudaErrorInvalidValue for an n other than 16, 32 or 64.
+// Plain C interface for ctypes. All tensors fp32, contiguous and 16-byte
+// aligned: r, k, v, logw and o [B, T, H, n]; u [H, n]; s0 (may be null)
+// and s_out [B, H, n, n]. P segments of L tokens (P * L >= T, none
+// empty); with P > 1 the scratch s_end [P, B, H, n, n] and seg_logw
+// [P, B, H, n], else both may be null. Returns the CUDA error of the
+// launches (0 on success); cudaErrorInvalidValue for an n other than 16,
+// 32 or 64 or a plan that does not cover T.
 extern "C" int wkv6_fwd(const float* r, const float* k, const float* v,
                         const float* logw, const float* u, const float* s0,
-                        float* o, float* s_out, int B, int T, int H, int n,
+                        float* o, float* s_out, float* s_end, float* seg_logw,
+                        int B, int T, int H, int n, int P, int L,
                         cudaStream_t stream) {
-  if (B <= 0 || H <= 0 || T < 0) return cudaErrorInvalidValue;
+  if (bad_plan(B, T, H, P, L)) return cudaErrorInvalidValue;
   switch (n) {
-    case 16: return launch<16>(r, k, v, logw, u, s0, o, s_out, B, T, H, stream);
-    case 32: return launch<32>(r, k, v, logw, u, s0, o, s_out, B, T, H, stream);
-    case 64: return launch<64>(r, k, v, logw, u, s0, o, s_out, B, T, H, stream);
+    case 16: return launch<16, 16, 1, 4>(r, k, v, logw, u, s0, o, s_out,
+                                         s_end, seg_logw, B, T, H, P, L,
+                                         stream);
+    case 32: return launch<32, 32, 4, 8>(r, k, v, logw, u, s0, o, s_out,
+                                         s_end, seg_logw, B, T, H, P, L,
+                                         stream);
+    case 64: return launch<64, 64, 4, 8>(r, k, v, logw, u, s0, o, s_out,
+                                         s_end, seg_logw, B, T, H, P, L,
+                                         stream);
     default: return cudaErrorInvalidValue;
   }
+}
+
+// The block shapes measured against each other at n = 64: C value
+// columns a block, J columns a thread, G lanes a column.
+extern "C" int wkv6_fwd_shape(const float* r, const float* k, const float* v,
+                              const float* logw, const float* u,
+                              const float* s0, float* o, float* s_out,
+                              float* s_end, float* seg_logw, int B, int T,
+                              int H, int P, int L, int cols, int per_thread,
+                              int lanes, cudaStream_t stream) {
+  if (bad_plan(B, T, H, P, L)) return cudaErrorInvalidValue;
+#define WKV6_SHAPE(C, J, G)                                                \
+  if (cols == C && per_thread == J && lanes == G)                          \
+    return launch<64, C, J, G>(r, k, v, logw, u, s0, o, s_out, s_end,      \
+                               seg_logw, B, T, H, P, L, stream);
+  WKV6_SHAPE(64, 4, 8)
+  WKV6_SHAPE(32, 4, 8)
+  WKV6_SHAPE(64, 4, 4)
+  WKV6_SHAPE(64, 4, 16)
+  WKV6_SHAPE(64, 2, 8)
+  WKV6_SHAPE(64, 8, 8)
+  WKV6_SHAPE(16, 1, 4)
+#undef WKV6_SHAPE
+  return cudaErrorInvalidValue;
 }

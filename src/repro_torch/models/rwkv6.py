@@ -23,6 +23,7 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.rwkv import ops as wkv_ops
 from repro_torch.models import common
@@ -194,8 +195,10 @@ def channel_mix_train(p: dict, cfg: ModelConfig, x: torch.Tensor,
 
 
 def init_rwkv_state(cfg: ModelConfig, batch: int, device=None) -> dict:
+    """A zero decode state, on `device` (CUDA unless given: the port's
+    entry-point rule, `resolve_device`)."""
     H, n = num_heads(cfg), cfg.rwkv_head_size
-    z = dict(dtype=torch.float32, device=device)
+    z = dict(dtype=torch.float32, device=resolve_device(device))
     return {
         "s": torch.zeros((batch, H, n, n), **z),
         "x_tm": torch.zeros((batch, cfg.d_model), **z),

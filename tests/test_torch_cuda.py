@@ -161,20 +161,27 @@ def test_cka_feature_route_products_are_3xtf32(gen):
     assert float(((got - want) / want).abs().max()) < 1e-5
 
 
-def _wkv_inputs(gen, B, T, H, n):
+def _wkv_inputs(gen, B, T, H, n, draw="init"):
     r, k, v = (_randn(gen, (B, T, H, n)) for _ in range(3))
-    logw = -(0.3 + 0.15 * torch.rand((B, T, H, n), generator=gen)).cuda()
-    return r, k, v, logw, (0.3 * torch.randn((H, n), generator=gen)).cuda()
+    if draw == "init":  # the model's init range
+        logw = -(0.3 + 0.15 * torch.rand((B, T, H, n), generator=gen))
+    else:  # -exp(U(-8, 2)): a trained model's range
+        logw = -torch.exp(-8 + 10 * torch.rand((B, T, H, n), generator=gen))
+    return r, k, v, logw.cuda(), \
+        (0.3 * torch.randn((H, n), generator=gen)).cuda()
 
 
+@pytest.mark.parametrize("draw", ["init", "wide"])
 @pytest.mark.parametrize("B,T,H,n", [
     (4, 512, 40, 64),   # rwkv6-3b prefill
     (1, 50, 4, 16),     # ragged T, reduced head size
-    (2, 130, 3, 32),
+    (2, 130, 3, 32),    # two segments
     (2, 1, 2, 64),
+    (1, 256, 4, 64),    # four segments of 64: T at a segment boundary
+    (1, 257, 4, 64),    # and one past it
 ])
-def test_wkv_kernel_matches_plain(gen, B, T, H, n):
-    inputs = _wkv_inputs(gen, B, T, H, n)
+def test_wkv_kernel_matches_plain(gen, B, T, H, n, draw):
+    inputs = _wkv_inputs(gen, B, T, H, n, draw)
     s0 = 0.1 * _randn(gen, (B, H, n, n))
     before = wkv_ops.wkv.launches
     o, s = wkv_ops.wkv(*inputs, s0=s0, return_state=True)
@@ -185,8 +192,21 @@ def test_wkv_kernel_matches_plain(gen, B, T, H, n):
     torch.testing.assert_close(s, want_s, rtol=1e-4, atol=1e-4)
 
 
-def test_wkv_kernel_is_deterministic(gen):
-    inputs = _wkv_inputs(gen, 4, 512, 40, 64)
+@pytest.mark.parametrize("segments", [2, 4, 8])
+def test_wkv_kernel_time_segments_match_plain(gen, segments):
+    # the carry passes at the main shape, whatever P the plan would take
+    inputs = _wkv_inputs(gen, 4, 512, 40, 64, "wide")
+    s0 = 0.1 * _randn(gen, (4, 40, 64, 64))
+    o, s = wkv_ops._launch(*inputs, s0, segments=segments)
+    want_o, want_s = wkv_ops.wkv_plain(*inputs, s0=s0)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(o, want_o, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(s, want_s, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("shape", [(4, 512, 40, 64), (1, 512, 40, 64)])
+def test_wkv_kernel_is_deterministic(gen, shape):
+    inputs = _wkv_inputs(gen, *shape, "wide")
     first = wkv_ops.wkv(*inputs, return_state=True)
     second = wkv_ops.wkv(*inputs, return_state=True)
     assert all(torch.equal(a, b) for a, b in zip(first, second))

@@ -27,7 +27,7 @@ from repro_torch.bridge import from_numpy, params_from_jax
 from repro_torch.configs import get_config, get_reduced
 from repro_torch.core.freeze_plan import FreezePlan
 from repro_torch.kernels.rwkv import ops as wkv_ops
-from repro_torch.models import build_model, rwkv6
+from repro_torch.models import build_model, rwkv6, transformer
 from repro_torch.runtime.serve import ServeEngine
 
 WKV_TOL = dict(rtol=1e-4, atol=1e-4)
@@ -391,6 +391,31 @@ def test_init_matches_jax_structure_shapes_and_dtypes():
         return (tuple(tree.shape), tree.dtype, tree.device.type)
 
     assert sig(own) == sig(bridged)
+
+
+def test_cache_init_takes_an_explicit_cpu_device_and_matches_jax():
+    jcfg = jax_get_reduced("rwkv6-3b")
+    cfg = get_reduced("rwkv6-3b")
+    want = jax_rwkv6.init_rwkv_state(jcfg, 3)
+    state = rwkv6.init_rwkv_state(cfg, 3, device="cpu")
+    assert {k: (tuple(v.shape), v.device.type, float(v.abs().sum()))
+            for k, v in state.items()} == \
+        {k: (tuple(v.shape), "cpu", 0.0) for k, v in want.items()}
+    caches = transformer.init_lm_cache(cfg, 3, 16, torch.float32,
+                                       device="cpu")
+    assert len(caches) == cfg.num_layers
+    assert all(t.device.type == "cpu" for c in caches for t in c.values())
+
+
+def test_cache_init_without_a_device_follows_resolve_device(monkeypatch):
+    # no device given: CUDA, as every entry point of the port; with no GPU
+    # that raises instead of carrying on quietly on the CPU
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = get_reduced("rwkv6-3b")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        rwkv6.init_rwkv_state(cfg, 2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        transformer.init_lm_cache(cfg, 2, 16, torch.float32)
 
 
 def test_full_config_counts_three_billion_params():
