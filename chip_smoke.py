@@ -113,8 +113,8 @@ MARGIN = 6e-2
 KERNELS = ("flash_attention", "cka_terms", "wkv6")
 # the CUDA kernels of those sources, as the profiler names them
 PORT_KERNELS = ("flash_fwd_kernel", "cka_gram_kernel", "cka_fold_kernel",
-                "cka_sum_kernel", "cka_tiles_kernel", "wkv6_scan_kernel",
-                "wkv6_carry_kernel")
+                "cka_sum_kernel", "cka_tiles_kernel", "wkv6_decay_kernel",
+                "wkv6_scan_kernel", "wkv6_carry_kernel")
 # published peaks of one H100 SXM (NVIDIA data sheet): fp32 on the CUDA
 # cores, dense TF32 on the tensor cores and HBM3 bandwidth
 PEAK_FP32_FLOPS = 67e12
@@ -309,7 +309,7 @@ def check_wkv(gen, B, T, H, n, *, with_s0=False, draw="init",
     torch.testing.assert_close(o, want_o, rtol=WKV_RTOL, atol=WKV_ATOL)
     torch.testing.assert_close(s, want_s, rtol=WKV_RTOL, atol=WKV_ATOL)
     err = max(float((o - want_o).abs().max()), float((s - want_s).abs().max()))
-    P, L = wkv_ops.segment_plan(B, T, H, n, segments)
+    P, L = wkv_ops.segment_plan(B, T, H, segments)
     print(f"  wkv6 B{B} T{T} H{H} n{n} s0={with_s0} {draw} draw, {P} "
           f"segment(s) of {L}{' (forced)' if segments else ''}: max_abs_err "
           f"{err:.3g} (o and final state; max |o| "
@@ -373,7 +373,7 @@ def kernel_phase():
         check_wkv(gen, 1, 50, 4, 16, draw=draw)  # ragged T, head size 16
         check_wkv(gen, 2, 130, 3, 32, draw=draw, with_s0=True)
         B, T, H, n = SEG_WKV
-        P, L = wkv_ops.segment_plan(*SEG_WKV)
+        P, L = wkv_ops.segment_plan(*SEG_WKV[:3])
         if P < 2:
             raise AssertionError(f"{SEG_WKV} plans {P} segment(s)")
         for t in (P * L, P * L + 1):  # at and one past a segment boundary
@@ -885,7 +885,7 @@ def timing_phase():
                             iters=3, warmup=1),
         "library_ms": None,
         "device_ms": device_ms(kernel, calls=5),
-        "segments": wkv_ops.segment_plan(B, T, H, n)[0],
+        "segments": wkv_ops.segment_plan(B, T, H)[0],
     }
     # r, k, v, logw read and o written once, u read, the final state
     # written; ~5n^2 operations per token and head: r.S (2n^2), the decay
@@ -907,25 +907,8 @@ def timing_phase():
             *ins, None, segments=P), calls=5) for P in (1, 2, 3, 4, 6, 8)}
         wkv["device_ms_by_segments"][str(list(shape))] = by_p
         print(f"  wkv6 at {list(shape)}, device ms by segments P (forced; "
-              f"the plan takes P = {wkv_ops.segment_plan(*shape)[0]}): "
+              f"the plan takes P = {wkv_ops.segment_plan(*shape[:3])[0]}): "
               + ", ".join(f"P={P} {t:.4f}" for P, t in by_p.items()))
-    for shape in (MAIN_WKV, (1, *MAIN_WKV[1:])):
-        ins = _wkv_inputs(gen, *shape, "wide")
-        want = wkv_ops.wkv_plain(*ins)
-        shapes = ((64, 4, 8), (32, 4, 8), (64, 4, 4), (64, 4, 16),
-                  (64, 2, 8), (64, 8, 8), (16, 1, 4))
-        for c, j, g in shapes:
-            for P in (1, 2, 3, 4, 8):
-                got = wkv_ops._launch(*ins, None, segments=P, shape=(c, j, g))
-                for a, b in zip(got, want):
-                    torch.testing.assert_close(a, b, rtol=WKV_RTOL,
-                                               atol=WKV_ATOL)
-        by_shape = {f"{c}/{j}/{g} P{P}": device_ms(lambda: wkv_ops._launch(  # noqa: B023
-            *ins, None, segments=P, shape=(c, j, g)), calls=5)  # noqa: B023
-            for c, j, g in shapes for P in (1, 2, 3, 4, 8)}
-        print(f"  wkv6 at {list(shape)}, device ms by block "
-              f"shape (columns a block / a thread / lanes a column): "
-              + ", ".join(f"{k} {t:.4f}" for k, t in by_shape.items()))
     return att, cka, wkv
 
 

@@ -14,36 +14,44 @@
 // prefill shape (B=4, T=512, H=40, n=64) the function reads r, k, v, logw
 // (84 MB) and writes o (21 MB) and the final state (2.6 MB): 32 us at
 // 3.35 TB/s. Its ~5n^2 operations per token and head are 1.7 GFLOP, 25 us
-// at the published 67 TFLOP/s fp32. The time loop is sequential, so the
-// design's task is to keep enough independent work in flight beside it.
+// at the published 67 TFLOP/s fp32. In practice the time loop is
+// sequential, and what bounds the kernel is how fast one SM steps a head's
+// state through its tokens: the shared-memory loads that broadcast each
+// token's r, k, w to the threads holding S, and the FMAs on S, at one to
+// two blocks a SM (PERF.md).
 //
-// Design. Column j of S, and o_t[j], depend only on v_t[j] and the shared
-// r_t, k_t, w_t, so one block owns (segment p, b, h, a group of COLS value
-// columns), with no reduction between blocks; the groups of one head sit
-// on adjacent blockIdx, so the r/k/logw rows they all read come from L2.
-// Inside the block LANES lanes share a column: lane l keeps rows
-// 4(l + LANES m) + e of it in registers (n / LANES of them), and o_t[j] is
-// the lanes' partial sums added by __shfl_xor in a fixed order. The only
-// chain carried from token to token is one FMA per entry of S. Inputs are
-// staged by cp.async in tiles of TILE tokens, STAGES tiles ahead, with two
-// barriers a tile: when a tile lands, exp(logw) replaces logw in place and
-// each warp sums r.u.k for some of its tokens, once for all columns.
+// Design (wkv6_scan_kernel). One block owns one (segment, b, h). Its
+// consumer warps hold S in registers: thread (slot, lane l) holds J value
+// columns of rows 4(l + G m) + e, so a token's r, k, w rows are read once
+// for J columns, and o_t[j] is the G lanes' partial sums added by
+// __shfl_xor in a fixed order (the first log2 J steps swap half the
+// columns, so every lane ends with a whole column). The only chain carried
+// from token to token is one FMA an entry of S. A tile's tokens are all
+// stepped before their sums are taken, so the shuffles of a tile overlap.
+// A producer warp keeps STAGES tiles of TILE tokens in flight by cp.async
+// into shared memory, adds up r.u.k once a token for all columns, and
+// hands each tile to the consumers over named barriers (FULL / EMPTY a
+// slot), one tile ahead of them. exp(logw) is taken before the scan by
+// wkv6_decay_kernel, at the accurate expf: run inside the scan, beside the
+// consumers, the special-function work slowed their shared-memory loads
+// across the SM (PERF.md, PR 14). The value columns are not split across
+// blocks: at the rwkv6-3b shape that lost to whole heads, and time
+// segments give the blocks where heads are few.
 //
-// Time segments (wkv6_scan_kernel + wkv6_carry_kernel). Where the shape
-// gives too few blocks to fill the card (kernels/rwkv/ops.py::
-// segment_plan, from the shape only), time is cut into P segments of L
-// tokens, all scanned at once:
+// Time segments (wkv6_carry_kernel). Where B * H blocks leave the card
+// idle (kernels/rwkv/ops.py::segment_plan, from the shape only), time is
+// cut into P segments of L tokens, all scanned at once:
 //   pass 1 (scan): each segment runs the recurrence from S = 0 (the first
-//     from s0), writes its partial o, its end state S_end[p] and the sum
-//     of its log-decays c[p];
+//     from s0), writes its partial o, its end state S_end[p] and its decay
+//     D[p] = prod_t w_t, row by row;
 //   pass 2 (carry, first part): a block of segment p >= 1 carries its
-//     incoming state S_in[p] = diag(exp c[p-1]) S_in[p-1] + S_end[p-1]
-//     (S_in[1] = S_end[0]) for its columns; the last also writes the final
-//     state diag(exp c[P-1]) S_in[P-1] + S_end[P-1];
-//   pass 3 (carry, second part): o_t += (r_t * exp(c_{t-1} - c_start)) .
+//     incoming state S_in[p] = diag(D[p-1]) S_in[p-1] + S_end[p-1]
+//     (S_in[1] = S_end[0]); the last also writes the final state
+//     diag(D[P-1]) S_in[P-1] + S_end[P-1];
+//   pass 3 (carry, second part): o_t += (r_t * prod_{t0 <= s < t} w_s) .
 //     S_in[p] over the segment, in fp32 FMAs.
-// Every decay factor is exp of a sum of log-decays over a stretch of
-// tokens, <= 0, so it lies in [0, 1]: no exp(-c) is ever formed, and an
+// Every decay factor is a product of w = exp(logw) <= 1, so it lies in
+// [0, 1]: no exp(-c) of a cumulative log-decay is ever formed, and an
 // underflow to 0 is the true limit. With P = 1 the scan alone runs and
 // writes the final state itself.
 //
@@ -62,44 +70,41 @@ using tf32x3::cp_async;
 using tf32x3::cp_async_commit;
 using tf32x3::cp_async_wait;
 
-constexpr int TILE = 8;    // tokens per staged tile: one a lane quad
+constexpr int TILE = 8;    // tokens per staged tile
 constexpr int STAGES = 4;  // tiles in the ring
 static_assert(TILE * 4 == 32, "r.u.k takes four lanes of a warp a token");
 
-template <int N, int C>
+template <int N>
 struct ScanTile {
   float r[TILE * N];
   float k[TILE * N];
-  float w[TILE * N];  // logw as it lands, exp(logw) once transformed
-  float v[TILE * C];  // this block's value columns only
+  float w[TILE * N];  // exp(logw)
+  float v[TILE * N];
   float ruk[TILE];    // sum_i r_i u_i k_i per token
 };
 
-template <int N, int C>
+template <int N>
 struct CarryTile {
-  float r[TILE * N];  // r as it lands, r * exp(c_{t-1} - c_start) once transformed
-  float w[TILE * N];  // logw
-  float o[TILE * C];  // pass 1's o of this block's columns
+  float r[TILE * N];  // r as it lands, r_t * prod_{t0 <= s < t} w_s once transformed
+  float w[TILE * N];
+  float o[TILE * N];  // pass 1's o
 };
 
-// The block's place: segment seg, (b, h) as bh, column group grp. Thread
-// (column slot cs, lane l) holds columns j0 + jj (jj < J, j0 = grp * C +
-// cs * J) of rows row(l, m, e) = 4(l + G m) + e of S.
-template <int N, int C, int J, int G>
+// The block's place: segment seg of (b, h) = bh. Consumer thread (column
+// slot, lane l) holds columns j0 + jj (jj < J) of rows row(l, m, e) of S.
+template <int N, int J, int G>
 struct Place {
-  static constexpr int NG = N / C, NT = C / J * G, M = N / (4 * G);
-  static_assert(NT % 32 == 0 && M >= 1 && J <= G && C % J == 0,
-                "block shape");
-  int grp, bh, seg, l, j0;
+  static constexpr int NT = N / J * G, M = N / (4 * G);  // consumers, row quads
+  static_assert(NT % 32 == 0 && M >= 1 && J <= G, "block shape");
+  int bh, seg, l, j0;
   __device__ Place(int block, int BH, int first_seg) {
-    grp = block % NG;
-    bh = (block / NG) % BH;
-    seg = block / (NG * BH) + first_seg;
+    bh = block % BH;
+    seg = block / BH + first_seg;
     l = threadIdx.x % G;
-    j0 = grp * C + threadIdx.x / G * J;
+    j0 = threadIdx.x / G * J;
   }
   __device__ static int row(int l, int m, int e) { return 4 * (l + G * m) + e; }
-  // after lane_sum, the column (0 <= jj < J) lane l holds, and whether it
+  // after lane_sums, the column (0 <= jj < J) lane l holds, and whether it
   // writes it (G / J lanes hold each)
   __device__ static int col(int l) {
     int jj = 0;
@@ -226,26 +231,24 @@ __device__ __forceinline__ void consume(int ntiles, int count,
   }
 }
 
-// One staged tile of the recurrence: first the FMAs of every token (the
-// chain from token to token is one FMA an entry of S), keeping each
-// token's partial sums; then the lanes' sums of all tokens, whose shuffle
-// latencies overlap; o_t = sum + (r.u.k) v_t[j].
-template <int N, int C, int J, int G, bool FULL>
-__device__ __forceinline__ void scan_tile(const ScanTile<N, C>& s,
+// One staged tile of the recurrence: first the FMAs of every token,
+// keeping each token's partial sums, then the lanes' sums of all tokens;
+// o_t = sum + (r.u.k) v_t[j].
+template <int N, int J, int G, bool FULL>
+__device__ __forceinline__ void scan_tile(const ScanTile<N>& s,
                                           float (&S)[N / G][J], float* o,
                                           long long row, int nt,
-                                          const Place<N, C, J, G>& at) {
+                                          const Place<N, J, G>& at) {
   constexpr int M = N / (4 * G);
   const float4* r4 = reinterpret_cast<const float4*>(s.r);
   const float4* k4 = reinterpret_cast<const float4*>(s.k);
   const float4* w4 = reinterpret_cast<const float4*>(s.w);
-  const float* v = s.v + at.j0 - at.grp * C;
   float acc[TILE][J] = {};
 #pragma unroll
   for (int t = 0; t < TILE; ++t) {
     if (!FULL && t >= nt) break;
     float vj[J];
-    load_cols<J>(vj, v + t * C);
+    load_cols<J>(vj, s.v + t * N + at.j0);
 #pragma unroll
     for (int m = 0; m < M; ++m) {
       const int q = t * (N / 4) + at.l + G * m;
@@ -264,20 +267,20 @@ __device__ __forceinline__ void scan_tile(const ScanTile<N, C>& s,
   }
   lane_sums<J, G>(acc, at.l);  // every token's, tokens past nt add zeros
   if (at.writes(at.l)) {
-    const int col = at.col(at.l);
+    const int j = at.j0 + at.col(at.l);
 #pragma unroll
     for (int t = 0; t < TILE; ++t)
       if (FULL || t < nt)
-        o[t * row] = fmaf(s.ruk[t], v[t * C + col], acc[t][0]);
+        o[t * row + j] = fmaf(s.ruk[t], s.v[t * N + j], acc[t][0]);
   }
 }
 
 // Pass 3 on one staged tile: o_t += r_hat_t . S_in, batched as scan_tile.
-template <int N, int C, int J, int G, bool FULL>
-__device__ __forceinline__ void carry_tile(const CarryTile<N, C>& s,
+template <int N, int J, int G, bool FULL>
+__device__ __forceinline__ void carry_tile(const CarryTile<N>& s,
                                            const float (&S)[N / G][J],
                                            float* o, long long row, int nt,
-                                           const Place<N, C, J, G>& at) {
+                                           const Place<N, J, G>& at) {
   constexpr int M = N / (4 * G);
   const float4* r4 = reinterpret_cast<const float4*>(s.r);
   float acc[TILE][J] = {};
@@ -296,10 +299,10 @@ __device__ __forceinline__ void carry_tile(const CarryTile<N, C>& s,
   }
   lane_sums<J, G>(acc, at.l);
   if (at.writes(at.l)) {
-    const int col = at.j0 - at.grp * C + at.col(at.l);
+    const int j = at.j0 + at.col(at.l);
 #pragma unroll
     for (int t = 0; t < TILE; ++t)
-      if (FULL || t < nt) o[t * row] = s.o[t * C + col] + acc[t][0];
+      if (FULL || t < nt) o[t * row + j] = s.o[t * N + j] + acc[t][0];
   }
 }
 
@@ -323,17 +326,29 @@ struct Span {
   }
 };
 
-template <int N, int C, int J, int G>
-__global__ void __launch_bounds__(C / J * G + 32)
+// w = exp(logw), elementwise, before the scan (see the note above).
+// `count` is a multiple of 4.
+__global__ void __launch_bounds__(256)
+wkv6_decay_kernel(const float4* __restrict__ logw, float4* __restrict__ w,
+                  long long count) {
+  for (long long i = blockIdx.x * 256LL + threadIdx.x; i < count / 4;
+       i += static_cast<long long>(gridDim.x) * 256) {
+    const float4 a = logw[i];
+    w[i] = make_float4(expf(a.x), expf(a.y), expf(a.z), expf(a.w));
+  }
+}
+
+template <int N, int J, int G>
+__global__ void __launch_bounds__(N / J * G + 32)
 wkv6_scan_kernel(const float* __restrict__ r, const float* __restrict__ k,
-                 const float* __restrict__ v, const float* __restrict__ logw,
+                 const float* __restrict__ v, const float* __restrict__ w,
                  const float* __restrict__ u, const float* __restrict__ s0,
                  float* __restrict__ o, float* __restrict__ s_end,
-                 float* __restrict__ seg_logw, int T, int H, int BH, int L) {
-  using At = Place<N, C, J, G>;
+                 float* __restrict__ seg_decay, int T, int H, int BH, int L) {
+  using At = Place<N, J, G>;
   constexpr int M = At::M, COUNT = At::NT + 32;
   extern __shared__ __align__(16) unsigned char smem[];
-  auto* tiles = reinterpret_cast<ScanTile<N, C>*>(smem);
+  auto* tiles = reinterpret_cast<ScanTile<N>*>(smem);
   const At at(blockIdx.x, BH, 0);
   const Span sp(at.bh, at.seg, T, H, N, L);
 
@@ -346,25 +361,25 @@ wkv6_scan_kernel(const float* __restrict__ r, const float* __restrict__ k,
 #pragma unroll
     for (int m = 0; m < QL; ++m)
       uq[m] = reinterpret_cast<const float4*>(u + sp.h * N)[lane % 4 + 4 * m];
-    constexpr int RL = N >= 32 ? N / 32 : 1;  // rows of logw a lane sums
-    float csum[RL] = {};
+    constexpr int RL = N >= 32 ? N / 32 : 1;  // rows of w a lane multiplies
+    float decay[RL];
+#pragma unroll
+    for (int q = 0; q < RL; ++q) decay[q] = 1.f;
     produce(sp.ntiles, COUNT, [&](int kt) {
-      ScanTile<N, C>& s = tiles[kt % STAGES];
+      ScanTile<N>& s = tiles[kt % STAGES];
       const int nt = sp.tokens(kt);
       stage_rows<N>(s.r, r, sp.at(kt), sp.row, nt, lane);
       stage_rows<N>(s.k, k, sp.at(kt), sp.row, nt, lane);
-      stage_rows<N>(s.w, logw, sp.at(kt), sp.row, nt, lane);
-      stage_rows<C>(s.v, v, sp.at(kt) + at.grp * C, sp.row, nt, lane);
+      stage_rows<N>(s.w, w, sp.at(kt), sp.row, nt, lane);
+      stage_rows<N>(s.v, v, sp.at(kt), sp.row, nt, lane);
     }, [&](int kt) {
-      ScanTile<N, C>& s = tiles[kt % STAGES];
+      ScanTile<N>& s = tiles[kt % STAGES];
       const int nt = sp.tokens(kt);
+      if (seg_decay != nullptr) {
 #pragma unroll
-      for (int it = 0; it < TILE * N / 32; ++it) {  // exp(logw) in place
-        const int e = lane + 32 * it;  // row e % N
-        if (e < nt * N) {
-          const float lw = s.w[e];
-          csum[it % RL] += lw;
-          s.w[e] = expf(lw);
+        for (int it = 0; it < TILE * N / 32; ++it) {  // prod of w, row e % N
+          const int e = lane + 32 * it;
+          if (e < nt * N) decay[it % RL] *= s.w[e];
         }
       }
       const int t = lane / 4;
@@ -385,14 +400,14 @@ wkv6_scan_kernel(const float* __restrict__ r, const float* __restrict__ k,
       acc += __shfl_xor_sync(0xffffffffu, acc, 2);
       if (t < nt && lane % 4 == 0) s.ruk[t] = acc;
     });
-    if (seg_logw != nullptr && at.grp == 0) {  // the segment's sums of logw
+    if (seg_decay != nullptr) {  // the segment's decay, row by row
 #pragma unroll
       for (int off = N; off < 32; off *= 2)  // lanes that share a row
-        csum[0] += __shfl_xor_sync(0xffffffffu, csum[0], off);
-      float* dst = seg_logw + (static_cast<long long>(at.seg) * BH + at.bh) * N;
+        decay[0] *= __shfl_xor_sync(0xffffffffu, decay[0], off);
+      float* dst = seg_decay + (static_cast<long long>(at.seg) * BH + at.bh) * N;
 #pragma unroll
       for (int q = 0; q < RL; ++q)
-        if (lane + 32 * q < N) dst[lane + 32 * q] = csum[q];
+        if (lane + 32 * q < N) dst[lane + 32 * q] = decay[q];
     }
     return;
   }
@@ -407,15 +422,14 @@ wkv6_scan_kernel(const float* __restrict__ r, const float* __restrict__ k,
       for (int jj = 0; jj < J; ++jj)
         S[4 * m + e][jj] = (at.seg == 0 && s0)
             ? s0[sb + at.row(at.l, m, e) * N + at.j0 + jj] : 0.f;
-  const long long out = at.j0 + at.col(at.l);
   consume(sp.ntiles, COUNT, [&](int kt) {
     const int nt = sp.tokens(kt);
     if (nt == TILE)
-      scan_tile<N, C, J, G, true>(tiles[kt % STAGES], S, o + sp.at(kt) + out,
-                                  sp.row, TILE, at);
+      scan_tile<N, J, G, true>(tiles[kt % STAGES], S, o + sp.at(kt), sp.row,
+                               TILE, at);
     else
-      scan_tile<N, C, J, G, false>(tiles[kt % STAGES], S, o + sp.at(kt) + out,
-                                   sp.row, nt, at);
+      scan_tile<N, J, G, false>(tiles[kt % STAGES], S, o + sp.at(kt),
+                                sp.row, nt, at);
   });
   float* dst = s_end + static_cast<long long>(at.seg) * BH * N * N + sb;
 #pragma unroll
@@ -427,18 +441,17 @@ wkv6_scan_kernel(const float* __restrict__ r, const float* __restrict__ k,
         dst[at.row(at.l, m, e) * N + at.j0 + jj] = S[4 * m + e][jj];
 }
 
-template <int N, int C, int J, int G>
-__global__ void __launch_bounds__(C / J * G + 32)
-wkv6_carry_kernel(const float* __restrict__ r,
-                  const float* __restrict__ logw,
+template <int N, int J, int G>
+__global__ void __launch_bounds__(N / J * G + 32)
+wkv6_carry_kernel(const float* __restrict__ r, const float* __restrict__ w,
                   const float* __restrict__ s_end,
-                  const float* __restrict__ seg_logw, float* __restrict__ o,
+                  const float* __restrict__ seg_decay, float* __restrict__ o,
                   float* __restrict__ s_out, int T, int H, int BH, int L,
                   int P) {
-  using At = Place<N, C, J, G>;
+  using At = Place<N, J, G>;
   constexpr int M = At::M, COUNT = At::NT + 32;
   extern __shared__ __align__(16) unsigned char smem[];
-  auto* tiles = reinterpret_cast<CarryTile<N, C>*>(smem);
+  auto* tiles = reinterpret_cast<CarryTile<N>*>(smem);
   const At at(blockIdx.x, BH, 1);
   const int p = at.seg;
   const Span sp(at.bh, p, T, H, N, L);
@@ -446,54 +459,54 @@ wkv6_carry_kernel(const float* __restrict__ r,
   if (threadIdx.x >= At::NT) {  // the producer warp
     const int lane = threadIdx.x - At::NT;
     constexpr int RL = (N + 31) / 32;  // rows lane + 32 q
-    float c[RL] = {};  // their sums of logw from the segment start
+    float decay[RL];  // their products of w from the segment start
+#pragma unroll
+    for (int q = 0; q < RL; ++q) decay[q] = 1.f;
     produce(sp.ntiles, COUNT, [&](int kt) {
-      CarryTile<N, C>& s = tiles[kt % STAGES];
+      CarryTile<N>& s = tiles[kt % STAGES];
       const int nt = sp.tokens(kt);
       stage_rows<N>(s.r, r, sp.at(kt), sp.row, nt, lane);
-      stage_rows<N>(s.w, logw, sp.at(kt), sp.row, nt, lane);
-      stage_rows<C>(s.o, o, sp.at(kt) + at.grp * C, sp.row, nt, lane);
-    }, [&](int kt) {  // r_hat = r * exp(c_{t-1} - c_start), row by row
-      CarryTile<N, C>& s = tiles[kt % STAGES];
+      stage_rows<N>(s.w, w, sp.at(kt), sp.row, nt, lane);
+      stage_rows<N>(s.o, o, sp.at(kt), sp.row, nt, lane);
+    }, [&](int kt) {  // r_hat = r * prod of w before it, row by row
+      CarryTile<N>& s = tiles[kt % STAGES];
       const int nt = sp.tokens(kt);
 #pragma unroll
       for (int q = 0; q < RL; ++q) {
         const int i = lane + 32 * q;
         if (i < N) {
-          float before[TILE];
 #pragma unroll
           for (int t = 0; t < TILE; ++t) {
-            before[t] = c[q];
-            if (t < nt) c[q] += s.w[t * N + i];
+            if (t < nt) {
+              s.r[t * N + i] *= decay[q];
+              decay[q] *= s.w[t * N + i];
+            }
           }
-#pragma unroll
-          for (int t = 0; t < TILE; ++t)
-            if (t < nt) s.r[t * N + i] *= expf(before[t]);
         }
       }
     });
     return;
   }
 
-  // pass 2: S_in[p] = diag(exp c[q]) S_in[q] + S_end[q] over q < p for
-  // this thread's entries, one segment's loads at a time
+  // pass 2: S_in[p] = diag(D[q]) S_in[q] + S_end[q] over q < p for this
+  // thread's entries, one segment's loads at a time
   const long long NN = static_cast<long long>(N) * N;
   const long long sb = static_cast<long long>(at.bh) * NN;
   float S[N / G][J];
-  auto carry_from = [&](int q, float (&X)[N / G][J], float* dst) {
+  auto carry_from = [&](int q, float* dst) {
     const long long qs = static_cast<long long>(q) * BH;
 #pragma unroll
     for (int m = 0; m < M; ++m)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int i = at.row(at.l, m, e);
-        const float d = expf(seg_logw[(qs + at.bh) * N + i]);
+        const float d = seg_decay[(qs + at.bh) * N + i];
 #pragma unroll
         for (int jj = 0; jj < J; ++jj) {
-          const float x = fmaf(d, X[4 * m + e][jj],
+          const float x = fmaf(d, S[4 * m + e][jj],
                                s_end[qs * NN + sb + i * N + at.j0 + jj]);
           if (dst) dst[sb + i * N + at.j0 + jj] = x;
-          else X[4 * m + e][jj] = x;
+          else S[4 * m + e][jj] = x;
         }
       }
   };
@@ -504,19 +517,18 @@ wkv6_carry_kernel(const float* __restrict__ r,
 #pragma unroll
       for (int jj = 0; jj < J; ++jj)
         S[4 * m + e][jj] = s_end[sb + at.row(at.l, m, e) * N + at.j0 + jj];
-  for (int q = 1; q < p; ++q) carry_from(q, S, nullptr);
-  if (p == P - 1) carry_from(p, S, s_out);  // the final state
+  for (int q = 1; q < p; ++q) carry_from(q, nullptr);
+  if (p == P - 1) carry_from(p, s_out);  // the final state
 
-  // pass 3: o_t += (r_t * exp(c_{t-1} - c_start)) . S_in[p]
-  const long long out = at.j0 + at.col(at.l);
+  // pass 3: o_t += (r_t * prod_{t0 <= s < t} w_s) . S_in[p]
   consume(sp.ntiles, COUNT, [&](int kt) {
     const int nt = sp.tokens(kt);
     if (nt == TILE)
-      carry_tile<N, C, J, G, true>(tiles[kt % STAGES], S, o + sp.at(kt) + out,
-                                   sp.row, TILE, at);
+      carry_tile<N, J, G, true>(tiles[kt % STAGES], S, o + sp.at(kt),
+                                sp.row, TILE, at);
     else
-      carry_tile<N, C, J, G, false>(tiles[kt % STAGES], S,
-                                    o + sp.at(kt) + out, sp.row, nt, at);
+      carry_tile<N, J, G, false>(tiles[kt % STAGES], S, o + sp.at(kt),
+                                 sp.row, nt, at);
   });
 }
 
@@ -528,91 +540,71 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes) {
                               static_cast<int>(bytes));
 }
 
-template <int N, int C, int J, int G>
+// J value columns a consumer thread, G lanes a column
+template <int N, int J, int G>
 cudaError_t launch(const float* r, const float* k, const float* v,
                    const float* logw, const float* u, const float* s0,
-                   float* o, float* s_out, float* s_end, float* seg_logw,
-                   int B, int T, int H, int P, int L, cudaStream_t stream) {
-  constexpr int NG = N / C, NT = C / J * G + 32;
-  constexpr size_t scan_smem = STAGES * sizeof(ScanTile<N, C>);
-  constexpr size_t carry_smem = STAGES * sizeof(CarryTile<N, C>);
+                   float* o, float* s_out, float* w, float* s_end,
+                   float* seg_decay, int B, int T, int H, int P, int L,
+                   cudaStream_t stream) {
+  constexpr int NT = N / J * G + 32;
+  constexpr size_t scan_smem = STAGES * sizeof(ScanTile<N>);
+  constexpr size_t carry_smem = STAGES * sizeof(CarryTile<N>);
   static const cudaError_t ready = [] {
-    const cudaError_t err =
-        allow_smem(wkv6_scan_kernel<N, C, J, G>, scan_smem);
+    const cudaError_t err = allow_smem(wkv6_scan_kernel<N, J, G>, scan_smem);
     return err != cudaSuccess
-        ? err : allow_smem(wkv6_carry_kernel<N, C, J, G>, carry_smem);
+        ? err : allow_smem(wkv6_carry_kernel<N, J, G>, carry_smem);
   }();
   if (ready != cudaSuccess) return ready;
   const int BH = B * H;
+  const long long count = static_cast<long long>(BH) * T * N;
+  if (count > 0) {
+    const long long blocks = (count / 4 + 255) / 256;
+    wkv6_decay_kernel<<<static_cast<int>(blocks < 4096 ? blocks : 4096), 256,
+                        0, stream>>>(reinterpret_cast<const float4*>(logw),
+                                     reinterpret_cast<float4*>(w), count);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
   if (P == 1) {
-    wkv6_scan_kernel<N, C, J, G><<<NG * BH, NT, scan_smem, stream>>>(
-        r, k, v, logw, u, s0, o, s_out, nullptr, T, H, BH, L);
+    wkv6_scan_kernel<N, J, G><<<BH, NT, scan_smem, stream>>>(
+        r, k, v, w, u, s0, o, s_out, nullptr, T, H, BH, L);
     return cudaGetLastError();
   }
-  wkv6_scan_kernel<N, C, J, G><<<NG * BH * P, NT, scan_smem, stream>>>(
-      r, k, v, logw, u, s0, o, s_end, seg_logw, T, H, BH, L);
+  wkv6_scan_kernel<N, J, G><<<BH * P, NT, scan_smem, stream>>>(
+      r, k, v, w, u, s0, o, s_end, seg_decay, T, H, BH, L);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  wkv6_carry_kernel<N, C, J, G><<<NG * BH * (P - 1), NT, carry_smem,
-                                  stream>>>(r, logw, s_end, seg_logw, o,
-                                            s_out, T, H, BH, L, P);
+  wkv6_carry_kernel<N, J, G><<<BH * (P - 1), NT, carry_smem, stream>>>(
+      r, w, s_end, seg_decay, o, s_out, T, H, BH, L, P);
   return cudaGetLastError();
-}
-
-bool bad_plan(int B, int T, int H, int P, int L) {
-  return B <= 0 || H <= 0 || T < 0 || P < 1 || L < 0 ||
-         static_cast<long long>(P) * L < T || (P > 1 && (P - 1) * L >= T);
 }
 
 }  // namespace
 
 // Plain C interface for ctypes. All tensors fp32, contiguous and 16-byte
 // aligned: r, k, v, logw and o [B, T, H, n]; u [H, n]; s0 (may be null)
-// and s_out [B, H, n, n]. P segments of L tokens (P * L >= T, none
-// empty); with P > 1 the scratch s_end [P, B, H, n, n] and seg_logw
-// [P, B, H, n], else both may be null. Returns the CUDA error of the
-// launches (0 on success); cudaErrorInvalidValue for an n other than 16,
-// 32 or 64 or a plan that does not cover T.
+// and s_out [B, H, n, n]; the scratch w [B, T, H, n]. P segments of L
+// tokens (P * L >= T, none empty); with P > 1 the scratch s_end
+// [P, B, H, n, n] and seg_decay [P, B, H, n], else both may be null.
+// Returns the CUDA error of the launches (0 on success);
+// cudaErrorInvalidValue for an n other than 16, 32 or 64 or a plan that
+// does not cover T.
 extern "C" int wkv6_fwd(const float* r, const float* k, const float* v,
                         const float* logw, const float* u, const float* s0,
-                        float* o, float* s_out, float* s_end, float* seg_logw,
-                        int B, int T, int H, int n, int P, int L,
-                        cudaStream_t stream) {
-  if (bad_plan(B, T, H, P, L)) return cudaErrorInvalidValue;
+                        float* o, float* s_out, float* w, float* s_end,
+                        float* seg_decay, int B, int T, int H, int n, int P,
+                        int L, cudaStream_t stream) {
+  if (B <= 0 || H <= 0 || T < 0 || P < 1 || L < 0 ||
+      static_cast<long long>(P) * L < T || (P > 1 && (P - 1) * L >= T))
+    return cudaErrorInvalidValue;
   switch (n) {
-    case 16: return launch<16, 16, 1, 4>(r, k, v, logw, u, s0, o, s_out,
-                                         s_end, seg_logw, B, T, H, P, L,
-                                         stream);
-    case 32: return launch<32, 32, 4, 8>(r, k, v, logw, u, s0, o, s_out,
-                                         s_end, seg_logw, B, T, H, P, L,
-                                         stream);
-    case 64: return launch<64, 64, 4, 8>(r, k, v, logw, u, s0, o, s_out,
-                                         s_end, seg_logw, B, T, H, P, L,
-                                         stream);
+    case 16: return launch<16, 1, 4>(r, k, v, logw, u, s0, o, s_out, w, s_end,
+                                     seg_decay, B, T, H, P, L, stream);
+    case 32: return launch<32, 4, 8>(r, k, v, logw, u, s0, o, s_out, w, s_end,
+                                     seg_decay, B, T, H, P, L, stream);
+    case 64: return launch<64, 4, 8>(r, k, v, logw, u, s0, o, s_out, w, s_end,
+                                     seg_decay, B, T, H, P, L, stream);
     default: return cudaErrorInvalidValue;
   }
-}
-
-// The block shapes measured against each other at n = 64: C value
-// columns a block, J columns a thread, G lanes a column.
-extern "C" int wkv6_fwd_shape(const float* r, const float* k, const float* v,
-                              const float* logw, const float* u,
-                              const float* s0, float* o, float* s_out,
-                              float* s_end, float* seg_logw, int B, int T,
-                              int H, int P, int L, int cols, int per_thread,
-                              int lanes, cudaStream_t stream) {
-  if (bad_plan(B, T, H, P, L)) return cudaErrorInvalidValue;
-#define WKV6_SHAPE(C, J, G)                                                \
-  if (cols == C && per_thread == J && lanes == G)                          \
-    return launch<64, C, J, G>(r, k, v, logw, u, s0, o, s_out, s_end,      \
-                               seg_logw, B, T, H, P, L, stream);
-  WKV6_SHAPE(64, 4, 8)
-  WKV6_SHAPE(32, 4, 8)
-  WKV6_SHAPE(64, 4, 4)
-  WKV6_SHAPE(64, 4, 16)
-  WKV6_SHAPE(64, 2, 8)
-  WKV6_SHAPE(64, 8, 8)
-  WKV6_SHAPE(16, 1, 4)
-#undef WKV6_SHAPE
-  return cudaErrorInvalidValue;
 }

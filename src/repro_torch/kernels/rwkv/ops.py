@@ -10,10 +10,11 @@ Port of `repro.kernels.rwkv` (the `ops.wkv` wrapper, the Pallas kernel in
 
 The kernel runs the time loop to the true T, so nothing is padded, and it
 also returns the final state, which a prefill hands to the decode cache.
-It splits a head's value columns over blocks and its keys over lanes, and
-where that leaves too few blocks for the card it also cuts time into
-segments scanned at once and carries their states across after
-(`segment_plan`, from the shape only; `csrc/wkv6.cu` says how).
+One block steps a head's state through its tokens, its keys split over
+lanes and its value columns over threads; where the heads are too few to
+fill the card, time is also cut into segments scanned at once, and their
+states are carried across after (`segment_plan`, from the shape only;
+`csrc/wkv6.cu` says how).
 
 `wkv` chooses by device: a CPU tensor goes to `wkv_plain`, a CUDA tensor
 launches the kernel or raises.
@@ -27,19 +28,19 @@ import torch
 from repro_torch.kernels import build
 
 HEAD_SIZES = (16, 32, 64)  # the kernel's template instances
-# the kernel's block shapes (csrc/wkv6.cu, wkv6_fwd) by head size: value
-# columns a block, columns a thread, lanes a column; and tokens a tile
-BLOCK_SHAPES = {16: (16, 1, 4), 32: (32, 4, 8), 64: (64, 4, 8)}
-TILE = 8
-# segment_plan: time is cut until the scan has TARGET_BLOCKS blocks, into
-# at most MAX_SEGMENTS segments of at least MIN_SEGMENT tokens
-TARGET_BLOCKS = 4 * 132
+# the kernel's thread layout by head size (csrc/wkv6.cu, wkv6_fwd): value
+# columns a thread, lanes a column; one block a (segment, batch, head)
+BLOCK_SHAPES = {16: (1, 4), 32: (4, 8), 64: (4, 8)}
+TILE = 8  # tokens a staged tile: segments are whole tiles
+# segment_plan: time is cut into up to MAX_SEGMENTS segments of at least
+# MIN_SEGMENT tokens until the scan has about TARGET_BLOCKS blocks, two a
+# SM of the H100 (PERF.md, PR 14: at rwkv6-3b's 160 heads of a prefill
+# one segment is fastest, at 40 six)
+TARGET_BLOCKS = 2 * 132
 MAX_SEGMENTS = 8
 MIN_SEGMENT = 64
 
-_ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-_SHAPE_ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8 + \
-    [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
 
 
 def segment_length(T: int, P: int) -> int:
@@ -49,20 +50,15 @@ def segment_length(T: int, P: int) -> int:
     return -(-per // TILE) * TILE
 
 
-def segment_plan(B: int, T: int, H: int, n: int, segments: int = 0):
+def segment_plan(B: int, T: int, H: int, segments: int = 0):
     """(P, L): the kernel scans time in P segments of L tokens, the last
     one ragged, none empty. With `segments` 0 P is chosen from the shape
-    alone: doubled from 1 while the scan has fewer than TARGET_BLOCKS
-    blocks (B * H * n / columns a block, a segment), up to MAX_SEGMENTS and while each
-    segment keeps at least MIN_SEGMENT tokens. Otherwise about `segments`
-    (for measuring one P against another)."""
+    alone: TARGET_BLOCKS // (B * H) (the scan's blocks a segment), at most
+    MAX_SEGMENTS and T // MIN_SEGMENT, at least 1. Otherwise about
+    `segments` (for measuring one P against another)."""
     if not segments:
-        cols = BLOCK_SHAPES.get(n, (n,))[0]
-        blocks = B * H * max(n // cols, 1)
-        segments = 1
-        while (segments < MAX_SEGMENTS and blocks * segments < TARGET_BLOCKS
-               and T >= 2 * segments * MIN_SEGMENT):
-            segments *= 2
+        segments = max(1, min(MAX_SEGMENTS, TARGET_BLOCKS // max(B * H, 1),
+                              T // MIN_SEGMENT))
     L = segment_length(T, segments)
     return (-(-T // L) if L else 1), L
 
@@ -133,11 +129,9 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
     return t.clone(memory_format=torch.contiguous_format)
 
 
-def _launch(r, k, v, logw, u, s0, segments: int = 0, shape=None):
+def _launch(r, k, v, logw, u, s0, segments: int = 0):
     """The kernel on CUDA tensors. `segments` forces about that many time
-    segments and `shape` (columns a block, columns a thread, lanes a
-    column) another block shape at n = 64, both for measuring; the path
-    takes neither."""
+    segments, for measuring; the path leaves it to `segment_plan`."""
     B, T, H, n = r.shape
     if n not in HEAD_SIZES:
         raise ValueError(f"the WKV6 kernel takes head sizes {HEAD_SIZES}; "
@@ -148,24 +142,22 @@ def _launch(r, k, v, logw, u, s0, segments: int = 0, shape=None):
     s_out = torch.empty((B, H, n, n), dtype=torch.float32, device=r.device)
     if B * H == 0:
         return o, s_out
-    P, L = segment_plan(B, T, H, n, segments)
-    s_end = seg_logw = None
+    P, L = segment_plan(B, T, H, segments)
+    w = torch.empty_like(logw)  # exp(logw), the kernel's first pass
+    s_end = seg_decay = None
     if P > 1:
         s_end = torch.empty((P, B, H, n, n), dtype=torch.float32,
                             device=r.device)
-        seg_logw = torch.empty((P, B, H, n), dtype=torch.float32,
-                               device=r.device)
-    args = (r.data_ptr(), k.data_ptr(), v.data_ptr(), logw.data_ptr(),
-            u.data_ptr(), None if s0 is None else s0.data_ptr(),
-            o.data_ptr(), s_out.data_ptr(),
-            None if s_end is None else s_end.data_ptr(),
-            None if seg_logw is None else seg_logw.data_ptr())
-    if shape is None:
-        fn = build.entry("wkv6", "wkv6_fwd", _ARGTYPES)
-        err = build.call(fn, r.device, *args, B, T, H, n, P, L)
-    else:
-        fn = build.entry("wkv6", "wkv6_fwd_shape", _SHAPE_ARGTYPES)
-        err = build.call(fn, r.device, *args, B, T, H, P, L, *shape)
+        seg_decay = torch.empty((P, B, H, n), dtype=torch.float32,
+                                device=r.device)
+    fn = build.entry("wkv6", "wkv6_fwd", _ARGTYPES)
+    err = build.call(fn, r.device, r.data_ptr(), k.data_ptr(), v.data_ptr(),
+                     logw.data_ptr(), u.data_ptr(),
+                     None if s0 is None else s0.data_ptr(), o.data_ptr(),
+                     s_out.data_ptr(), w.data_ptr(),
+                     None if s_end is None else s_end.data_ptr(),
+                     None if seg_decay is None else seg_decay.data_ptr(),
+                     B, T, H, n, P, L)
     if err:
         raise RuntimeError(f"wkv6 kernel launch failed: CUDA error {err}")
     wkv.launches += 1

@@ -2,13 +2,14 @@
 torch, against the JAX package's exact recurrence `repro.kernels.rwkv.ref.
 wkv_ref` on the same numpy inputs.
 
-The kernel splits a head's value columns over blocks, its keys over the
-lanes of a column, and time into the segments of `ops.segment_plan`,
-scanned at once from a zero state and carried across after. This file
-repeats that arithmetic on the CPU, pass by pass, so the decomposition is
-held to the reference under both decay draws: the model's init range, and
-logw = -exp(U(-8, 2)), where a factorization from the start of a chunk,
-exp(c_t) exp(-c_s), overflows (the last tests show it does).
+The kernel takes w = exp(logw) first, splits a head's keys over the lanes
+of a column (each thread holding a few value columns), and cuts time into
+the segments of `ops.segment_plan`, scanned at once from a zero state and
+carried across after by products of w. This file repeats that arithmetic
+on the CPU, pass by pass, so the decomposition is held to the reference
+under both decay draws: the model's init range, and logw = -exp(U(-8, 2)),
+where a factorization from the start of a chunk, exp(c_t) exp(-c_s),
+overflows (the last tests show it does).
 """
 import jax.numpy as jnp
 import numpy as np
@@ -59,8 +60,8 @@ def _lane_sum(parts):
 
 
 def _scan(r, k, w, ruk, v, S, lanes):
-    """Pass 1 over one segment of one column group: r, k, w [B, t, H, n];
-    v [B, t, H, cols]; S [B, H, n, cols]. Returns (o [B, t, H, cols], S)."""
+    """Pass 1 over one segment: r, k, w, v [B, t, H, n]; S [B, H, n, n].
+    Returns (o [B, t, H, n], S)."""
     n = r.shape[-1]
     rows = [_lane_rows(n, lanes, lane) for lane in range(lanes)]
     outs = []
@@ -74,43 +75,37 @@ def _scan(r, k, w, ruk, v, S, lanes):
             torch.zeros_like(v)), S
 
 
-def kernel_decomposition(r, k, v, logw, u, s0=None, segments=0, cols=0,
-                         lanes=0):
-    """What the kernel computes, pass by pass, in fp32 torch; the block
-    shape is the kernel's for n unless `cols` and `lanes` are given."""
+def kernel_decomposition(r, k, v, logw, u, s0=None, segments=0, lanes=0):
+    """What the kernel computes, pass by pass, in fp32 torch; the lanes a
+    column are the kernel's for n unless `lanes` is given."""
     B, T, H, n = r.shape
-    if not cols:
-        cols, _, lanes = wkv_ops.BLOCK_SHAPES[n]
-    P, L = wkv_ops.segment_plan(B, T, H, n, segments)
-    w = torch.exp(logw)  # exp(logw) once, as a tile lands
+    lanes = lanes or wkv_ops.BLOCK_SHAPES[n][1]
+    P, L = wkv_ops.segment_plan(B, T, H, segments)
+    w = torch.exp(logw)  # exp(logw) once, before the scan
     ruk = (r * u * k).sum(-1)  # r.u.k once a token
     o = torch.zeros_like(r)
-    s_end, seg_logw = [], []
+    s_end, seg_decay = [], []
     for p in range(P):  # pass 1: every segment from S = 0 (the first from s0)
         t0, t1 = p * L, min(T, (p + 1) * L)
-        ends = []
-        for j0 in range(0, n, cols):  # column groups: one block each
-            js = slice(j0, j0 + cols)
-            S = torch.zeros((B, H, n, cols)) if p or s0 is None \
-                else s0[..., js].clone()
-            o[:, t0:t1, :, js], S = _scan(
-                r[:, t0:t1], k[:, t0:t1], w[:, t0:t1], ruk[:, t0:t1],
-                v[:, t0:t1, :, js], S, lanes)
-            ends.append(S)
-        s_end.append(torch.cat(ends, -1))
-        seg_logw.append(logw[:, t0:t1].sum(1))
+        S = torch.zeros((B, H, n, n)) if p or s0 is None else s0.clone()
+        o[:, t0:t1], S = _scan(r[:, t0:t1], k[:, t0:t1], w[:, t0:t1],
+                               ruk[:, t0:t1], v[:, t0:t1], S, lanes)
+        s_end.append(S)
+        seg_decay.append(torch.prod(w[:, t0:t1], 1))
     if P == 1:
         return o, s_end[0]
     for p in range(1, P):  # pass 2: carry, then pass 3: o += r_hat . S_in
         s_in = s_end[0]
         for q in range(1, p):
-            s_in = torch.exp(seg_logw[q])[..., None] * s_in + s_end[q]
+            s_in = seg_decay[q][..., None] * s_in + s_end[q]
         t0, t1 = p * L, min(T, (p + 1) * L)
-        c = torch.cumsum(logw[:, t0:t1], 1) - logw[:, t0:t1]  # c_{t-1} - c_start
+        # prod_{t0 <= s < t} w_s = exp(c_{t-1} - c_start), every factor <= 1
+        before = torch.cat([torch.ones_like(w[:, t0:t0 + 1]),
+                            torch.cumprod(w[:, t0:t1 - 1], 1)], 1)
         o[:, t0:t1] += torch.einsum("bthi,bhij->bthj",
-                                    r[:, t0:t1] * torch.exp(c), s_in)
+                                    r[:, t0:t1] * before, s_in)
         if p == P - 1:
-            s_fin = torch.exp(seg_logw[p])[..., None] * s_in + s_end[p]
+            s_fin = seg_decay[p][..., None] * s_in + s_end[p]
     return o, s_fin
 
 
@@ -139,13 +134,13 @@ def test_decomposition_matches_jax_ref(draw, B, T, H, n, segments, s0):
     _close(s, want_s)
 
 
-@pytest.mark.parametrize("cols,lanes", [(16, 4), (8, 8), (64, 1), (32, 2)])
-def test_decomposition_holds_for_any_block_shape(cols, lanes):
+@pytest.mark.parametrize("lanes", [1, 2, 4, 8, 16])
+def test_decomposition_holds_for_any_lane_split(lanes):
     r, k, v, logw, u, init = _inputs(3, 1, 70, 2, 64, "wide", s0=True)
     want_o, want_s = _reference(r, k, v, logw, u, init)
     o, s = kernel_decomposition(*map(torch.from_numpy,
                                      (r, k, v, logw, u, init)),
-                                segments=2, cols=cols, lanes=lanes)
+                                segments=2, lanes=lanes)
     _close(o, want_o)
     _close(s, want_s)
 
@@ -157,25 +152,25 @@ def test_decomposition_holds_for_any_block_shape(cols, lanes):
 ])
 @pytest.mark.parametrize("segments", [0, 2, 4, 8])
 def test_segment_plan_covers_every_token_once(B, T, H, n, segments):
-    P, L = wkv_ops.segment_plan(B, T, H, n, segments)
+    P, L = wkv_ops.segment_plan(B, T, H, segments)
     assert 1 <= P <= max(segments, wkv_ops.MAX_SEGMENTS)
     assert L % wkv_ops.TILE == 0
     covered = [t for p in range(P) for t in range(p * L, min(T, (p + 1) * L))]
     assert covered == list(range(T))  # each token once, in order
     assert all(p * L < T for p in range(P)) or T == 0  # no segment empty
     # the plan is a function of the shape alone
-    assert wkv_ops.segment_plan(B, T, H, n, segments) == (P, L)
+    assert wkv_ops.segment_plan(B, T, H, segments) == (P, L)
 
 
 def test_segment_plan_cuts_time_only_where_blocks_are_few():
-    # rwkv6-3b's prefill of 4 prompts fills the card at one segment; one
-    # prompt does not, and is cut
-    assert wkv_ops.segment_plan(4, 512, 40, 64) == (1, 512)
-    P, L = wkv_ops.segment_plan(1, 512, 40, 64)
-    cols = wkv_ops.BLOCK_SHAPES[64][0]
-    assert P > 1 and 40 * (64 // cols) * P >= wkv_ops.TARGET_BLOCKS
+    # rwkv6-3b's prefill of 4 prompts (160 heads) runs one segment; one
+    # prompt (40 heads) is cut until the scan has about two blocks a SM
+    assert wkv_ops.segment_plan(4, 512, 40) == (1, 512)
+    P, L = wkv_ops.segment_plan(1, 512, 40)
+    assert P == wkv_ops.TARGET_BLOCKS // 40 and P * L >= 512
     # short sequences keep segments of at least MIN_SEGMENT tokens
-    assert wkv_ops.segment_plan(1, 100, 1, 64) == (1, 112)
+    assert wkv_ops.segment_plan(1, 100, 1) == (1, 104)
+    assert wkv_ops.segment_plan(1, 128, 1) == (2, 64)
 
 
 def chunk_start_factorized(r, k, v, logw, u, chunk):
