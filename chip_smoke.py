@@ -18,8 +18,13 @@ It imports nothing of JAX and nothing of the JAX package, and fails
    including shapes on the route boundary, with a ragged last row split
    and with the X/Y column boundary inside a tile; the feature route's
    3xTF32 products against float64 on inputs one TF32 product cannot hold;
-   CKA(x, x) = 1; and two launches that agree bit for bit for flash
-   attention, both CKA routes and WKV6;
+   CKA(x, x) = 1; WKV6 under two decay draws, the model's init range and
+   logw = -exp(U(-8, 2)) (where a factorization exp(c_t) exp(-c_s) from
+   a chunk's start overflows), at the main shape with the planned and
+   forced time segments, at T = 1, ragged T, T at and one past a segment
+   boundary, with s0, and at head sizes 16, 32 and 64; and two launches
+   that agree bit for bit for flash attention, both CKA routes and WKV6
+   (at one time segment and at four);
 3. slice phase at full width: DeiT-tiny (`get_config("deit-tiny")`,
    224x224, 12 layers, d=192) with params from a seeded
    `torch.Generator`, serving every inference event of a
@@ -49,8 +54,10 @@ It imports nothing of JAX and nothing of the JAX package, and fails
    fp32 CUDA cores, and as 3xTF32 on the tensor cores (`bound`); CKA
    through both routes; for CKA also the feature form
    that `core/cka.py` takes without the kernel, for WKV6 also the chunked
-   form at chunk 32; the DeiT-tiny slice's requests per second and
-   rwkv6-3b's prefill and decode tokens per second;
+   form at chunk 32 and the card's time at each forced number of time
+   segments P (1, 2, 3, 4, 6, 8) for 4 prompts and for one; the DeiT-tiny
+   slice's requests per second and rwkv6-3b's prefill and decode tokens
+   per second;
 5. only with --profile: one more kernel run of each slice under
    torch.profiler (the DeiT-tiny slice, one rwkv6-3b `generate`), for
    the device's busy share of its wall time and the kernels that fill

@@ -1,6 +1,7 @@
 // fp32-accurate products on Hopper's tensor cores: the 3xTF32 step over
 // mma.sync m16n8k8, its fragment layouts, and the cp.async staging both
-// kernels use. Included by flash_attention.cu and cka_terms.cu.
+// kernels use. Included by flash_attention.cu and cka_terms.cu, and by
+// wkv6.cu for its cp.async helpers alone.
 //
 // A TF32 operand keeps 10 of fp32's 23 mantissa bits. Each fp32 operand a
 // is split into big = tf32(a) (round to nearest, ties away: cvt.rna) and

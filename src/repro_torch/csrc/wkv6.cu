@@ -149,17 +149,15 @@ __device__ __forceinline__ void lane_sums(float (&x)[TILE][J], int l) {
 // J consecutive floats of shared memory (at a multiple of J) into x
 template <int J>
 __device__ __forceinline__ void load_cols(float (&x)[J], const float* p) {
-  if constexpr (J % 4 == 0) {
+  static_assert(J == 1 || J % 4 == 0, "one float or whole float4s");
+  if constexpr (J == 1) {
+    x[0] = p[0];
+  } else {
 #pragma unroll
     for (int q = 0; q < J / 4; ++q) {
       const float4 a = reinterpret_cast<const float4*>(p)[q];
       x[4 * q] = a.x; x[4 * q + 1] = a.y; x[4 * q + 2] = a.z; x[4 * q + 3] = a.w;
     }
-  } else if constexpr (J == 2) {
-    const float2 a = *reinterpret_cast<const float2*>(p);
-    x[0] = a.x; x[1] = a.y;
-  } else {
-    x[0] = p[0];
   }
 }
 
@@ -532,14 +530,6 @@ wkv6_carry_kernel(const float* __restrict__ r, const float* __restrict__ w,
   });
 }
 
-template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, size_t bytes) {
-  if (bytes <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(bytes));
-}
-
 // J value columns a consumer thread, G lanes a column
 template <int N, int J, int G>
 cudaError_t launch(const float* r, const float* k, const float* v,
@@ -550,12 +540,8 @@ cudaError_t launch(const float* r, const float* k, const float* v,
   constexpr int NT = N / J * G + 32;
   constexpr size_t scan_smem = STAGES * sizeof(ScanTile<N>);
   constexpr size_t carry_smem = STAGES * sizeof(CarryTile<N>);
-  static const cudaError_t ready = [] {
-    const cudaError_t err = allow_smem(wkv6_scan_kernel<N, J, G>, scan_smem);
-    return err != cudaSuccess
-        ? err : allow_smem(wkv6_carry_kernel<N, J, G>, carry_smem);
-  }();
-  if (ready != cudaSuccess) return ready;
+  static_assert(scan_smem <= 48 * 1024 && carry_smem <= 48 * 1024,
+                "within the default limit of dynamic shared memory");
   const int BH = B * H;
   const long long count = static_cast<long long>(BH) * T * N;
   if (count > 0) {

@@ -43,23 +43,18 @@ MIN_SEGMENT = 64
 _ARGTYPES = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
 
 
-def segment_length(T: int, P: int) -> int:
-    """Tokens a segment when T is cut into about P: ceil(T / P) rounded up
-    to whole tiles (0 for T = 0)."""
-    per = -(-T // P)
-    return -(-per // TILE) * TILE
-
-
 def segment_plan(B: int, T: int, H: int, segments: int = 0):
     """(P, L): the kernel scans time in P segments of L tokens, the last
     one ragged, none empty. With `segments` 0 P is chosen from the shape
     alone: TARGET_BLOCKS // (B * H) (the scan's blocks a segment), at most
     MAX_SEGMENTS and T // MIN_SEGMENT, at least 1. Otherwise about
-    `segments` (for measuring one P against another)."""
+    `segments` (for measuring one P against another): L is ceil(T / P)
+    rounded up to whole tiles, and P then ceil(T / L)."""
     if not segments:
         segments = max(1, min(MAX_SEGMENTS, TARGET_BLOCKS // max(B * H, 1),
                               T // MIN_SEGMENT))
-    L = segment_length(T, segments)
+    per = -(-T // segments)  # ceil(T / P)
+    L = -(-per // TILE) * TILE
     return (-(-T // L) if L else 1), L
 
 

@@ -17,7 +17,7 @@ from typing import List, Optional, Tuple
 
 import torch
 
-from repro_torch import resolve_device, tree_map
+from repro_torch import tree_map
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.freeze_plan import FreezePlan, maybe_stop
 from repro_torch.models import common, rwkv6
@@ -146,12 +146,11 @@ def lm_features(params, cfg: ModelConfig, batch: dict) -> List[torch.Tensor]:
 def init_lm_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
                   device=None) -> List[dict]:
     """Empty decode caches, one dict per layer, on `device` (CUDA unless
-    given, as `resolve_device` rules). rwkv states are O(1) in sequence
+    given: `rwkv6.init_rwkv_state`). rwkv states are O(1) in sequence
     length, so `max_len` and `dtype` (attention caches' size and type in
     JAX) do not enter them."""
     for i in range(cfg.num_layers):
         _require_rwkv(cfg, i)
-    device = resolve_device(device)
     return [rwkv6.init_rwkv_state(cfg, batch, device)
             for _ in range(cfg.num_layers)]
 
