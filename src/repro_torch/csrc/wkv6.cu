@@ -34,9 +34,9 @@
 // slot), one tile ahead of them. exp(logw) is taken before the scan by
 // wkv6_decay_kernel, at the accurate expf: run inside the scan, beside the
 // consumers, the special-function work slowed their shared-memory loads
-// across the SM (PERF.md, PR 14). The value columns are not split across
-// blocks: at the rwkv6-3b shape that lost to whole heads, and time
-// segments give the blocks where heads are few.
+// across the SM (PERF.md, the WKV6 findings). The value columns are not
+// split across blocks: at the rwkv6-3b shape that lost to whole heads, and
+// time segments give the blocks where heads are few.
 //
 // Time segments (wkv6_carry_kernel). Where B * H blocks leave the card
 // idle (kernels/rwkv/ops.py::segment_plan, from the shape only), time is
@@ -85,7 +85,7 @@ struct ScanTile {
 
 template <int N>
 struct CarryTile {
-  float r[TILE * N];  // r as it lands, r_t * prod_{t0 <= s < t} w_s once transformed
+  float r[TILE * N];  // r, then r_t * prod_{t0 <= s < t} w_s once transformed
   float w[TILE * N];
   float o[TILE * N];  // pass 1's o
 };
@@ -156,7 +156,10 @@ __device__ __forceinline__ void load_cols(float (&x)[J], const float* p) {
 #pragma unroll
     for (int q = 0; q < J / 4; ++q) {
       const float4 a = reinterpret_cast<const float4*>(p)[q];
-      x[4 * q] = a.x; x[4 * q + 1] = a.y; x[4 * q + 2] = a.z; x[4 * q + 3] = a.w;
+      x[4 * q] = a.x;
+      x[4 * q + 1] = a.y;
+      x[4 * q + 2] = a.z;
+      x[4 * q + 3] = a.w;
     }
   }
 }
@@ -402,7 +405,8 @@ wkv6_scan_kernel(const float* __restrict__ r, const float* __restrict__ k,
 #pragma unroll
       for (int off = N; off < 32; off *= 2)  // lanes that share a row
         decay[0] *= __shfl_xor_sync(0xffffffffu, decay[0], off);
-      float* dst = seg_decay + (static_cast<long long>(at.seg) * BH + at.bh) * N;
+      float* dst =
+          seg_decay + (static_cast<long long>(at.seg) * BH + at.bh) * N;
 #pragma unroll
       for (int q = 0; q < RL; ++q)
         if (lane + 32 * q < N) dst[lane + 32 * q] = decay[q];

@@ -34,8 +34,8 @@ BLOCK_SHAPES = {16: (1, 4), 32: (4, 8), 64: (4, 8)}
 TILE = 8  # tokens a staged tile: segments are whole tiles
 # segment_plan: time is cut into up to MAX_SEGMENTS segments of at least
 # MIN_SEGMENT tokens until the scan has about TARGET_BLOCKS blocks, two a
-# SM of the H100 (PERF.md, PR 14: at rwkv6-3b's 160 heads of a prefill
-# one segment is fastest, at 40 six)
+# SM of the H100 (measured by chip_smoke.py, PERF.md: at rwkv6-3b's 160
+# heads of a prefill one segment is fastest, at 40 six)
 TARGET_BLOCKS = 2 * 132
 MAX_SEGMENTS = 8
 MIN_SEGMENT = 64
