@@ -20,11 +20,11 @@ It imports nothing of JAX and nothing of the JAX package, and fails
    3xTF32 products against float64 on inputs one TF32 product cannot hold;
    CKA(x, x) = 1; WKV6 under two decay draws, the model's init range and
    logw = -exp(U(-8, 2)) (where a factorization exp(c_t) exp(-c_s) from
-   a chunk's start overflows), at the main shape with the planned and
-   forced time segments, at T = 1, ragged T, T at and one past a segment
-   boundary, with s0, and at head sizes 16, 32 and 64; and two launches
-   that agree bit for bit for flash attention, both CKA routes and WKV6
-   (at one time segment and at four);
+   a chunk's start overflows), at the main shape, at T = 1, ragged T, T
+   at and one past a boundary of the kernel's 8-token tiles, with s0, and
+   at head sizes 16, 32 and 64; and two launches that agree bit for bit
+   for flash attention, both CKA routes and WKV6 (at 4 prompts and at
+   one);
 3. slice phase at full width: DeiT-tiny (`get_config("deit-tiny")`,
    224x224, 12 layers, d=192) with params from a seeded
    `torch.Generator`, serving every inference event of a
@@ -54,8 +54,8 @@ It imports nothing of JAX and nothing of the JAX package, and fails
    fp32 CUDA cores, and as 3xTF32 on the tensor cores (`bound`); CKA
    through both routes; for CKA also the feature form
    that `core/cka.py` takes without the kernel, for WKV6 also the chunked
-   form at chunk 32 and the card's time at each forced number of time
-   segments P (1, 2, 3, 4, 6, 8) for 4 prompts and for one; the DeiT-tiny
+   form at chunk 32 and, under torch.profiler, the card's time in each of
+   its two passes (the decay pass and the scan); the DeiT-tiny
    slice's requests per second and rwkv6-3b's prefill and decode tokens
    per second;
 5. only with --profile: one more kernel run of each slice under
@@ -121,7 +121,7 @@ KERNELS = ("flash_attention", "cka_terms", "wkv6")
 # the CUDA kernels of those sources, as the profiler names them
 PORT_KERNELS = ("flash_fwd_kernel", "cka_gram_kernel", "cka_fold_kernel",
                 "cka_sum_kernel", "cka_tiles_kernel", "wkv6_decay_kernel",
-                "wkv6_scan_kernel", "wkv6_carry_kernel")
+                "wkv6_scan_kernel")
 # published peaks of one H100 SXM (NVIDIA data sheet): fp32 on the CUDA
 # cores, dense TF32 on the tensor cores and HBM3 bandwidth
 PEAK_FP32_FLOPS = 67e12
@@ -300,32 +300,21 @@ def _wkv_inputs(gen, B, T, H, n, draw="init"):
     return r, k, v, logw.cuda(), u
 
 
-def check_wkv(gen, B, T, H, n, *, with_s0=False, draw="init",
-              segments=0) -> float:
-    """The wrapper (or, with `segments`, the kernel at about that many
-    time segments) against the plain version; returns its max_abs_err."""
+def check_wkv(gen, B, T, H, n, *, with_s0=False, draw="init") -> float:
+    """The wrapper against the plain version; returns its max_abs_err."""
     inputs = _wkv_inputs(gen, B, T, H, n, draw)
     s0 = (0.1 * torch.randn((B, H, n, n), generator=gen)).cuda() \
         if with_s0 else None
-    if segments:
-        o, s = wkv_ops._launch(*inputs, s0, segments=segments)
-    else:
-        o, s = wkv_ops.wkv(*inputs, s0=s0, return_state=True)
+    o, s = wkv_ops.wkv(*inputs, s0=s0, return_state=True)
     want_o, want_s = wkv_ops.wkv_plain(*inputs, s0=s0)
     torch.cuda.synchronize()
     torch.testing.assert_close(o, want_o, rtol=WKV_RTOL, atol=WKV_ATOL)
     torch.testing.assert_close(s, want_s, rtol=WKV_RTOL, atol=WKV_ATOL)
     err = max(float((o - want_o).abs().max()), float((s - want_s).abs().max()))
-    P, L = wkv_ops.segment_plan(B, T, H, segments)
-    print(f"  wkv6 B{B} T{T} H{H} n{n} s0={with_s0} {draw} draw, {P} "
-          f"segment(s) of {L}{' (forced)' if segments else ''}: max_abs_err "
-          f"{err:.3g} (o and final state; max |o| "
+    print(f"  wkv6 B{B} T{T} H{H} n{n} s0={with_s0} {draw} draw: "
+          f"max_abs_err {err:.3g} (o and final state; max |o| "
           f"{float(want_o.abs().max()):.3g})")
     return err
-
-
-# a shape the plan cuts into segments: one prompt of a few heads
-SEG_WKV = (1, 256, 4, 64)
 
 
 def kernel_phase():
@@ -374,26 +363,20 @@ def kernel_phase():
     wkv_err = 0.0
     for draw in ("init", "wide"):
         wkv_err = max(wkv_err, check_wkv(gen, *MAIN_WKV, draw=draw))  # main
-        for P in (2, 4, 8):  # the carry passes at the main shape
-            check_wkv(gen, *MAIN_WKV, draw=draw, segments=P, with_s0=True)
+        check_wkv(gen, *MAIN_WKV, draw=draw, with_s0=True)
         check_wkv(gen, 2, 1, 4, 64, draw=draw, with_s0=True)  # T = 1
         check_wkv(gen, 1, 50, 4, 16, draw=draw)  # ragged T, head size 16
         check_wkv(gen, 2, 130, 3, 32, draw=draw, with_s0=True)
-        B, T, H, n = SEG_WKV
-        P, L = wkv_ops.segment_plan(*SEG_WKV[:3])
-        if P < 2:
-            raise AssertionError(f"{SEG_WKV} plans {P} segment(s)")
-        for t in (P * L, P * L + 1):  # at and one past a segment boundary
-            check_wkv(gen, B, t, H, n, draw=draw, with_s0=True)
-    for shape, segments in ((MAIN_WKV, 0), (MAIN_WKV, 4), (SEG_WKV, 0)):
+        for t in (256, 257):  # at and one past a boundary of 8-token tiles
+            check_wkv(gen, 1, t, 4, 64, draw=draw, with_s0=True)
+    for shape in (MAIN_WKV, (1, *MAIN_WKV[1:])):
         inputs = _wkv_inputs(gen, *shape, "wide")
-        first = wkv_ops._launch(*inputs, None, segments=segments)
-        second = wkv_ops._launch(*inputs, None, segments=segments)
+        first = wkv_ops.wkv(*inputs, return_state=True)
+        second = wkv_ops.wkv(*inputs, return_state=True)
         if not all(torch.equal(a, b) for a, b in zip(first, second)):
-            raise AssertionError(f"two WKV6 launches differ at {shape}, "
-                                 f"segments {segments or 'planned'}")
-    print("  wkv6: two launches agree bit for bit (o and final state), at "
-          "one segment and at four")
+            raise AssertionError(f"two WKV6 launches differ at {shape}")
+    print("  wkv6: two launches agree bit for bit (o and final state), at 4 "
+          "prompts and at one")
     return att_err, cka_err, wkv_err
 
 
@@ -892,7 +875,6 @@ def timing_phase():
                             iters=3, warmup=1),
         "library_ms": None,
         "device_ms": device_ms(kernel, calls=5),
-        "segments": wkv_ops.segment_plan(B, T, H)[0],
     }
     # r, k, v, logw read and o written once, u read, the final state
     # written; ~5n^2 operations per token and head: r.S (2n^2), the decay
@@ -902,21 +884,35 @@ def timing_phase():
     chunked_ms = time_ms(lambda: wkv_chunked(r, k, v, logw, u, chunk=32),
                          iters=10, warmup=2)
     print(f"  wkv6: kernel {wkv['ms']:.4f} ms (device "
-          f"{wkv['device_ms']:.4f}, {wkv['segments']} segment(s)), plain "
+          f"{wkv['device_ms']:.4f}), plain "
           f"{wkv['plain_ms']:.4f} ms, library none, bound "
           f"{wkv['bound_ms']:.4f} ms "
           f"({wkv['bound_by']}); the chunked form at chunk 32 "
           f"{chunked_ms:.4f} ms")
-    wkv["device_ms_by_segments"] = {}
-    for shape in (MAIN_WKV, (1, *MAIN_WKV[1:])):
-        ins = _wkv_inputs(gen, *shape)
-        by_p = {P: device_ms(lambda: wkv_ops._launch(  # noqa: B023
-            *ins, None, segments=P), calls=5) for P in (1, 2, 3, 4, 6, 8)}
-        wkv["device_ms_by_segments"][str(list(shape))] = by_p
-        print(f"  wkv6 at {list(shape)}, device ms by segments P (forced; "
-              f"the plan takes P = {wkv_ops.segment_plan(*shape[:3])[0]}): "
-              + ", ".join(f"P={P} {t:.4f}" for P, t in by_p.items()))
+    wkv["device_ms_by_pass"] = pass_device_ms(
+        kernel, ("wkv6_decay_kernel", "wkv6_scan_kernel"), calls=5)
+    print("  wkv6 device ms by pass (torch.profiler, 5 calls): " + (
+        ", ".join(f"{k} {t:.4f}" for k, t in wkv["device_ms_by_pass"].items())
+        or "not measured (the profiler saw no device time)"))
     return att, cka, wkv
+
+
+def pass_device_ms(run, names, calls: int) -> dict:
+    """The card's mean time a call in each of the kernels `names`, over
+    `calls` calls of `run` under torch.profiler; a kernel the profiler
+    records no device time for is left out."""
+    from torch.profiler import ProfilerActivity, profile
+
+    run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            run()
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    times = {name: sum(e.self_device_time_total for e in events
+                       if name in e.key) / 1e3 / calls for name in names}
+    return {name: t for name, t in times.items() if t > 0}
 
 
 def profile_phase(deit, rwkv) -> None:

@@ -20,40 +20,23 @@
 // token's r, k, w to the threads holding S, and the FMAs on S, at one to
 // two blocks a SM (PERF.md).
 //
-// Design (wkv6_scan_kernel). One block owns one (segment, b, h). Its
-// consumer warps hold S in registers: thread (slot, lane l) holds J value
-// columns of rows 4(l + G m) + e, so a token's r, k, w rows are read once
-// for J columns, and o_t[j] is the G lanes' partial sums added by
-// __shfl_xor in a fixed order (the first log2 J steps swap half the
-// columns, so every lane ends with a whole column). The only chain carried
-// from token to token is one FMA an entry of S. A tile's tokens are all
-// stepped before their sums are taken, so the shuffles of a tile overlap.
-// A producer warp keeps STAGES tiles of TILE tokens in flight by cp.async
-// into shared memory, adds up r.u.k once a token for all columns, and
-// hands each tile to the consumers over named barriers (FULL / EMPTY a
+// Design (wkv6_scan_kernel). One block owns one (b, h) and runs its whole
+// sequence. Its consumer warps hold S in registers: thread (slot, lane l)
+// holds J value columns of rows 4(l + G m) + e, so a token's r, k, w rows
+// are read once for J columns, and o_t[j] is the G lanes' partial sums
+// added by __shfl_xor in a fixed order (the first log2 J steps swap half
+// the columns, so every lane ends with a whole column). The only chain
+// carried from token to token is one FMA an entry of S. A tile's tokens
+// are all stepped before their sums are taken, so the shuffles of a tile
+// overlap. A producer warp keeps STAGES tiles of TILE tokens in flight by
+// cp.async into shared memory, adds up r.u.k once a token for all columns,
+// and hands each tile to the consumers over named barriers (FULL / EMPTY a
 // slot), one tile ahead of them. exp(logw) is taken before the scan by
-// wkv6_decay_kernel, at the accurate expf: run inside the scan, beside the
-// consumers, the special-function work slowed their shared-memory loads
-// across the SM (PERF.md, the WKV6 findings). The value columns are not
-// split across blocks: at the rwkv6-3b shape that lost to whole heads, and
-// time segments give the blocks where heads are few.
-//
-// Time segments (wkv6_carry_kernel). Where B * H blocks leave the card
-// idle (kernels/rwkv/ops.py::segment_plan, from the shape only), time is
-// cut into P segments of L tokens, all scanned at once:
-//   pass 1 (scan): each segment runs the recurrence from S = 0 (the first
-//     from s0), writes its partial o, its end state S_end[p] and its decay
-//     D[p] = prod_t w_t, row by row;
-//   pass 2 (carry, first part): a block of segment p >= 1 carries its
-//     incoming state S_in[p] = diag(D[p-1]) S_in[p-1] + S_end[p-1]
-//     (S_in[1] = S_end[0]); the last also writes the final state
-//     diag(D[P-1]) S_in[P-1] + S_end[P-1];
-//   pass 3 (carry, second part): o_t += (r_t * prod_{t0 <= s < t} w_s) .
-//     S_in[p] over the segment, in fp32 FMAs.
-// Every decay factor is a product of w = exp(logw) <= 1, so it lies in
-// [0, 1]: no exp(-c) of a cumulative log-decay is ever formed, and an
-// underflow to 0 is the true limit. With P = 1 the scan alone runs and
-// writes the final state itself.
+// wkv6_decay_kernel, at the accurate expf: that pass of its own made the
+// scan faster than expf taken inside it by the producer warp (measured A/B,
+// PERF.md; why is a hypothesis there). The value columns are not split
+// across blocks, and time is not cut into segments: at the rwkv6-3b prefill
+// shape both lost to whole heads and whole sequences (PERF.md).
 //
 // Everything is fp32 with the accurate expf (no fast math): the parity
 // limit against the exact recurrence is rtol/atol 1e-4 for any logw <= 0.
@@ -83,23 +66,15 @@ struct ScanTile {
   float ruk[TILE];    // sum_i r_i u_i k_i per token
 };
 
-template <int N>
-struct CarryTile {
-  float r[TILE * N];  // r, then r_t * prod_{t0 <= s < t} w_s once transformed
-  float w[TILE * N];
-  float o[TILE * N];  // pass 1's o
-};
-
-// The block's place: segment seg of (b, h) = bh. Consumer thread (column
-// slot, lane l) holds columns j0 + jj (jj < J) of rows row(l, m, e) of S.
+// The block's place: (b, h) = bh. Consumer thread (column slot, lane l)
+// holds columns j0 + jj (jj < J) of rows row(l, m, e) of S.
 template <int N, int J, int G>
 struct Place {
   static constexpr int NT = N / J * G, M = N / (4 * G);  // consumers, row quads
   static_assert(NT % 32 == 0 && M >= 1 && J <= G, "block shape");
-  int bh, seg, l, j0;
-  __device__ Place(int block, int BH, int first_seg) {
-    bh = block % BH;
-    seg = block / BH + first_seg;
+  int bh, l, j0;
+  __device__ Place() {
+    bh = blockIdx.x;
     l = threadIdx.x % G;
     j0 = threadIdx.x / G * J;
   }
@@ -166,7 +141,7 @@ __device__ __forceinline__ void load_cols(float (&x)[J], const float* p) {
 
 // Named barriers between the producer warp and the consumer warps: tile
 // slot s is FULL (staged and transformed) or EMPTY (consumed). Barrier 0
-// is __syncthreads, which the kernels do not use.
+// is __syncthreads, which the kernel does not use.
 __device__ __forceinline__ int full_bar(int slot) { return 1 + slot; }
 __device__ __forceinline__ int empty_bar(int slot) { return 1 + STAGES + slot; }
 __device__ __forceinline__ void bar_sync(int id, int count) {
@@ -192,12 +167,11 @@ __device__ __forceinline__ void stage_rows(float* dst, const float* src,
   }
 }
 
-// The producer's loop, shared by both kernels: hand each tile to the
-// consumers once it landed and `transform` ran on it, then refill the slot
-// the consumers freed last, so STAGES - 1 tiles of copies stay in flight
-// and the transform of tile kt + 1 overlaps the consumers' work on tile
-// kt. The consumers arrive on a slot's EMPTY barrier only where the
-// producer waits for it.
+// The producer's loop: hand each tile to the consumers once it landed and
+// `transform` ran on it, then refill the slot the consumers freed last, so
+// STAGES - 1 tiles of copies stay in flight and the transform of tile
+// kt + 1 overlaps the consumers' work on tile kt. The consumers arrive on
+// a slot's EMPTY barrier only where the producer waits for it.
 template <typename Stage, typename Transform>
 __device__ __forceinline__ void produce(int ntiles, int count, Stage stage,
                                         Transform transform) {
@@ -276,50 +250,17 @@ __device__ __forceinline__ void scan_tile(const ScanTile<N>& s,
   }
 }
 
-// Pass 3 on one staged tile: o_t += r_hat_t . S_in, batched as scan_tile.
-template <int N, int J, int G, bool FULL>
-__device__ __forceinline__ void carry_tile(const CarryTile<N>& s,
-                                           const float (&S)[N / G][J],
-                                           float* o, long long row, int nt,
-                                           const Place<N, J, G>& at) {
-  constexpr int M = N / (4 * G);
-  const float4* r4 = reinterpret_cast<const float4*>(s.r);
-  float acc[TILE][J] = {};
-#pragma unroll
-  for (int t = 0; t < TILE; ++t) {
-    if (!FULL && t >= nt) break;
-#pragma unroll
-    for (int m = 0; m < M; ++m) {
-      const float4 rr = r4[t * (N / 4) + at.l + G * m];
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-#pragma unroll
-        for (int jj = 0; jj < J; ++jj)
-          acc[t][jj] = fmaf(part(rr, e), S[4 * m + e][jj], acc[t][jj]);
-    }
-  }
-  lane_sums<J, G>(acc, at.l);
-  if (at.writes(at.l)) {
-    const int j = at.j0 + at.col(at.l);
-#pragma unroll
-    for (int t = 0; t < TILE; ++t)
-      if (FULL || t < nt) o[t * row + j] = s.o[t * N + j] + acc[t][0];
-  }
-}
-
-// Where a block's segment lies: its tokens [t0, t0 + len) of (b, h), the
-// offset of (b, t0, h, 0) and the stride of a token.
+// Where a block's tokens lie: the offset of (b, 0, h, 0) and the stride of
+// a token.
 struct Span {
   int h, len, ntiles;
   long long base, row;
-  __device__ Span(int bh, int seg, int T, int H, int N, int L) {
-    const int b = bh / H, t0 = seg * L;
+  __device__ Span(int bh, int T, int H, int N) : len(T) {
+    const int b = bh / H;
     h = bh % H;
-    len = max(0, min(T, t0 + L) - t0);
-    ntiles = (len + TILE - 1) / TILE;
+    ntiles = (T + TILE - 1) / TILE;
     row = static_cast<long long>(H) * N;
-    base = (static_cast<long long>(b) * T + t0) * row +
-           static_cast<long long>(h) * N;
+    base = static_cast<long long>(b) * T * row + static_cast<long long>(h) * N;
   }
   __device__ int tokens(int kt) const { return min(TILE, len - kt * TILE); }
   __device__ long long at(int kt) const {
@@ -344,14 +285,14 @@ __global__ void __launch_bounds__(N / J * G + 32)
 wkv6_scan_kernel(const float* __restrict__ r, const float* __restrict__ k,
                  const float* __restrict__ v, const float* __restrict__ w,
                  const float* __restrict__ u, const float* __restrict__ s0,
-                 float* __restrict__ o, float* __restrict__ s_end,
-                 float* __restrict__ seg_decay, int T, int H, int BH, int L) {
+                 float* __restrict__ o, float* __restrict__ s_out, int T,
+                 int H) {
   using At = Place<N, J, G>;
   constexpr int M = At::M, COUNT = At::NT + 32;
   extern __shared__ __align__(16) unsigned char smem[];
   auto* tiles = reinterpret_cast<ScanTile<N>*>(smem);
-  const At at(blockIdx.x, BH, 0);
-  const Span sp(at.bh, at.seg, T, H, N, L);
+  const At at;
+  const Span sp(at.bh, T, H, N);
 
   if (threadIdx.x >= At::NT) {  // the producer warp
     const int lane = threadIdx.x - At::NT;
@@ -362,10 +303,6 @@ wkv6_scan_kernel(const float* __restrict__ r, const float* __restrict__ k,
 #pragma unroll
     for (int m = 0; m < QL; ++m)
       uq[m] = reinterpret_cast<const float4*>(u + sp.h * N)[lane % 4 + 4 * m];
-    constexpr int RL = N >= 32 ? N / 32 : 1;  // rows of w a lane multiplies
-    float decay[RL];
-#pragma unroll
-    for (int q = 0; q < RL; ++q) decay[q] = 1.f;
     produce(sp.ntiles, COUNT, [&](int kt) {
       ScanTile<N>& s = tiles[kt % STAGES];
       const int nt = sp.tokens(kt);
@@ -376,13 +313,6 @@ wkv6_scan_kernel(const float* __restrict__ r, const float* __restrict__ k,
     }, [&](int kt) {
       ScanTile<N>& s = tiles[kt % STAGES];
       const int nt = sp.tokens(kt);
-      if (seg_decay != nullptr) {
-#pragma unroll
-        for (int it = 0; it < TILE * N / 32; ++it) {  // prod of w, row e % N
-          const int e = lane + 32 * it;
-          if (e < nt * N) decay[it % RL] *= s.w[e];
-        }
-      }
       const int t = lane / 4;
       float acc = 0.f;
       if (t < nt) {
@@ -401,16 +331,6 @@ wkv6_scan_kernel(const float* __restrict__ r, const float* __restrict__ k,
       acc += __shfl_xor_sync(0xffffffffu, acc, 2);
       if (t < nt && lane % 4 == 0) s.ruk[t] = acc;
     });
-    if (seg_decay != nullptr) {  // the segment's decay, row by row
-#pragma unroll
-      for (int off = N; off < 32; off *= 2)  // lanes that share a row
-        decay[0] *= __shfl_xor_sync(0xffffffffu, decay[0], off);
-      float* dst =
-          seg_decay + (static_cast<long long>(at.seg) * BH + at.bh) * N;
-#pragma unroll
-      for (int q = 0; q < RL; ++q)
-        if (lane + 32 * q < N) dst[lane + 32 * q] = decay[q];
-    }
     return;
   }
 
@@ -422,8 +342,8 @@ wkv6_scan_kernel(const float* __restrict__ r, const float* __restrict__ k,
     for (int e = 0; e < 4; ++e)
 #pragma unroll
       for (int jj = 0; jj < J; ++jj)
-        S[4 * m + e][jj] = (at.seg == 0 && s0)
-            ? s0[sb + at.row(at.l, m, e) * N + at.j0 + jj] : 0.f;
+        S[4 * m + e][jj] =
+            s0 ? s0[sb + at.row(at.l, m, e) * N + at.j0 + jj] : 0.f;
   consume(sp.ntiles, COUNT, [&](int kt) {
     const int nt = sp.tokens(kt);
     if (nt == TILE)
@@ -433,7 +353,7 @@ wkv6_scan_kernel(const float* __restrict__ r, const float* __restrict__ k,
       scan_tile<N, J, G, false>(tiles[kt % STAGES], S, o + sp.at(kt),
                                 sp.row, nt, at);
   });
-  float* dst = s_end + static_cast<long long>(at.seg) * BH * N * N + sb;
+  float* dst = s_out + sb;
 #pragma unroll
   for (int m = 0; m < M; ++m)
 #pragma unroll
@@ -443,111 +363,17 @@ wkv6_scan_kernel(const float* __restrict__ r, const float* __restrict__ k,
         dst[at.row(at.l, m, e) * N + at.j0 + jj] = S[4 * m + e][jj];
 }
 
-template <int N, int J, int G>
-__global__ void __launch_bounds__(N / J * G + 32)
-wkv6_carry_kernel(const float* __restrict__ r, const float* __restrict__ w,
-                  const float* __restrict__ s_end,
-                  const float* __restrict__ seg_decay, float* __restrict__ o,
-                  float* __restrict__ s_out, int T, int H, int BH, int L,
-                  int P) {
-  using At = Place<N, J, G>;
-  constexpr int M = At::M, COUNT = At::NT + 32;
-  extern __shared__ __align__(16) unsigned char smem[];
-  auto* tiles = reinterpret_cast<CarryTile<N>*>(smem);
-  const At at(blockIdx.x, BH, 1);
-  const int p = at.seg;
-  const Span sp(at.bh, p, T, H, N, L);
-
-  if (threadIdx.x >= At::NT) {  // the producer warp
-    const int lane = threadIdx.x - At::NT;
-    constexpr int RL = (N + 31) / 32;  // rows lane + 32 q
-    float decay[RL];  // their products of w from the segment start
-#pragma unroll
-    for (int q = 0; q < RL; ++q) decay[q] = 1.f;
-    produce(sp.ntiles, COUNT, [&](int kt) {
-      CarryTile<N>& s = tiles[kt % STAGES];
-      const int nt = sp.tokens(kt);
-      stage_rows<N>(s.r, r, sp.at(kt), sp.row, nt, lane);
-      stage_rows<N>(s.w, w, sp.at(kt), sp.row, nt, lane);
-      stage_rows<N>(s.o, o, sp.at(kt), sp.row, nt, lane);
-    }, [&](int kt) {  // r_hat = r * prod of w before it, row by row
-      CarryTile<N>& s = tiles[kt % STAGES];
-      const int nt = sp.tokens(kt);
-#pragma unroll
-      for (int q = 0; q < RL; ++q) {
-        const int i = lane + 32 * q;
-        if (i < N) {
-#pragma unroll
-          for (int t = 0; t < TILE; ++t) {
-            if (t < nt) {
-              s.r[t * N + i] *= decay[q];
-              decay[q] *= s.w[t * N + i];
-            }
-          }
-        }
-      }
-    });
-    return;
-  }
-
-  // pass 2: S_in[p] = diag(D[q]) S_in[q] + S_end[q] over q < p for this
-  // thread's entries, one segment's loads at a time
-  const long long NN = static_cast<long long>(N) * N;
-  const long long sb = static_cast<long long>(at.bh) * NN;
-  float S[N / G][J];
-  auto carry_from = [&](int q, float* dst) {
-    const long long qs = static_cast<long long>(q) * BH;
-#pragma unroll
-    for (int m = 0; m < M; ++m)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int i = at.row(at.l, m, e);
-        const float d = seg_decay[(qs + at.bh) * N + i];
-#pragma unroll
-        for (int jj = 0; jj < J; ++jj) {
-          const float x = fmaf(d, S[4 * m + e][jj],
-                               s_end[qs * NN + sb + i * N + at.j0 + jj]);
-          if (dst) dst[sb + i * N + at.j0 + jj] = x;
-          else S[4 * m + e][jj] = x;
-        }
-      }
-  };
-#pragma unroll
-  for (int m = 0; m < M; ++m)
-#pragma unroll
-    for (int e = 0; e < 4; ++e)
-#pragma unroll
-      for (int jj = 0; jj < J; ++jj)
-        S[4 * m + e][jj] = s_end[sb + at.row(at.l, m, e) * N + at.j0 + jj];
-  for (int q = 1; q < p; ++q) carry_from(q, nullptr);
-  if (p == P - 1) carry_from(p, s_out);  // the final state
-
-  // pass 3: o_t += (r_t * prod_{t0 <= s < t} w_s) . S_in[p]
-  consume(sp.ntiles, COUNT, [&](int kt) {
-    const int nt = sp.tokens(kt);
-    if (nt == TILE)
-      carry_tile<N, J, G, true>(tiles[kt % STAGES], S, o + sp.at(kt),
-                                sp.row, TILE, at);
-    else
-      carry_tile<N, J, G, false>(tiles[kt % STAGES], S, o + sp.at(kt),
-                                 sp.row, nt, at);
-  });
-}
-
 // J value columns a consumer thread, G lanes a column
 template <int N, int J, int G>
 cudaError_t launch(const float* r, const float* k, const float* v,
                    const float* logw, const float* u, const float* s0,
-                   float* o, float* s_out, float* w, float* s_end,
-                   float* seg_decay, int B, int T, int H, int P, int L,
+                   float* o, float* s_out, float* w, int B, int T, int H,
                    cudaStream_t stream) {
   constexpr int NT = N / J * G + 32;
-  constexpr size_t scan_smem = STAGES * sizeof(ScanTile<N>);
-  constexpr size_t carry_smem = STAGES * sizeof(CarryTile<N>);
-  static_assert(scan_smem <= 48 * 1024 && carry_smem <= 48 * 1024,
+  constexpr size_t smem = STAGES * sizeof(ScanTile<N>);
+  static_assert(smem <= 48 * 1024,
                 "within the default limit of dynamic shared memory");
-  const int BH = B * H;
-  const long long count = static_cast<long long>(BH) * T * N;
+  const long long count = static_cast<long long>(B) * H * T * N;
   if (count > 0) {
     const long long blocks = (count / 4 + 255) / 256;
     wkv6_decay_kernel<<<static_cast<int>(blocks < 4096 ? blocks : 4096), 256,
@@ -556,17 +382,8 @@ cudaError_t launch(const float* r, const float* k, const float* v,
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }
-  if (P == 1) {
-    wkv6_scan_kernel<N, J, G><<<BH, NT, scan_smem, stream>>>(
-        r, k, v, w, u, s0, o, s_out, nullptr, T, H, BH, L);
-    return cudaGetLastError();
-  }
-  wkv6_scan_kernel<N, J, G><<<BH * P, NT, scan_smem, stream>>>(
-      r, k, v, w, u, s0, o, s_end, seg_decay, T, H, BH, L);
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  wkv6_carry_kernel<N, J, G><<<BH * (P - 1), NT, carry_smem, stream>>>(
-      r, w, s_end, seg_decay, o, s_out, T, H, BH, L, P);
+  wkv6_scan_kernel<N, J, G><<<B * H, NT, smem, stream>>>(r, k, v, w, u, s0, o,
+                                                         s_out, T, H);
   return cudaGetLastError();
 }
 
@@ -574,27 +391,21 @@ cudaError_t launch(const float* r, const float* k, const float* v,
 
 // Plain C interface for ctypes. All tensors fp32, contiguous and 16-byte
 // aligned: r, k, v, logw and o [B, T, H, n]; u [H, n]; s0 (may be null)
-// and s_out [B, H, n, n]; the scratch w [B, T, H, n]. P segments of L
-// tokens (P * L >= T, none empty); with P > 1 the scratch s_end
-// [P, B, H, n, n] and seg_decay [P, B, H, n], else both may be null.
-// Returns the CUDA error of the launches (0 on success);
-// cudaErrorInvalidValue for an n other than 16, 32 or 64 or a plan that
-// does not cover T.
+// and s_out [B, H, n, n]; the scratch w [B, T, H, n]. Returns the CUDA
+// error of the launches (0 on success); cudaErrorInvalidValue for an n
+// other than 16, 32 or 64.
 extern "C" int wkv6_fwd(const float* r, const float* k, const float* v,
                         const float* logw, const float* u, const float* s0,
-                        float* o, float* s_out, float* w, float* s_end,
-                        float* seg_decay, int B, int T, int H, int n, int P,
-                        int L, cudaStream_t stream) {
-  if (B <= 0 || H <= 0 || T < 0 || P < 1 || L < 0 ||
-      static_cast<long long>(P) * L < T || (P > 1 && (P - 1) * L >= T))
-    return cudaErrorInvalidValue;
+                        float* o, float* s_out, float* w, int B, int T, int H,
+                        int n, cudaStream_t stream) {
+  if (B <= 0 || H <= 0 || T < 0) return cudaErrorInvalidValue;
   switch (n) {
-    case 16: return launch<16, 1, 4>(r, k, v, logw, u, s0, o, s_out, w, s_end,
-                                     seg_decay, B, T, H, P, L, stream);
-    case 32: return launch<32, 4, 8>(r, k, v, logw, u, s0, o, s_out, w, s_end,
-                                     seg_decay, B, T, H, P, L, stream);
-    case 64: return launch<64, 4, 8>(r, k, v, logw, u, s0, o, s_out, w, s_end,
-                                     seg_decay, B, T, H, P, L, stream);
+    case 16: return launch<16, 1, 4>(r, k, v, logw, u, s0, o, s_out, w, B, T,
+                                     H, stream);
+    case 32: return launch<32, 4, 8>(r, k, v, logw, u, s0, o, s_out, w, B, T,
+                                     H, stream);
+    case 64: return launch<64, 4, 8>(r, k, v, logw, u, s0, o, s_out, w, B, T,
+                                     H, stream);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -10,11 +10,8 @@ Port of `repro.kernels.rwkv` (the `ops.wkv` wrapper, the Pallas kernel in
 
 The kernel runs the time loop to the true T, so nothing is padded, and it
 also returns the final state, which a prefill hands to the decode cache.
-One block steps a head's state through its tokens, its keys split over
-lanes and its value columns over threads; where the heads are too few to
-fill the card, time is also cut into segments scanned at once, and their
-states are carried across after (`segment_plan`, from the shape only;
-`csrc/wkv6.cu` says how).
+One block steps a head's state through its whole sequence, its keys split
+over lanes and its value columns over threads (`csrc/wkv6.cu` says how).
 
 `wkv` chooses by device: a CPU tensor goes to `wkv_plain`, a CUDA tensor
 launches the kernel or raises.
@@ -28,34 +25,8 @@ import torch
 from repro_torch.kernels import build
 
 HEAD_SIZES = (16, 32, 64)  # the kernel's template instances
-# the kernel's thread layout by head size (csrc/wkv6.cu, wkv6_fwd): value
-# columns a thread, lanes a column; one block a (segment, batch, head)
-BLOCK_SHAPES = {16: (1, 4), 32: (4, 8), 64: (4, 8)}
-TILE = 8  # tokens a staged tile: segments are whole tiles
-# segment_plan: time is cut into up to MAX_SEGMENTS segments of at least
-# MIN_SEGMENT tokens until the scan has about TARGET_BLOCKS blocks, two a
-# SM of the H100 (measured by chip_smoke.py, PERF.md: at rwkv6-3b's 160
-# heads of a prefill one segment is fastest, at 40 six)
-TARGET_BLOCKS = 2 * 132
-MAX_SEGMENTS = 8
-MIN_SEGMENT = 64
 
-_ARGTYPES = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-
-
-def segment_plan(B: int, T: int, H: int, segments: int = 0):
-    """(P, L): the kernel scans time in P segments of L tokens, the last
-    one ragged, none empty. With `segments` 0 P is chosen from the shape
-    alone: TARGET_BLOCKS // (B * H) (the scan's blocks a segment), at most
-    MAX_SEGMENTS and T // MIN_SEGMENT, at least 1. Otherwise about
-    `segments` (for measuring one P against another): L is ceil(T / P)
-    rounded up to whole tiles, and P then ceil(T / L)."""
-    if not segments:
-        segments = max(1, min(MAX_SEGMENTS, TARGET_BLOCKS // max(B * H, 1),
-                              T // MIN_SEGMENT))
-    per = -(-T // segments)  # ceil(T / P)
-    L = -(-per // TILE) * TILE
-    return (-(-T // L) if L else 1), L
+_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 
 
 def wkv_plain(r, k, v, logw, u, s0=None):
@@ -124,9 +95,8 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
     return t.clone(memory_format=torch.contiguous_format)
 
 
-def _launch(r, k, v, logw, u, s0, segments: int = 0):
-    """The kernel on CUDA tensors. `segments` forces about that many time
-    segments, for measuring; the path leaves it to `segment_plan`."""
+def _launch(r, k, v, logw, u, s0):
+    """The kernel on CUDA tensors."""
     B, T, H, n = r.shape
     if n not in HEAD_SIZES:
         raise ValueError(f"the WKV6 kernel takes head sizes {HEAD_SIZES}; "
@@ -137,22 +107,12 @@ def _launch(r, k, v, logw, u, s0, segments: int = 0):
     s_out = torch.empty((B, H, n, n), dtype=torch.float32, device=r.device)
     if B * H == 0:
         return o, s_out
-    P, L = segment_plan(B, T, H, segments)
     w = torch.empty_like(logw)  # exp(logw), the kernel's first pass
-    s_end = seg_decay = None
-    if P > 1:
-        s_end = torch.empty((P, B, H, n, n), dtype=torch.float32,
-                            device=r.device)
-        seg_decay = torch.empty((P, B, H, n), dtype=torch.float32,
-                                device=r.device)
     fn = build.entry("wkv6", "wkv6_fwd", _ARGTYPES)
     err = build.call(fn, r.device, r.data_ptr(), k.data_ptr(), v.data_ptr(),
                      logw.data_ptr(), u.data_ptr(),
                      None if s0 is None else s0.data_ptr(), o.data_ptr(),
-                     s_out.data_ptr(), w.data_ptr(),
-                     None if s_end is None else s_end.data_ptr(),
-                     None if seg_decay is None else seg_decay.data_ptr(),
-                     B, T, H, n, P, L)
+                     s_out.data_ptr(), w.data_ptr(), B, T, H, n)
     if err:
         raise RuntimeError(f"wkv6 kernel launch failed: CUDA error {err}")
     wkv.launches += 1

@@ -2,14 +2,13 @@
 torch, against the JAX package's exact recurrence `repro.kernels.rwkv.ref.
 wkv_ref` on the same numpy inputs.
 
-The kernel takes w = exp(logw) first, splits a head's keys over the lanes
-of a column (each thread holding a few value columns), and cuts time into
-the segments of `ops.segment_plan`, scanned at once from a zero state and
-carried across after by products of w. This file repeats that arithmetic
-on the CPU, pass by pass, so the decomposition is held to the reference
-under both decay draws: the model's init range, and logw = -exp(U(-8, 2)),
-where a factorization from the start of a chunk, exp(c_t) exp(-c_s),
-overflows (the last tests show it does).
+The kernel takes w = exp(logw) first, adds up r.u.k once a token, and
+splits a head's keys over the lanes of a column (each thread holding a few
+value columns), their partial sums added by __shfl_xor. This file repeats
+that arithmetic on the CPU, pass by pass, so the decomposition is held to
+the reference under both decay draws: the model's init range, and
+logw = -exp(U(-8, 2)), where a factorization from the start of a chunk,
+exp(c_t) exp(-c_s), overflows (the last tests show it does).
 """
 import jax.numpy as jnp
 import numpy as np
@@ -17,7 +16,6 @@ import pytest
 import torch
 
 from repro.kernels.rwkv import ref as jax_wkv_ref
-from repro_torch.kernels.rwkv import ops as wkv_ops
 
 TOL = dict(rtol=1e-4, atol=1e-4)  # tests/test_kernels.py:135-136
 DRAWS = ("init", "wide")
@@ -59,54 +57,23 @@ def _lane_sum(parts):
     return parts[0]
 
 
-def _scan(r, k, w, ruk, v, S, lanes):
-    """Pass 1 over one segment: r, k, w, v [B, t, H, n]; S [B, H, n, n].
-    Returns (o [B, t, H, n], S)."""
-    n = r.shape[-1]
+def kernel_decomposition(r, k, v, logw, u, s0=None, lanes=4):
+    """What the kernel computes, pass by pass, in fp32 torch, with `lanes`
+    lanes a column: r, k, v, logw [B, T, H, n]; u [H, n]; s0 [B, H, n, n].
+    Returns (o [B, T, H, n], the final state [B, H, n, n])."""
+    B, T, H, n = r.shape
+    w = torch.exp(logw)  # exp(logw) once, before the scan
+    ruk = (r * u * k).sum(-1)  # r.u.k once a token
     rows = [_lane_rows(n, lanes, lane) for lane in range(lanes)]
+    S = torch.zeros((B, H, n, n)) if s0 is None else s0.clone()
     outs = []
-    for t in range(r.shape[1]):
+    for t in range(T):
         rt, kt, wt, vt = r[:, t], k[:, t], w[:, t], v[:, t]
         acc = _lane_sum(torch.einsum("bhi,bhij->bhj", rt[..., idx],
                                      S[:, :, idx]) for idx in rows)
         outs.append(acc + ruk[:, t, :, None] * vt)
         S = wt[..., None] * S + kt[..., None] * vt[..., None, :]
-    return (torch.stack(outs, 1) if outs else
-            torch.zeros_like(v)), S
-
-
-def kernel_decomposition(r, k, v, logw, u, s0=None, segments=0, lanes=0):
-    """What the kernel computes, pass by pass, in fp32 torch; the lanes a
-    column are the kernel's for n unless `lanes` is given."""
-    B, T, H, n = r.shape
-    lanes = lanes or wkv_ops.BLOCK_SHAPES[n][1]
-    P, L = wkv_ops.segment_plan(B, T, H, segments)
-    w = torch.exp(logw)  # exp(logw) once, before the scan
-    ruk = (r * u * k).sum(-1)  # r.u.k once a token
-    o = torch.zeros_like(r)
-    s_end, seg_decay = [], []
-    for p in range(P):  # pass 1: every segment from S = 0 (the first from s0)
-        t0, t1 = p * L, min(T, (p + 1) * L)
-        S = torch.zeros((B, H, n, n)) if p or s0 is None else s0.clone()
-        o[:, t0:t1], S = _scan(r[:, t0:t1], k[:, t0:t1], w[:, t0:t1],
-                               ruk[:, t0:t1], v[:, t0:t1], S, lanes)
-        s_end.append(S)
-        seg_decay.append(torch.prod(w[:, t0:t1], 1))
-    if P == 1:
-        return o, s_end[0]
-    for p in range(1, P):  # pass 2: carry, then pass 3: o += r_hat . S_in
-        s_in = s_end[0]
-        for q in range(1, p):
-            s_in = seg_decay[q][..., None] * s_in + s_end[q]
-        t0, t1 = p * L, min(T, (p + 1) * L)
-        # prod_{t0 <= s < t} w_s = exp(c_{t-1} - c_start), every factor <= 1
-        before = torch.cat([torch.ones_like(w[:, t0:t0 + 1]),
-                            torch.cumprod(w[:, t0:t1 - 1], 1)], 1)
-        o[:, t0:t1] += torch.einsum("bthi,bhij->bthj",
-                                    r[:, t0:t1] * before, s_in)
-        if p == P - 1:
-            s_fin = seg_decay[p][..., None] * s_in + s_end[p]
-    return o, s_fin
+    return (torch.stack(outs, 1) if outs else torch.zeros_like(v)), S
 
 
 def _close(got, want):
@@ -114,63 +81,37 @@ def _close(got, want):
 
 
 @pytest.mark.parametrize("draw", DRAWS)
-@pytest.mark.parametrize("B,T,H,n,segments,s0", [
-    (1, 0, 2, 16, 0, True),     # T = 0: the state passes through
-    (2, 1, 2, 64, 0, True),     # T = 1
-    (1, 50, 3, 16, 0, False),   # ragged T, one segment
-    (2, 130, 2, 32, 0, True),   # ragged T, two segments of 80
-    (1, 256, 2, 64, 0, True),   # four full segments of 64
-    (1, 257, 2, 64, 0, False),  # one past the boundary: four of 80, ragged
-    (1, 200, 2, 64, 8, True),   # forced: five segments of 48
-    (1, 96, 1, 32, 2, False),
+@pytest.mark.parametrize("B,T,H,n,s0", [
+    (1, 0, 2, 16, True),     # T = 0: the state passes through
+    (2, 1, 2, 64, True),     # T = 1
+    (1, 50, 3, 16, False),   # ragged T
+    (2, 130, 2, 32, True),   # ragged T
+    (1, 256, 2, 64, True),   # whole 8-token tiles
+    (1, 257, 2, 64, False),  # one token past a tile
+    (1, 200, 2, 64, True),
+    (1, 96, 1, 32, False),
 ])
-def test_decomposition_matches_jax_ref(draw, B, T, H, n, segments, s0):
+def test_decomposition_matches_jax_ref(draw, B, T, H, n, s0):
     r, k, v, logw, u, init = _inputs(7, B, T, H, n, draw, s0)
     want_o, want_s = _reference(r, k, v, logw, u, init)
     o, s = kernel_decomposition(
         *map(torch.from_numpy, (r, k, v, logw, u)),
-        None if init is None else torch.from_numpy(init), segments=segments)
+        None if init is None else torch.from_numpy(init))
     _close(o, want_o)
     _close(s, want_s)
 
 
+@pytest.mark.parametrize("draw", DRAWS)
 @pytest.mark.parametrize("lanes", [1, 2, 4, 8, 16])
-def test_decomposition_holds_for_any_lane_split(lanes):
-    r, k, v, logw, u, init = _inputs(3, 1, 70, 2, 64, "wide", s0=True)
+def test_decomposition_holds_for_any_lane_split(draw, lanes):
+    # the kernel takes 4 lanes a column at n = 16 and 8 at n = 32 and 64
+    r, k, v, logw, u, init = _inputs(3, 1, 70, 2, 64, draw, s0=True)
     want_o, want_s = _reference(r, k, v, logw, u, init)
     o, s = kernel_decomposition(*map(torch.from_numpy,
                                      (r, k, v, logw, u, init)),
-                                segments=2, lanes=lanes)
+                                lanes=lanes)
     _close(o, want_o)
     _close(s, want_s)
-
-
-@pytest.mark.parametrize("B,T,H,n", [
-    (4, 512, 40, 64), (1, 512, 40, 64), (1, 256, 4, 64), (1, 257, 4, 64),
-    (2, 130, 3, 32), (1, 50, 4, 16), (1, 1, 1, 16), (1, 0, 1, 64),
-    (3, 1000, 1, 16), (1, 4097, 1, 64),
-])
-@pytest.mark.parametrize("segments", [0, 2, 4, 8])
-def test_segment_plan_covers_every_token_once(B, T, H, n, segments):
-    P, L = wkv_ops.segment_plan(B, T, H, segments)
-    assert 1 <= P <= max(segments, wkv_ops.MAX_SEGMENTS)
-    assert L % wkv_ops.TILE == 0
-    covered = [t for p in range(P) for t in range(p * L, min(T, (p + 1) * L))]
-    assert covered == list(range(T))  # each token once, in order
-    assert all(p * L < T for p in range(P)) or T == 0  # no segment empty
-    # the plan is a function of the shape alone
-    assert wkv_ops.segment_plan(B, T, H, segments) == (P, L)
-
-
-def test_segment_plan_cuts_time_only_where_blocks_are_few():
-    # rwkv6-3b's prefill of 4 prompts (160 heads) runs one segment; one
-    # prompt (40 heads) is cut until the scan has about two blocks a SM
-    assert wkv_ops.segment_plan(4, 512, 40) == (1, 512)
-    P, L = wkv_ops.segment_plan(1, 512, 40)
-    assert P == wkv_ops.TARGET_BLOCKS // 40 and P * L >= 512
-    # short sequences keep segments of at least MIN_SEGMENT tokens
-    assert wkv_ops.segment_plan(1, 100, 1) == (1, 104)
-    assert wkv_ops.segment_plan(1, 128, 1) == (2, 64)
 
 
 def chunk_start_factorized(r, k, v, logw, u, chunk):
@@ -213,7 +154,7 @@ def test_chunk_start_factorization_fails_on_the_wide_draw():
     with np.errstate(all="ignore"):
         bad, _ = chunk_start_factorized(*args, chunk=128)
     assert _fails(bad, want_o)
-    good, _ = kernel_decomposition(*args, segments=2)
+    good, _ = kernel_decomposition(*args)
     assert not _fails(good, want_o)
 
 
