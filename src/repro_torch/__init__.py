@@ -50,11 +50,20 @@ def tree_leaves(tree) -> list:
     return [tree]
 
 
-def tree_map(fn, tree):
+def tree_unflatten(tree, leaves) -> object:
+    """A tree of `tree`'s structure holding `leaves`, in `tree_leaves`
+    order."""
+    it = iter(leaves)
+    return tree_map(lambda _: next(it), tree)
+
+
+def tree_map(fn, tree, *rest):
     """`fn` applied to every leaf of a params tree of nested dicts and
-    lists (the counterpart of `jax.tree.map` for the port's params)."""
+    lists, and to the matching leaves of `rest`, trees of the same
+    structure (the counterpart of `jax.tree.map` for the port's params)."""
     if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return [tree_map(fn, v) for v in tree]
-    return fn(tree)
+        return [tree_map(fn, *vs) for vs in zip(tree, *rest, strict=True)]
+    return fn(tree, *rest)

@@ -47,6 +47,10 @@ class FreezePlan:
         return self.num_frozen / n
 
 
+def all_active(num_groups: int) -> FreezePlan:
+    return FreezePlan(groups=(False,) * num_groups)
+
+
 @dataclass(frozen=True)
 class LayerFreezePlan:
     layers: Tuple[bool, ...] = ()

@@ -1,2 +1,16 @@
 """Hand-written CUDA kernels for Hopper, one wrapper module each, with the
 plain PyTorch version of the same function beside every kernel."""
+import torch
+
+
+def forward_only(name: str, *tensors) -> None:
+    """Raise where autograd would need a backward: the kernels have none,
+    and a CUDA kernel's output carries no `grad_fn`, so the gradient would
+    be dropped without a word. The check is the same on every device, so
+    the CPU route, which runs the plain version, refuses the same calls."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name} is forward-only (its kernel has no backward): call it "
+            f"under torch.no_grad() or torch.inference_mode(), or on inputs "
+            f"that do not require grad")

@@ -22,7 +22,7 @@ import math
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, forward_only
 
 NEG_INF = -1e30
 HEAD_DIMS = (16, 32, 64, 128)  # the kernel's template instances
@@ -64,7 +64,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     softcap: float = 0.0) -> torch.Tensor:
     """Attention forward, fp32 out. CPU tensors take `attention_plain`;
     CUDA tensors launch the kernel, which counts its launches in
-    `flash_attention.launches`."""
+    `flash_attention.launches`. Forward only: raises when grad is enabled
+    and an input requires grad."""
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError(f"q, k, v must be [B, S, H, hd]; got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
@@ -82,6 +83,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError("q, k, v must be on one device")
     if window < 0 or softcap < 0:
         raise ValueError("window and softcap must be >= 0")
+    forward_only("flash_attention", q, k, v)
     if q.device.type == "cpu":
         return attention_plain(q, k, v, causal=causal, window=window,
                                softcap=softcap)

@@ -22,7 +22,7 @@ import functools
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, forward_only
 
 TILE = 64  # Gram tile side of both routes (csrc/cka_terms.cu)
 # the feature route stages 32 rows a step, so a split is a multiple of 32
@@ -105,11 +105,13 @@ def cka_terms(x: torch.Tensor, y: torch.Tensor):
     """Returns (hsic, sqrt(kk), sqrt(ll)) of the column-centered x, y
     ([n, dx] and [n, dy], or [..., d] flattened to rows), as 0-d fp32
     tensors. CUDA tensors launch a kernel, which counts its launches in
-    `cka_terms.launches` and, by route, in `cka_terms.route_launches`."""
+    `cka_terms.launches` and, by route, in `cka_terms.route_launches`.
+    Forward only: raises when grad is enabled and an input requires grad."""
     if not (x.is_floating_point() and y.is_floating_point()):
         raise TypeError("x and y must be floating point")
     if x.device != y.device:
         raise ValueError("x and y must be on one device")
+    forward_only("cka_terms", x, y)
     xc, yc = _prepare(x), _prepare(y)
     if xc.shape[0] != yc.shape[0] or xc.numel() == 0 or yc.numel() == 0:
         raise ValueError(f"x and y need the same non-zero number of rows; "

@@ -22,7 +22,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, forward_only
 
 HEAD_SIZES = (16, 32, 64)  # the kernel's template instances
 
@@ -73,8 +73,10 @@ def wkv(r, k, v, logw, u, s0=None, return_state: bool = False):
     optional initial state s0 [B, H, n, n]. Returns o [B, T, H, n], and
     with `return_state` also the final state [B, H, n, n]. CUDA tensors
     launch the kernel (n in HEAD_SIZES), which counts its launches in
-    `wkv.launches`."""
+    `wkv.launches`. Forward only: raises when grad is enabled and an input
+    requires grad."""
     _check(r, k, v, logw, u, s0)
+    forward_only("wkv", r, k, v, logw, u, s0)
     if r.device.type == "cpu":
         o, s = wkv_plain(r, k, v, logw, u, s0)
     elif r.device.type == "cuda":

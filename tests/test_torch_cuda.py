@@ -1,4 +1,5 @@
-"""The port's CUDA kernels on the card against their plain versions.
+"""The port's CUDA kernels on the card against their plain versions, and
+one train step on the card against the same step on the CPU.
 
 These need an NVIDIA GPU and nvcc: a CUDA kernel has no CPU mode, so on a
 machine without a card every test here skips. Run them on the card with
@@ -8,9 +9,16 @@ machine without a card every test here skips. Run them on the card with
 import pytest
 import torch
 
+from repro_torch import tree_leaves, tree_map
+from repro_torch.configs import get_reduced
+from repro_torch.core.freeze_plan import LayerFreezePlan
 from repro_torch.kernels.attention import ops as att_ops
 from repro_torch.kernels.cka import ops as cka_ops
 from repro_torch.kernels.rwkv import ops as wkv_ops
+from repro_torch.models import build_model
+from repro_torch.optim import AdamWConfig
+from repro_torch.runtime.train_loop import (TrainStepCache, as_tensor,
+                                            grads_of, make_optimizer_state)
 
 pytestmark = pytest.mark.cuda
 
@@ -203,3 +211,48 @@ def test_wkv_kernel_is_deterministic(gen, shape):
 def test_wkv_kernel_rejects_unsupported_head_size(gen):
     with pytest.raises(ValueError, match="head sizes"):
         wkv_ops.wkv(*_wkv_inputs(gen, 1, 8, 2, 48))
+
+
+@pytest.mark.parametrize("flags", [(False,) * 6,
+                                   (True, True, False, False, False, False)])
+def test_train_step_on_the_card_matches_the_cpu(gen, flags):
+    # the step launches no kernel (its attention is the plain version), so
+    # the card and the CPU differ by their summation orders only. The key
+    # bias's gradient is zero in exact arithmetic (softmax removes a
+    # per-query constant) and rounding noise on both devices, which AdamW
+    # scales up to lr: the updated params are held by what they compute.
+    cfg = get_reduced("deit-tiny").replace(use_pallas=True)
+    batch_gen = torch.Generator().manual_seed(1)
+    batch = {"images": torch.randn((8, 32, 32, 3), generator=batch_gen),
+             "labels": torch.randint(0, 10, (8,), generator=batch_gen,
+                                     dtype=torch.int32)}
+    plan = LayerFreezePlan(flags)
+    cpu_model = build_model(cfg, device="cpu")
+    out = {}
+    for device in ("cpu", "cuda"):
+        model = build_model(cfg, device=device)
+        params = model.init(torch.Generator().manual_seed(0))
+        opt_cfg = AdamWConfig(lr=1e-3)
+        state = make_optimizer_state(model, opt_cfg, params)
+        before = att_ops.flash_attention.launches
+        loss, _, grads = grads_of(model.loss, params,
+                                  as_tensor(batch, device), plan)
+        new, _, _ = TrainStepCache(model, opt_cfg).get(plan)(
+            params, state, as_tensor(batch, device))
+        assert att_ops.flash_attention.launches == before
+        assert all(t.device.type == device and not t.requires_grad
+                   for t in tree_leaves(new))
+        noise = [blk["attn"].pop("bk").abs().max() / blk["attn"]["bq"]
+                 .abs().max() for blk in grads["blocks"]
+                 if blk["attn"]["bq"].any()]
+        assert all(r <= 1e-4 for r in noise)
+        logits = cpu_model.predict(tree_map(lambda t: t.cpu(), new), batch)
+        out[device] = (loss.cpu(), [t.cpu() for t in tree_leaves(grads)],
+                       logits)
+    torch.testing.assert_close(out["cuda"][0], out["cpu"][0], rtol=1e-5,
+                               atol=1e-6)
+    for g, w in zip(out["cuda"][1], out["cpu"][1], strict=True):
+        torch.testing.assert_close(g, w, rtol=0,
+                                   atol=1e-4 * float(w.abs().max()))
+    torch.testing.assert_close(out["cuda"][2], out["cpu"][2], rtol=1e-4,
+                               atol=1e-4)

@@ -16,6 +16,7 @@ import repro_torch
 from repro_torch import resolve_device
 from repro_torch.bridge import params_from_jax
 from repro_torch.configs import get_reduced
+from repro_torch.core.controller import ETunerController
 from repro_torch.models import build_model
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -41,7 +42,25 @@ def test_importing_every_module_loads_neither_jax_nor_repro():
                           env={**os.environ, "PYTHONPATH": str(ROOT / "src")},
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
-    assert len(_modules()) >= 20
+    assert len(_modules()) >= 49
+
+
+# the fine-tuning slice's modules, each the counterpart of the JAX
+# package's module of the same name
+FINE_TUNING = ["optim", "optim.optimizer", "runtime.train_loop",
+               "runtime.executor", "core.curvefit", "core.lazytune",
+               "core.ood", "core.controller", "core.policies",
+               "core.policies.base", "core.policies.trigger",
+               "core.policies.freeze", "core.policies.drift",
+               "core.policies.publish", "core.policies.stack"]
+
+
+@pytest.mark.parametrize("name", FINE_TUNING)
+def test_fine_tuning_modules_are_ported(name):
+    assert f"repro_torch.{name}" in _modules()
+    assert (ROOT / "src" / "repro" / (name.replace(".", "/") + ".py")
+            ).exists() or (ROOT / "src" / "repro" / name.replace(".", "/")
+                           / "__init__.py").exists()
 
 
 @pytest.mark.parametrize("path", sorted(
@@ -60,7 +79,11 @@ def _bridge():
     params_from_jax({}, get_reduced("deit-tiny"))
 
 
-@pytest.mark.parametrize("entry", [resolve_device, _build, _bridge])
+def _etuner():
+    ETunerController(build_model(get_reduced("deit-tiny")))
+
+
+@pytest.mark.parametrize("entry", [resolve_device, _build, _bridge, _etuner])
 def test_entry_points_raise_without_gpu(monkeypatch, entry):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):

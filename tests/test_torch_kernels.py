@@ -3,7 +3,8 @@ versions that `flash_attention` and `cka_terms` take for CPU tensors, held
 against the Pallas kernels (interpret mode) and their `ref.py` oracles on
 the same numpy inputs, plus the wrappers' input checks; and the arithmetic
 of the kernels that only the card runs (3xTF32 products, the CKA feature
-route's plan), emulated in plain torch."""
+route's plan), emulated in plain torch; and the wrappers' refusal to run
+where autograd would need the backward the kernels do not have."""
 import math
 
 import jax.numpy as jnp
@@ -19,6 +20,7 @@ from repro.kernels.cka import ref as jax_cka_ref
 from repro_torch.core.cka import cka
 from repro_torch.kernels.attention import ops as att_ops
 from repro_torch.kernels.cka import ops as cka_ops
+from repro_torch.kernels.rwkv import ops as wkv_ops
 
 RNG = np.random.default_rng(7)
 
@@ -357,3 +359,33 @@ def test_accumulator_reused_as_a_operand_with_permuted_keys():
     for reg, (k, col) in zip(b, b_at):
         B[k, col] = reg
     np.testing.assert_allclose(A @ B, P @ V, rtol=1e-6, atol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# the wrappers are forward-only
+
+
+def _wrapper_calls(requires_grad):
+    t = lambda *shape: torch.randn(*shape, requires_grad=requires_grad)
+    q = t(2, 9, 2, 16)
+    x, y = t(12, 5), t(12, 3)
+    r, k, v = t(1, 6, 2, 16), t(1, 6, 2, 16), t(1, 6, 2, 16)
+    logw = -torch.rand(1, 6, 2, 16, requires_grad=requires_grad)
+    return {"flash_attention": lambda: att_ops.flash_attention(q, q, q),
+            "cka_terms": lambda: cka_ops.cka_terms(x, y),
+            "wkv": lambda: wkv_ops.wkv(r, k, v, logw, t(2, 16))}
+
+
+@pytest.mark.parametrize("name", ["flash_attention", "cka_terms", "wkv"])
+def test_wrappers_refuse_inputs_that_require_grad(name):
+    # on the card the kernel's output would carry no grad_fn and the
+    # gradient would be dropped; the CPU route refuses the same call
+    with pytest.raises(RuntimeError, match="forward-only"):
+        _wrapper_calls(True)[name]()
+    with torch.no_grad():
+        _wrapper_calls(True)[name]()
+    with torch.inference_mode():
+        _wrapper_calls(True)[name]()
+    out = _wrapper_calls(False)[name]()
+    assert not any(o.requires_grad for o in
+                   (out if isinstance(out, tuple) else (out,)))

@@ -5,9 +5,12 @@ serving through `InferenceServer` and SimFreeze's CKA probe, driven by
 Both packages run the same loop (`run_slice`, which mirrors the handlers
 of `repro.runtime.device.DeviceRuntime`): the JAX side with the Pallas
 kernels in interpret mode (`use_pallas`, `use_kernel`), the port with the
-plain versions its kernel wrappers take on the CPU. Fine-tuning rounds are
-the next slice's work, so a seeded numpy perturbation of the params stands
-in for them between freeze passes.
+plain versions its kernel wrappers take on the CPU. The params move by a
+seeded numpy perturbation between freeze passes, not by fine-tuning
+rounds: it drives some blocks to freeze and others to unfreeze at the
+boundary, decisions a short run of real rounds does not reach. The
+fine-tuning rounds themselves, and the ETuner loop they join, are held
+against JAX in `tests/test_torch_train.py`.
 """
 import dataclasses
 
@@ -111,7 +114,7 @@ def run_slice(api, model, params0, bench, events, *, batch_window=0.0,
             snapshot()
         if boundary:
             sf.start_scenario(params0, api["batch"](batch))
-        # stand-in for the fine-tuning round of the next slice
+        # the perturbation moves the params in place of a round (docstring)
         state["params"] = api["perturb"](
             _drift(num_blocks, state["data"], first2))
         state["data"] += 1
