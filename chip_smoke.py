@@ -36,22 +36,27 @@ It imports nothing of JAX and nothing of the JAX package, and fails
    have launched both kernels the expected number of times, CKA on the
    feature route only. Once more
    with coalesced serving (`batch_window` > 0): the same accuracies;
-   then the ETuner loop on the same model, data and timeline: one
+   then the ETuner loop on the same model, data and timeline through the
+   port's front door, `ContinualRuntime.from_config(RuntimeConfig(...),
+   model=<full-width DeiT-tiny>, benchmark=...).run(events)`: one
    pretraining epoch on scenario 0, then fine-tuning rounds that
    LazyTune triggers (`max_batches_needed=6`) under SimFreeze's freeze
-   plans (`freeze_interval=3`, threshold 0.01), AdamW at lr 1e-3 with two
-   replay batches, serving every request, with the kernels, with the
-   plain paths, and with the kernels again (bit for bit the first; the
-   first run of a process pays the card's first calls, so the times
-   printed are the later runs'): the runs must give the same rounds,
-   recompiles, controller stats, freeze plans, validation curve and
-   accuracies,
-   logits within attention's tolerance and final params within 1e-6;
+   plans (`freeze_interval=3`, threshold 0.01), energy-score detection,
+   oracle boundaries, AdamW at lr 1e-3 with two replay batches, serving
+   every request, with the kernels (`use_pallas`), with the plain paths,
+   and with the kernels again (bit for bit the first; the first run of a
+   process pays the card's first calls, so the times printed are the
+   later runs'): the runs must give the same rounds, recompiles,
+   controller stats, freeze plans, validation curve and accuracies,
+   logits within attention's tolerance and bitwise equal final params;
    the kernel run must launch flash attention 12 times a predict or
    features call, CKA 13 times a probe pass, and no kernel inside a train
-   step. It prints each plan's train-step time (CUDA events), its FLOPs
-   (`FlopCounterMode`) and their ratio to the all-active plan, and the
-   loop's wall time and rounds per second;
+   step. It prints each plan's train-step time (CUDA events around the
+   runtime's `TrainStepCache` steps), its FLOPs (`FlopCounterMode`) and
+   their ratio to the all-active plan, and the loop's wall time and
+   rounds per second; then one more kernel run with detector boundaries
+   and preemptible rounds, which prints its rounds, probes and
+   preemptions;
    then rwkv6-3b serving at full width and depth (`get_config("rwkv6-3b")`,
    32 layers, d=2560, bf16, 3.07e9 params from a seeded CUDA generator):
    `ServeEngine.generate` on 4 prompts of 512 tokens for 16 greedy steps,
@@ -106,10 +111,8 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 from repro_torch import tree_leaves, tree_map  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core.cka import cka_feature_form  # noqa: E402
-from repro_torch.core.controller import (ETunerConfig,  # noqa: E402
-                                         ETunerController)
 from repro_torch.core.freeze_plan import LayerFreezePlan  # noqa: E402
-from repro_torch.core.lazytune import LazyTuneConfig  # noqa: E402
+from repro_torch.core.policies import etuner_stack_spec  # noqa: E402
 from repro_torch.core.simfreeze import SimFreeze, SimFreezeConfig  # noqa: E402
 from repro_torch.data.arrivals import build_timeline  # noqa: E402
 from repro_torch.data.streams import nc_benchmark  # noqa: E402
@@ -120,15 +123,16 @@ from repro_torch.kernels.rwkv import ops as wkv_ops  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.models.rwkv6 import wkv_chunked  # noqa: E402
 from repro_torch.optim import AdamWConfig  # noqa: E402
+from repro_torch.runtime import fleet as fleet_mod  # noqa: E402
+from repro_torch.runtime.config import RuntimeConfig, SlotConfig  # noqa: E402
+from repro_torch.runtime.continual import ContinualRuntime  # noqa: E402
 from repro_torch.runtime.costmodel import EdgeCostModel  # noqa: E402
-from repro_torch.runtime.executor import (FineTuneExecutor,  # noqa: E402
-                                          ReplayBuffer)
 from repro_torch.runtime.inference import InferenceServer  # noqa: E402
 from repro_torch.runtime.ledger import CostLedger  # noqa: E402
 from repro_torch.runtime.scheduler import EventScheduler  # noqa: E402
 from repro_torch.runtime.serve import ServeEngine  # noqa: E402
 from repro_torch.runtime.train_loop import (  # noqa: E402
-    TrainStepCache, as_tensor, evaluate, make_optimizer_state)
+    TrainStepCache, as_tensor, make_optimizer_state)
 
 # kernel tolerances, as tests/test_kernels.py holds the Pallas kernels
 ATT_RTOL, ATT_ATOL = 2e-4, 2e-5
@@ -137,10 +141,6 @@ CKA_RTOL = 1e-4
 # product is off by ~1e-3 there (check_cka_precision), 3xTF32 must not be
 TF32X3_RTOL = 1e-5
 CKA_HISTORY_ATOL = 1e-4
-# the ETuner loop's final params, kernel run against plain run: the train
-# steps launch no kernel, so nothing but a GEMM that is not repeatable
-# from run to run can part them
-PARAMS_ATOL = 1e-6
 WKV_RTOL = WKV_ATOL = 1e-4
 # rwkv6-3b logits: the JAX package's prefill/decode tolerance in bf16
 # (tests/test_models.py:83-84)
@@ -631,12 +631,34 @@ def slice_phase(cfg):
 # phase 3: the ETuner loop at full width
 
 
-def run_etuner(model, params0, bench, events, *, use_kernel, seed=0):
-    """The ETuner loop: pretraining on scenario 0, then LazyTune-triggered
-    fine-tuning rounds under SimFreeze's freeze plans, serving every
-    request, as `repro.runtime.device.DeviceRuntime` joins the reference's
-    modules (oracle boundaries, one stream). Counts the predict and
-    features calls, times every train step with CUDA events by plan, and
+# the ETuner session of the loop: LazyTune, SimFreeze and energy-score
+# detection, one pretraining epoch, two replay batches, AdamW at lr 1e-3
+# (the runtime's default optimizer)
+ETUNER_POLICIES = etuner_stack_spec(
+    lazytune_params={"max_batches_needed": 6},
+    simfreeze_params={"freeze_interval": 3, "min_history": 2,
+                      "cka_threshold": THRESHOLD})
+
+
+class _LoopClock(EventScheduler):
+    """The fleet's scheduler, marking on the host clock when its event
+    loop starts: after the runtime's pretraining, which is timed apart."""
+
+    def run(self, **callbacks):
+        torch.cuda.synchronize()
+        self.started = time.perf_counter()
+        super().run(**callbacks)
+
+
+def run_etuner(model, bench, events, *, use_kernel, **session):
+    """The ETuner loop through the port's front door,
+    `ContinualRuntime.from_config(...).run(events)`, on the injected
+    full-width `model` (the runtime pretrains from
+    `model.init(torch.Generator().manual_seed(0))` on scenario 0, then
+    LazyTune triggers rounds under SimFreeze's freeze plans, serving every
+    request). `session` adds `RuntimeConfig` fields. Counts the predict
+    and features calls and the probe passes, times every train step with
+    CUDA events by plan through the runtime's `TrainStepCache`, and
     records any kernel launch made inside a train step."""
     calls = {"predict": 0, "features": 0, "passes": 0}
 
@@ -649,21 +671,33 @@ def run_etuner(model, params0, bench, events, *, use_kernel, seed=0):
     model = dataclasses.replace(
         model, predict=counted("predict", model.predict),
         features=counted("features", model.features))
-    opt_cfg = AdamWConfig(lr=1e-3)
-    ctrl = ETunerController(model, ETunerConfig(
-        lazytune_cfg=LazyTuneConfig(max_batches_needed=6),
-        simfreeze_cfg=SimFreezeConfig(freeze_interval=3, min_history=2,
-                                      cka_threshold=THRESHOLD,
-                                      use_kernel=use_kernel)))
-    # a probe pass: one features call and a CKA for every layer
+    rt = ContinualRuntime.from_config(
+        RuntimeConfig(slots={"default": SlotConfig(
+                          arch="deit-tiny", policies=ETUNER_POLICIES)},
+                      seed=0, pretrain_epochs=1, replay_batches=2,
+                      use_pallas=use_kernel, **session),
+        device=model.device, model=model, benchmark=bench)
+    # the controller the config built: a probe pass is one features call
+    # and a CKA for every layer; the plan a round ran under is the plan
+    # when the round reports back; served logits are kept for the checks
+    ctrl = rt.controller
     sf = ctrl.simfreeze
     sf._all_cka = counted("passes", sf._all_cka)
-    device = model.device
-    rng = np.random.default_rng(seed)
-    ledger = CostLedger()
-    steps = TrainStepCache(model, opt_cfg)
+    round_plans, logits_out = [], []
+    round_finished, inference_served = ctrl.round_finished, \
+        ctrl.inference_served
+
+    def finished(*args):
+        round_plans.append(ctrl.plan.layers)
+        return round_finished(*args)
+
+    def served(logits):
+        logits_out.append(logits.copy())
+        return inference_served(logits)
+
+    ctrl.round_finished, ctrl.inference_served = finished, served
     spans, in_step = {}, []
-    raw_step = steps._raw_step
+    raw_step = rt.steps._raw_step
 
     def checked_step(plan):
         step = raw_step(plan)
@@ -681,104 +715,45 @@ def run_etuner(model, params0, bench, events, *, use_kernel, seed=0):
             return out
         return run
 
-    steps._raw_step = checked_step
-    executor = FineTuneExecutor(
-        steps, EdgeCostModel(), ledger,
-        ReplayBuffer(bench.scenarios[0].train_batches[:2]), rng=rng)
+    rt.steps._raw_step = checked_step
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    params, opt_state = params0, make_optimizer_state(model, opt_cfg,
-                                                      params0)
-    step0 = steps.get(ctrl.plan)
-    for b in bench.scenarios[0].train_batches:  # one pretraining epoch
-        params, opt_state, _ = step0(params, opt_state, as_tensor(b, device))
-    reference = params
-    executor.load(params, opt_state)
-    torch.cuda.synchronize()
-    t1 = time.perf_counter()
-    sched = EventScheduler(events)
-    state = {"started": False, "last_end": 0.0, "launch": None}
-    val_curve, round_plans, logits_out = [], [], []
-
-    def on_served(logits, stream):
-        logits_out.append(logits.copy())
-        return ctrl.inference_served(logits)
-
-    server = InferenceServer(model, on_served=on_served)
-    server.publish(executor.params, 0.0)
-
-    def complete(report):
-        server.publish(executor.params, report.end)
-        launch, state["launch"] = state["launch"], None
-        val_acc, _ = evaluate(model, executor.params,
-                              as_tensor(bench.scenarios[launch].val, device))
-        val_curve.append(val_acc)
-        before = ctrl.simfreeze.state.cka_flops
-        ctrl.round_finished(report.iters, val_acc, executor.params)
-        dcka = ctrl.simfreeze.state.cka_flops - before
-        if dcka:
-            ledger.charge_probe("cka", *executor.cost.compute_cost(dcka))
-        state["last_end"] = report.end
-
-    def finish_round(now):
-        state["launch"] = sched.scenario_of(0)
-        round_plans.append(ctrl.plan.layers)
-        complete(executor.execute_round(ctrl.plan, now, sched))
-
-    def on_scenario_change(previous, ev):
-        sc = bench.scenarios[ev.scenario]
-        executor.replay.add(sc.train_batches[ev.index % len(sc.train_batches)])
-
-    def on_data(ev, boundary):
-        sc = bench.scenarios[ev.scenario]
-        batch = sc.train_batches[ev.index % len(sc.train_batches)]
-        server.expire(ev.time)
-        if boundary:
-            ctrl.scenario_changed(executor.params, as_tensor(batch, device))
-        if boundary or (sched.scenario_of(0) and not state["started"]):
-            ctrl.start_scenario(reference, as_tensor(batch, device))
-            state["started"] = True
-        executor.enqueue(batch)
-        if ctrl.should_trigger(executor.pending_for(0),
-                               staleness=ev.time - state["last_end"]) \
-                and sched.idle_at(ev.time):
-            finish_round(ev.time)
-
-    def on_inference(ev):
-        cur = sched.scenario_of(0)
-        sc = bench.scenarios[min(ev.scenario, cur) or ev.scenario]
-        test = bench.scenarios[max(cur, 1)].test \
-            if ev.scenario <= cur else sc.test
-        idx = rng.choice(len(test["labels"]),
-                         min(INFER_BATCH, len(test["labels"])), replace=False)
-        server.submit(ev.time, {k: v[idx] for k, v in test.items()})
-
-    sched.run(on_data=on_data, on_inference=on_inference,
-              on_scenario_change=on_scenario_change)
-    server.flush()
-    for _ in executor.pending_streams:  # trailing flush: no data dropped
-        finish_round(sched.busy_until)
+    fleet_mod.EventScheduler = _LoopClock
+    try:
+        res = rt.run(events)
+    finally:
+        fleet_mod.EventScheduler = EventScheduler
     torch.cuda.synchronize()
     t2 = time.perf_counter()
+    t1 = rt.scheduler.started
+    device = rt.fleet.devices[0]
+    params = device.primary.executor.params
+    if len(round_plans) != res.rounds or not res.rounds:
+        raise AssertionError(f"{res.rounds} rounds, {len(round_plans)} "
+                             f"reported back")
     for lg in logits_out:
         if not np.isfinite(lg).all() or lg.shape[-1] != model.cfg.num_classes:
             raise AssertionError(f"bad logits: shape {lg.shape}")
     if not all(np.isfinite(t.cpu().numpy()).all()
-               for t in tree_leaves(executor.params)):
+               for t in tree_leaves(params)):
         raise AssertionError("non-finite params after fine-tuning")
+    if len(res.inference_accs) != device.server.served or \
+            not np.isfinite(res.total_time_s):
+        raise AssertionError("the run result does not match its serving")
     step_ms = {plan: [s.elapsed_time(e) for s, e in sp]
                for plan, sp in spans.items()}
-    flops = {plan: steps.flops(LayerFreezePlan(plan),
-                               bench.scenarios[1].train_batches[0])
+    flops = {plan: rt.steps.flops(LayerFreezePlan(plan),
+                                  bench.scenarios[1].train_batches[0])
              for plan in step_ms}
-    return {"rounds": ledger.rounds, "recompiles": steps.recompiles,
-            "stats": ctrl.stats(), "round_plans": round_plans,
-            "accs": list(server.accs), "val_curve": val_curve,
-            "logits": logits_out, "params": executor.params,
-            "served": server.served, "predict": calls["predict"],
+    return {"rounds": res.rounds, "recompiles": res.recompiles,
+            "stats": res.controller_stats, "round_plans": round_plans,
+            "accs": res.inference_accs, "val_curve": res.val_curve,
+            "logits": logits_out, "params": params,
+            "served": device.server.served, "predict": calls["predict"],
             "features": calls["features"], "passes": calls["passes"],
+            "probes": res.probes, "preemptions": res.preemptions,
             "in_step": in_step, "step_ms": step_ms, "flops": flops,
-            "total_time_s": ledger.total_time_s,
+            "total_time_s": res.total_time_s,
             "pretrain_s": t1 - t0, "loop_s": t2 - t1}
 
 
@@ -786,7 +761,8 @@ def etuner_phase(cfg):
     """The kernel run, the plain run, then the kernel run again: the first
     run of the process pays the card's first calls (module loads, GEMM
     heuristics), so times are read from the second and third."""
-    kmodel, pmodel, common = deit_setup(cfg)
+    kmodel, pmodel, (_, bench, events) = deit_setup(cfg)
+    common = (bench, events)
     zero_launches()
     kern = run_etuner(kmodel, *common, use_kernel=True)
     launches = read_launches()
@@ -839,18 +815,18 @@ def etuner_phase(cfg):
     for a, b in zip(kern["logits"], plain["logits"], strict=True):
         np.testing.assert_allclose(a, b, rtol=ATT_RTOL, atol=ATT_ATOL)
     # the train steps launch no kernel, and both runs train the same
-    # batches under the same plans, so the params agree to the bit unless
-    # the card's GEMMs are not run to run repeatable
+    # batches under the same plans, so the params agree to the bit
     diff = max(float((a - b).abs().max()) for a, b in zip(
         tree_leaves(kern["params"]), tree_leaves(plain["params"]),
         strict=True))
-    if diff > PARAMS_ATOL:
+    if not all(torch.equal(a, b) for a, b in zip(
+            tree_leaves(kern["params"]), tree_leaves(plain["params"]),
+            strict=True)):
         raise AssertionError(f"final params differ by {diff:.3g}")
     print(f"  plain run agrees: rounds, recompiles, controller stats, freeze "
           f"plans, accuracies, validation curve; logits within "
-          f"{ATT_RTOL}/{ATT_ATOL}; final params max |diff| {diff:.3g} "
-          f"(held to {PARAMS_ATOL}); a second kernel run is bitwise the "
-          f"first")
+          f"{ATT_RTOL}/{ATT_ATOL}; final params bitwise equal; a second "
+          f"kernel run is bitwise the first")
     base = kern["flops"][(False,) * (L + 2)]
     for plan, ms in again["step_ms"].items():
         print(f"  train step, {sum(plan)} of {L + 2} units frozen "
@@ -868,6 +844,25 @@ def etuner_phase(cfg):
               f"{run['served'] / run['loop_s']:.2f} requests/s); "
               f"pretraining {run['pretrain_s']:.3f} s")
     print(f"  modeled device time (EdgeCostModel) {kern['total_time_s']:.6g} s")
+
+    zero_launches()
+    qos = run_etuner(kmodel, *common, use_kernel=True, boundaries="detector",
+                     preemptible=True)
+    qos_launches = read_launches()
+    forwards = qos["predict"] + qos["features"]
+    print(f"  detector boundaries, preemptible rounds (kernel run): "
+          f"{qos['rounds']} rounds, {qos['probes']} probes, "
+          f"{qos['preemptions']} preemptions, {qos['recompiles']} "
+          f"recompiles; controller stats {qos['stats']}; launches "
+          f"flash_attention {qos_launches['flash_attention']} (expected "
+          f"{L} x {forwards}), cka_terms {qos_launches['cka_terms']} "
+          f"(expected {L + 1} x {qos['passes']}); loop wall time "
+          f"{qos['loop_s']:.3f} s ({qos['rounds'] / qos['loop_s']:.3f} "
+          f"rounds/s)")
+    if qos_launches["flash_attention"] != L * forwards or \
+            qos_launches["cka_terms"] != (L + 1) * qos["passes"] or \
+            qos["in_step"]:
+        raise AssertionError(f"unexpected launch counts {qos_launches}")
     return launches
 
 
@@ -1210,10 +1205,10 @@ def profile_phase(deit, rwkv) -> None:
     kmodel, _, common = slice_setup(deit)
     report_profile(deit.name, lambda: run_slice(kmodel, *common,
                                                 use_kernel=True))
-    kmodel, _, common = deit_setup(deit)
+    kmodel, _, (params0, bench, events) = deit_setup(deit)
     report_profile(f"{deit.name} ETuner loop",
-                   lambda: run_etuner(kmodel, *common, use_kernel=True))
-    params0, bench = common[:2]
+                   lambda: run_etuner(kmodel, bench, events,
+                                      use_kernel=True))
     opt_cfg = AdamWConfig(lr=1e-3)
     step = TrainStepCache(kmodel, opt_cfg).get(
         LayerFreezePlan((False,) * kmodel.num_freeze_units))

@@ -60,10 +60,26 @@ def tree_unflatten(tree, leaves) -> object:
 def tree_map(fn, tree, *rest):
     """`fn` applied to every leaf of a params tree of nested dicts and
     lists, and to the matching leaves of `rest`, trees of the same
-    structure (the counterpart of `jax.tree.map` for the port's params)."""
+    structure (the counterpart of `jax.tree.map` for the port's params).
+    Leaves pair by dict key, whatever order each dict holds its keys in,
+    and the result keeps `tree`'s order. Trees whose key sets or lengths
+    differ raise `ValueError`, as JAX does on a structure mismatch."""
     if isinstance(tree, dict):
+        for r in rest:
+            if not isinstance(r, dict) or r.keys() != tree.keys():
+                raise ValueError(
+                    f"tree structure mismatch: keys {sorted(tree)} against "
+                    f"{sorted(r) if isinstance(r, dict) else type(r).__name__}")
         return {k: tree_map(fn, v, *(r[k] for r in rest))
                 for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         return [tree_map(fn, *vs) for vs in zip(tree, *rest, strict=True)]
     return fn(tree, *rest)
+
+
+def tree_zip(*trees) -> list:
+    """The tuples of matching leaves of `trees`, paired by key as
+    `tree_map` pairs them, in the first tree's `tree_leaves` order."""
+    out = []
+    tree_map(lambda *leaves: out.append(leaves), *trees)
+    return out

@@ -1,7 +1,6 @@
 """Policy protocols — the orthogonal decisions of EdgeOL's Algorithm 1,
-each behind its own small contract (a copy of `repro.core.policies.base`,
-without the `ThrottlePolicy` facet, which comes with the port of
-`repro.env` and `core/policies/throttle.py`):
+each behind its own small contract (a copy of
+`repro.core.policies.base`):
 
 - **when to fine-tune** (`TriggerPolicy` — LazyTune's accumulation
   target, Alg. 1 l.1-2/10-21),
@@ -10,7 +9,11 @@ without the `ThrottlePolicy` facet, which comes with the port of
 - **when the scenario changed** (`DriftPolicy` — energy-score detection
   from served logits + dedicated probe confirmation, §IV-A3),
 - **when to publish** trained params to serving (`PublishPolicy` — the
-  DESIGN.md §5 visibility seam).
+  DESIGN.md §5 visibility seam),
+- **whether the device can afford a round now** (`ThrottlePolicy` —
+  battery/thermal gating against the `repro_torch.env` device
+  environment, DESIGN.md §15; inert unless the device carries an active
+  `EnvSpec`, which the port's fleet does not take yet, ROADMAP A.8).
 
 `PolicyStack` (policies/stack.py) composes one of each back into a full
 controller. Policies are pure-Python state machines: they *schedule* the
@@ -86,6 +89,24 @@ class DriftPolicy(Protocol):
     def observe(self, logits) -> bool: ...
 
     def confirm(self, logits) -> bool: ...
+
+    def stats(self) -> dict: ...
+
+
+@runtime_checkable
+class ThrottlePolicy(Protocol):
+    """Whether to spend a fine-tuning round *now*, given the device's
+    physical environment (DESIGN.md §15 — the fifth facet).
+
+    - `allow_round(state, time_s=..., energy_j=...) -> bool`: `state` is
+      an `repro_torch.env.EnvState` snapshot; `time_s`/`energy_j` are the
+      runtime's modeled estimate of the round about to launch. False
+      defers: batches stay buffered and the next arrival re-asks.
+    - `stats()`: reporting dict (merged into the stack's stats).
+    """
+
+    def allow_round(self, state, *, time_s: float = 0.0,
+                    energy_j: float = 0.0) -> bool: ...
 
     def stats(self) -> dict: ...
 

@@ -1,9 +1,7 @@
-"""PolicyStack — one trigger + freeze + drift + publish policy composed
-back into a full controller, plus the legacy adapter that lets
+"""PolicyStack — one trigger + freeze + drift + publish + throttle policy
+composed back into a full controller, plus the legacy adapter that lets
 monolithic controllers keep working. A copy of
-`repro.core.policies.stack` without the fifth, `ThrottlePolicy` facet
-(it comes with the port of `repro.env`; its inert default adds nothing
-to `stats()`).
+`repro.core.policies.stack`.
 """
 from __future__ import annotations
 
@@ -13,23 +11,25 @@ from typing import Optional
 from repro_torch.core.policies.drift import NoDriftPolicy
 from repro_torch.core.policies.freeze import NoFreezePolicy
 from repro_torch.core.policies.publish import ImmediatePublish
+from repro_torch.core.policies.throttle import NullThrottle
 from repro_torch.core.policies.trigger import ImmediateTrigger
 
 
 class PolicyStack:
-    """The runtime-facing controller as a composition of four policies.
+    """The runtime-facing controller as a composition of five policies.
     Each facet is independently swappable:
 
         PolicyStack(trigger=LazyTuneTrigger(), freeze=SimFreezePolicy(m),
                     drift=NoDriftPolicy(), publish=RoundEndPublish())
 
     Omitted facets default to the inert implementations (immediate
-    trigger, no freezing, no detection, bug-compat publish); `model` is
-    only needed when `freeze` is omitted (the default plan's shape).
+    trigger, no freezing, no detection, bug-compat publish, no
+    throttling); `model` is only needed when `freeze` is omitted (the
+    default plan's shape).
     """
 
     def __init__(self, model=None, *, trigger=None, freeze=None, drift=None,
-                 publish=None):
+                 publish=None, throttle=None):
         if freeze is None and model is None:
             raise ValueError("PolicyStack needs either a freeze policy or "
                              "a model to derive the default plan from")
@@ -38,6 +38,10 @@ class PolicyStack:
         self.drift = drift if drift is not None else NoDriftPolicy()
         self.publish_policy = publish if publish is not None \
             else ImmediatePublish()
+        # fifth facet (DESIGN.md §15): env-aware round gating, consulted
+        # by the runtime only on devices carrying a live env — the
+        # default NullThrottle keeps every other path untouched
+        self.throttle = throttle if throttle is not None else NullThrottle()
 
     # ---- plan (owned by the freeze policy) -------------------------------
     @property
@@ -81,6 +85,7 @@ class PolicyStack:
         out = dict(self.trigger.stats())
         out.update(self.freeze.stats())
         out.update(self.drift.stats())
+        out.update(self.throttle.stats())
         return out
 
     # ---- compat surfaces (state machines owned by the facets) ------------

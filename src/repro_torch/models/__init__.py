@@ -43,4 +43,5 @@ def build_model(cfg: ModelConfig, device=None) -> Model:
         from repro_torch.models import vit
 
         return vit.build(cfg, device)
-    raise NotImplementedError(f"{cfg.family!r} models are not ported yet")
+    raise NotImplementedError(f"{cfg.family!r} models are not ported yet "
+                              f"(ROADMAP A.2: the CNNs and bert-base)")

@@ -6,6 +6,10 @@ was given, because the params it reads may also be what the inference
 server publishes and SimFreeze's reference holds (the JAX arrays are
 immutable). The step count is a 0-d int32 tensor.
 
+Leaves of params, grads, moments and masks pair by dict key, as
+`jax.tree.map` pairs them, whatever order each dict holds its keys in;
+trees with different key sets raise `ValueError`.
+
 - `masks`: a 0/1 multiplier tree. Frozen leaves keep params, m and v
   exactly (no weight decay, no momentum). Note that
   `runtime.train_loop.TrainStepCache` calls the updates *without* masks,
@@ -22,7 +26,7 @@ from typing import Any, NamedTuple, Optional
 
 import torch
 
-from repro_torch import tree_leaves, tree_map, tree_unflatten
+from repro_torch import tree_leaves, tree_map, tree_unflatten, tree_zip
 
 
 class AdamWState(NamedTuple):
@@ -103,7 +107,7 @@ def adamw_update(grads, state: AdamWState, params, config: AdamWConfig,
 
     trees = (params, grads, state.m, state.v) + \
         (() if masks is None else (masks,))
-    out = [leaf_update(*a) for a in zip(*map(tree_leaves, trees), strict=True)]
+    out = [leaf_update(*a) for a in tree_zip(*trees)]
     p_new, m_new, v_new = (tree_unflatten(params, leaves)
                            for leaves in zip(*out))
     return p_new, AdamWState(step=step, m=m_new, v=v_new)
@@ -150,7 +154,7 @@ def sgdm_update(grads, state: SGDMState, params, config: SGDMConfig,
         return (p.float() - lr * upd).to(p.dtype), m_new.to(m.dtype)
 
     trees = (params, grads, state.mom) + (() if masks is None else (masks,))
-    out = [leaf(*a) for a in zip(*map(tree_leaves, trees), strict=True)]
+    out = [leaf(*a) for a in tree_zip(*trees)]
     p_new, m_new = (tree_unflatten(params, leaves) for leaves in zip(*out))
     return p_new, SGDMState(step=state.step + 1, mom=m_new)
 

@@ -18,6 +18,7 @@ from repro_torch.bridge import params_from_jax
 from repro_torch.configs import get_reduced
 from repro_torch.core.controller import ETunerController
 from repro_torch.models import build_model
+from repro_torch.runtime import RuntimeConfig, SlotConfig, edgeol_session
 
 ROOT = Path(__file__).resolve().parents[1]
 PACKAGE = ROOT / "src" / "repro_torch"
@@ -42,7 +43,7 @@ def test_importing_every_module_loads_neither_jax_nor_repro():
                           env={**os.environ, "PYTHONPATH": str(ROOT / "src")},
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
-    assert len(_modules()) >= 49
+    assert len(_modules()) >= 63
 
 
 # the fine-tuning slice's modules, each the counterpart of the JAX
@@ -61,6 +62,37 @@ def test_fine_tuning_modules_are_ported(name):
     assert (ROOT / "src" / "repro" / (name.replace(".", "/") + ".py")
             ).exists() or (ROOT / "src" / "repro" / name.replace(".", "/")
                            / "__init__.py").exists()
+
+
+# the runtime's composition root and what it needs (copies of jax-free
+# modules of the JAX package among them)
+RUNTIME_ROOT = ["env", "env.spec", "env.models", "env.runtime",
+                "distributed", "distributed.straggler", "obs.spec",
+                "core.policies.spec", "core.policies.throttle",
+                "runtime.config", "runtime.modelpool", "runtime.device",
+                "runtime.fleet", "runtime.continual"]
+
+
+@pytest.mark.parametrize("name", RUNTIME_ROOT)
+def test_runtime_root_modules_are_ported(name):
+    assert f"repro_torch.{name}" in _modules()
+    assert (ROOT / "src" / "repro" / (name.replace(".", "/") + ".py")
+            ).exists() or (ROOT / "src" / "repro" / name.replace(".", "/")
+                           / "__init__.py").exists()
+
+
+def test_runtime_root_loads_neither_jax_nor_repro():
+    code = ("import importlib, sys\n"
+            f"for m in {['repro_torch.' + n for n in RUNTIME_ROOT]!r}:\n"
+            "    importlib.import_module(m)\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'repro'))\n"
+            "print(bad)\n"
+            "sys.exit(1 if bad else 0)\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          env={**os.environ, "PYTHONPATH": str(ROOT / "src")},
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
 @pytest.mark.parametrize("path", sorted(
@@ -83,7 +115,13 @@ def _etuner():
     ETunerController(build_model(get_reduced("deit-tiny")))
 
 
-@pytest.mark.parametrize("entry", [resolve_device, _build, _bridge, _etuner])
+def _session():
+    edgeol_session(RuntimeConfig(
+        slots={"default": SlotConfig(arch="deit-tiny")}))
+
+
+@pytest.mark.parametrize("entry", [resolve_device, _build, _bridge, _etuner,
+                                   _session])
 def test_entry_points_raise_without_gpu(monkeypatch, entry):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):

@@ -50,9 +50,11 @@ from repro_torch.data.streams import nc_benchmark
 from repro_torch.models import build_model
 from repro_torch.optim import optimizer as optim
 from repro_torch.runtime.costmodel import EdgeCostModel
+from repro_torch.runtime.config import RuntimeConfig as PortRuntimeConfig
+from repro_torch.runtime.continual import \
+    ContinualRuntime as PortContinualRuntime
 from repro_torch.runtime.executor import (FineTuneExecutor, ReplayBuffer,
                                           RoundHook)
-from repro_torch.runtime.inference import InferenceServer
 from repro_torch.runtime.ledger import CostLedger
 from repro_torch.runtime.scheduler import EventScheduler
 from repro_torch.runtime.train_loop import (TrainStepCache, as_tensor,
@@ -61,6 +63,16 @@ from repro_torch.runtime.train_loop import (TrainStepCache, as_tensor,
                                             same_shape_runs)
 
 CPU = "cpu"
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread: a test worker shares the machine's cores with
+    the others, and torch's OpenMP threads would spin against them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _cfgs():
@@ -78,109 +90,30 @@ def _port(jax_params, cfg):
 
 
 # ---------------------------------------------------------------------------
-# the ETuner loop: the port's modules joined as DeviceRuntime joins the
-# reference's (on_data / on_inference / complete, the fleet's pretraining
-# and trailing flush), one device, one stream, oracle boundaries
+# the ETuner loop: the port's ContinualRuntime, one device, one stream,
+# oracle boundaries
 
 
 def run_loop(model, params, bench, events, ctrl, *, opt_cfg, seed=0,
              replay_batches=2, pretrain_epochs=1, inference_batch=16):
-    """The port's ETuner loop over `events`; returns what a `RunResult`
-    reports, and the freeze plan of every round."""
-    device = model.device
-    rng = np.random.default_rng(seed)
-    ledger = CostLedger()
-    steps = TrainStepCache(model, opt_cfg)
-    executor = FineTuneExecutor(
-        steps, EdgeCostModel(), ledger,
-        ReplayBuffer(bench.scenarios[0].train_batches[:replay_batches]),
-        rng=rng)
-    # pretrain on scenario 0 (not cost-accounted)
-    opt_state = make_optimizer_state(model, opt_cfg, params)
-    step0 = steps.get(ctrl.plan)
-    for _ in range(pretrain_epochs):
-        for b in bench.scenarios[0].train_batches:
-            params, opt_state, _ = step0(params, opt_state,
-                                         as_tensor(b, device))
-    reference_params = params
-    executor.load(params, opt_state)
-    ctrl = adapt_controller(ctrl)
-    sched = EventScheduler(events)
-    state = {"started": False, "last_end": 0.0, "launch": None}
-    val_curve, round_plans = [], []
-    server = InferenceServer(
-        model, on_served=lambda logits, stream: ctrl.inference_served(logits))
-    server.publish(executor.params, 0.0)
-
-    def complete(report):
-        pub = ctrl.publish_policy
-        server.publish(executor.params, pub.visible_at(report.end),
-                       delayed=pub.delayed)
-        launch, state["launch"] = state["launch"], None
-        val = bench.scenarios[launch].val
-        val_acc, _ = evaluate(model, executor.params, as_tensor(val, device))
-        val_curve.append(val_acc)
-        before = ctrl.simfreeze.state.cka_flops
-        ctrl.round_finished(report.iters, val_acc, executor.params)
-        dcka = ctrl.simfreeze.state.cka_flops - before
-        if dcka:
-            ledger.charge_probe("cka", *executor.cost.compute_cost(dcka))
-        state["last_end"] = report.end
-
-    def finish_round(now):
-        state["launch"] = sched.scenario_of(0)
-        round_plans.append(ctrl.plan.layers)
-        report = executor.execute_round(ctrl.plan, now, sched)
-        if report is None:
-            state["launch"] = None
-            round_plans.pop()
-        else:
-            complete(report)
-
-    def on_scenario_change(previous, ev):
-        sc = bench.scenarios[ev.scenario]
-        executor.replay.add(sc.train_batches[ev.index % len(sc.train_batches)])
-
-    def on_data(ev, boundary):
-        sc = bench.scenarios[ev.scenario]
-        batch = sc.train_batches[ev.index % len(sc.train_batches)]
-        server.expire(ev.time)
-        if boundary:
-            ctrl.scenario_changed(executor.params, as_tensor(batch, device))
-        if boundary or (sched.scenario_of(0) and not state["started"]):
-            ctrl.start_scenario(reference_params, as_tensor(batch, device))
-            state["started"] = True
-        executor.enqueue(batch)
-        if ctrl.should_trigger(executor.pending_for(0),
-                               staleness=ev.time - state["last_end"],
-                               priority=0) and sched.idle_at(ev.time):
-            finish_round(ev.time)
-
-    def on_inference(ev):
-        cur = sched.scenario_of(0)
-        sc = bench.scenarios[min(ev.scenario, cur) or ev.scenario]
-        test = bench.scenarios[max(cur, 1)].test \
-            if ev.scenario <= cur else sc.test
-        idx = rng.choice(len(test["labels"]),
-                         min(inference_batch, len(test["labels"])),
-                         replace=False)
-        latency = 0.0 if sched.idle_at(ev.time) \
-            else sched.busy_until - ev.time
-        server.submit(ev.time, {k: v[idx] for k, v in test.items()},
-                      latency=latency)
-
-    sched.run(on_data=on_data, on_inference=on_inference,
-              on_scenario_change=on_scenario_change)
-    server.flush()
-    for _ in executor.pending_streams:  # trailing flush: no data dropped
-        finish_round(sched.busy_until)
-    return {"rounds": ledger.rounds, "recompiles": steps.recompiles,
-            "controller_stats": ctrl.stats(), "round_plans": round_plans,
-            "inference_accs": list(server.accs), "val_curve": val_curve,
-            "total_time_s": ledger.total_time_s,
-            "total_energy_j": ledger.total_energy_j,
-            "breakdown": dict(ledger.breakdown),
-            "params": executor.params}
+    """The port's ETuner loop over `events` through its `ContinualRuntime`
+    on the model's device, pretraining from `params`; returns what a
+    `RunResult` reports, and the freeze plan of every round."""
+    model = dataclasses.replace(model, init=lambda generator: params)
+    rt = PortContinualRuntime.from_config(
+        PortRuntimeConfig(seed=seed, replay_batches=replay_batches,
+                          pretrain_epochs=pretrain_epochs,
+                          inference_batch=inference_batch),
+        device=model.device, model=model, benchmark=bench, controller=ctrl,
+        opt_cfg=opt_cfg)
+    with _PlanSpy(FineTuneExecutor) as spy:
+        r = rt.run(events=events)
+    return {"rounds": r.rounds, "recompiles": r.recompiles,
+            "controller_stats": r.controller_stats,
+            "round_plans": spy.plans, "inference_accs": r.inference_accs,
+            "val_curve": r.val_curve, "total_time_s": r.total_time_s,
+            "total_energy_j": r.total_energy_j, "breakdown": r.breakdown,
+            "params": rt.fleet.devices[0].primary.executor.params}
 
 
 LOOP_BENCH = dict(num_classes=10, num_scenarios=3, batches=6, batch_size=8,
@@ -209,12 +142,12 @@ class _PortApi:
 
 
 class _PlanSpy:
-    """Records the freeze plan of every round the reference's executor
-    runs (the runtime reports only counts)."""
+    """Records the freeze plan of every round an executor class runs (the
+    runtime reports only counts)."""
 
-    def __init__(self):
-        self.plans = []
-        self._orig = jax_executor.FineTuneExecutor.execute_round
+    def __init__(self, cls):
+        self.cls, self.plans = cls, []
+        self._orig = cls.execute_round
 
     def __enter__(self):
         spy = self
@@ -224,11 +157,11 @@ class _PlanSpy:
                 spy.plans.append(plan.layers)
             return spy._orig(ex, plan, *a, **k)
 
-        jax_executor.FineTuneExecutor.execute_round = execute_round
+        self.cls.execute_round = execute_round
         return self
 
     def __exit__(self, *exc):
-        jax_executor.FineTuneExecutor.execute_round = self._orig
+        self.cls.execute_round = self._orig
 
 
 def run_reference(freeze_interval):
@@ -240,7 +173,7 @@ def run_reference(freeze_interval):
     rt = ContinualRuntime.from_config(
         RuntimeConfig(seed=0, pretrain_epochs=1), model=model,
         benchmark=bench, controller=ctrl)
-    with _PlanSpy() as spy:
+    with _PlanSpy(jax_executor.FineTuneExecutor) as spy:
         r = rt.run(inferences_total=LOOP_INFERENCES)
     return {"rounds": r.rounds, "recompiles": r.recompiles,
             "controller_stats": r.controller_stats,
@@ -364,6 +297,76 @@ def test_optimizer_state_dtype_and_norms_match_jax():
         np.testing.assert_allclose(
             float(optim.cosine_schedule(step, base_lr=3e-4)),
             float(jax_optim.cosine_schedule(step, base_lr=3e-4)), rtol=1e-6)
+
+
+def _keyed_case(side, kind, reorder):
+    """One masked update of params {"a", "b"} with "b" frozen, from a
+    nonzero optimizer state, with the mask tree or the state's dicts in
+    the other key order (ROADMAP C.6: leaves pair by key, not position)."""
+    def f32(*v):
+        return np.float32(v)
+
+    params = {"a": f32(1.0, -0.5), "b": f32(2.0, 0.25)}
+    grads = {"a": f32(0.5, 0.1), "b": f32(-0.3, 0.7)}
+    masks = {"a": np.float32(1.0), "b": np.float32(0.0)}
+    first = {"a": f32(0.02, -0.01), "b": f32(0.05, 0.03)}
+    second = {"a": f32(4e-4, 1e-4), "b": f32(9e-4, 2e-4)}
+    swap = lambda d: {k: d[k] for k in reversed(list(d))}
+    if reorder == "masks":
+        masks = swap(masks)
+    else:
+        first, second = swap(first), swap(second)
+    if side == "jax":
+        mod, to, step = jax_optim, lambda t: jax.tree.map(jnp.asarray, t), \
+            jnp.int32(1)
+    else:
+        mod, step = optim, torch.tensor(1, dtype=torch.int32)
+        to = lambda t: tree_map(lambda a: torch.as_tensor(np.asarray(a)), t)
+    if kind == "adamw":
+        cfg = mod.AdamWConfig(clip_norm=0.0)
+        state = mod.AdamWState(step=step, m=to(first), v=to(second))
+        update = mod.adamw_update
+    else:
+        cfg = mod.SGDMConfig()
+        state = mod.SGDMState(step=step, mom=to(first))
+        update = mod.sgdm_update
+    p, state = update(to(grads), state, to(params), cfg, masks=to(masks))
+    return ({k: np.asarray(v) for k, v in p.items()},
+            [{k: np.asarray(v) for k, v in t.items()}
+             for t in (state[1:] if kind == "adamw" else state[1:2])])
+
+
+@pytest.mark.parametrize("reorder", ["masks", "state"])
+@pytest.mark.parametrize("kind", ["adamw", "sgdm"])
+def test_optimizer_pairs_leaves_by_key_as_jax(kind, reorder):
+    want = _keyed_case("jax", kind, reorder)
+    got = _keyed_case("port", kind, reorder)
+    for w, g in zip([want[0], *want[1]], [got[0], *got[1]], strict=True):
+        assert g.keys() == w.keys()
+        for k in g:
+            np.testing.assert_allclose(g[k], w[k], rtol=0, atol=1e-6)
+    # "a" steps and the frozen "b" stays
+    np.testing.assert_array_equal(got[0]["b"], np.float32([2.0, 0.25]))
+    assert not np.allclose(got[0]["a"], np.float32([1.0, -0.5]))
+
+
+@pytest.mark.parametrize("tree", ["masks", "grads", "state"])
+@pytest.mark.parametrize("kind", ["adamw", "sgdm"])
+def test_optimizer_raises_on_mismatched_keys(kind, tree):
+    t = lambda **kw: {k: torch.full((2,), float(v)) for k, v in kw.items()}
+    params, grads, masks = t(a=1, b=2), t(a=0.5, b=0.5), t(a=1, b=0)
+    init, update, cfg = (optim.adamw_init, optim.adamw_update,
+                         optim.AdamWConfig()) if kind == "adamw" else \
+        (optim.sgdm_init, optim.sgdm_update, optim.SGDMConfig())
+    state = init(params, cfg)
+    if tree == "masks":
+        masks = t(a=1)
+    elif tree == "grads":
+        grads = t(a=0.5, c=0.5)
+    else:
+        state = init(t(a=1, b=2, c=3), cfg)
+    with pytest.raises(ValueError, match="tree structure mismatch"):
+        update(grads, state, params, cfg, masks=masks)
 
 
 # ---------------------------------------------------------------------------
