@@ -14,7 +14,9 @@ It imports nothing of JAX and nothing of the JAX package, and fails
 2. kernel phase: each kernel against its plain PyTorch version on the
    card, at the main-path shapes and at ragged, masked, GQA and head-dim
    variants; CKA through both routes (feature and example form) at every
-   shape, with the route the wrapper took printed and held to its rule,
+   shape (the CNN probe shapes, n = 16 and d up to 262144, through the
+   example route only, and against float64), with the route the wrapper
+   took printed and held to its rule,
    including shapes on the route boundary, with a ragged last row split
    and with the X/Y column boundary inside a tile; the feature route's
    3xTF32 products against float64 on inputs one TF32 product cannot hold;
@@ -57,6 +59,20 @@ It imports nothing of JAX and nothing of the JAX package, and fails
    rounds per second; then one more kernel run with detector boundaries
    and preemptible rounds, which prints its rounds, probes and
    preemptions;
+   then the same ETuner loop on the CNNs at full width
+   (`cnn_loop_phase`): MobileNetV2 (`get_config("mobilenetv2")`,
+   128x128, width 1.0, 20 freeze units) with the kernels, plain and with
+   the kernels again, and ResNet50 (18 freeze units) with the kernels and
+   plain, on 50 classes of the same `nc_benchmark` and timeline at
+   128x128. The runs must agree exactly: rounds, recompiles, controller
+   stats, plans, validation curve, accuracies, and served logits and
+   final params bit for bit; CKA launches once a feature map of a probe
+   pass (19 for MobileNetV2, 17 for ResNet50: n = 16 examples of d = H*W*C
+   from 2560 to 262144), all on the example route, none inside a train
+   step. It prints the same step times, FLOP ratios and rounds per second
+   as the DeiT loop. Then the reference's `semi_quant` session on
+   MobileNetV2 (`hooks_phase`: immediate rounds, fake-quant 8 bits,
+   SimSiam on half the batches), once: rounds, SimSiam updates, accuracy;
    then rwkv6-3b serving at full width and depth (`get_config("rwkv6-3b")`,
    32 layers, d=2560, bf16, 3.07e9 params from a seeded CUDA generator):
    `ServeEngine.generate` on 4 prompts of 512 tokens for 16 greedy steps,
@@ -73,23 +89,31 @@ It imports nothing of JAX and nothing of the JAX package, and fails
    (`device_ms`, the card's own time), beside two bounds the card's
    published peaks set for the least work the function needs: on the
    fp32 CUDA cores, and as 3xTF32 on the tensor cores (`bound`); CKA
-   through both routes; for CKA also the feature form
+   through both routes, and its example route at the CNN probe shapes
+   (one launch at MobileNetV2's stem map, n = 16, d = 131072, and a whole
+   MobileNetV2 probe pass of 19 launches) against the bound of each input
+   read once; for CKA also the feature form
    that `core/cka.py` takes without the kernel, for WKV6 also the chunked
    form at chunk 32 and, under torch.profiler, the card's time in each of
    its two passes (the decay pass and the scan); the DeiT-tiny
    slice's requests per second and rwkv6-3b's prefill and decode tokens
    per second;
 5. only with --profile: one more kernel run of each slice under
-   torch.profiler (the DeiT-tiny slice, the ETuner loop, one rwkv6-3b
-   `generate`), for
+   torch.profiler (the DeiT-tiny slice, the ETuner loops on DeiT-tiny and
+   MobileNetV2, one rwkv6-3b `generate`), for
    the device's busy share of its wall time and the kernels that fill
-   it, and one SDPA call at the flash main-path shape, for the name of
-   the kernel PyTorch runs there.
+   it, one SDPA call at the flash main-path shape, for the name of
+   the kernel PyTorch runs there, and the cost of deterministic cuDNN:
+   a full-width CNN train step with `resolve_device`'s deterministic
+   algorithms and with cuDNN's default ones, in turns.
 
 The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``. A kernel's `launches` there is the
-count of the path this slice adds (the ETuner loop; rwkv6-3b serving for
-WKV6), and `launches_by_path` has every path's count.
+count of its newest path (CKA: the MobileNetV2 loop; flash attention: the
+DeiT-tiny loop; WKV6: rwkv6-3b serving), and `launches_by_path` has every
+path's count. CKA's times there are those of that path, a launch's mean
+over a MobileNetV2 probe pass; its DeiT-tiny feature-route numbers are
+under `feature_route`.
 """
 from __future__ import annotations
 
@@ -124,9 +148,11 @@ from repro_torch.models import build_model  # noqa: E402
 from repro_torch.models.rwkv6 import wkv_chunked  # noqa: E402
 from repro_torch.optim import AdamWConfig  # noqa: E402
 from repro_torch.runtime import fleet as fleet_mod  # noqa: E402
-from repro_torch.runtime.config import RuntimeConfig, SlotConfig  # noqa: E402
+from repro_torch.runtime.config import (  # noqa: E402
+    HookSpec, RuntimeConfig, SlotConfig)
 from repro_torch.runtime.continual import ContinualRuntime  # noqa: E402
 from repro_torch.runtime.costmodel import EdgeCostModel  # noqa: E402
+from repro_torch.runtime.executor import SimSiamHook  # noqa: E402
 from repro_torch.runtime.inference import InferenceServer  # noqa: E402
 from repro_torch.runtime.ledger import CostLedger  # noqa: E402
 from repro_torch.runtime.scheduler import EventScheduler  # noqa: E402
@@ -170,6 +196,11 @@ DECODE_STEPS = 16
 PAIR_TOL = 1e-3
 THRESHOLD = 0.01
 INFER_BATCH = 16
+# a CNN probe: 16 images, each feature map flattened to d = H*W*C (NHWC),
+# d >> 16, so every CNN probe takes CKA's example route. MobileNetV2's
+# stem map at 128x128 is 64*64*32 = 131072
+CNN_PROBE = 16
+MBV2_STEM_D = 64 * 64 * 32
 
 
 def card_line(query: str = "name,power.limit") -> str:
@@ -220,10 +251,10 @@ CKA_ROUTES = {"feature": cka_ops._launch_feature,
               "example": cka_ops._launch_example}
 
 
-def check_cka(gen, n, dx, dy) -> float:
-    """The wrapper, which must take the route of its rule, and both
-    routes called directly, against the plain version; returns the
-    wrapper's max_abs_err."""
+def check_cka(gen, n, dx, dy, routes=tuple(CKA_ROUTES)) -> float:
+    """The wrapper, which must take the route of its rule, and `routes`
+    called directly, against the plain version; returns the wrapper's
+    max_abs_err."""
     x, y = _cka_inputs(gen, n, dx, dy)
     before = dict(cka_ops.cka_terms.route_launches)
     got = torch.stack(cka_ops.cka_terms(x, y))
@@ -238,14 +269,18 @@ def check_cka(gen, n, dx, dy) -> float:
     want = torch.stack([hsic, kk.sqrt(), ll.sqrt()])
     errs = {}
     for name, out in (("wrapper", got),
-                      *((r, _terms(launch, xc, yc))
-                        for r, launch in CKA_ROUTES.items())):
+                      *((r, _terms(CKA_ROUTES[r], xc, yc)) for r in routes)):
         torch.cuda.synchronize()
         torch.testing.assert_close(out, want, rtol=CKA_RTOL, atol=0.0)
         errs[name] = float(((out - want).abs() / want.abs()).max())
+    k64, l64 = xc.double() @ xc.double().T, yc.double() @ yc.double().T
+    exact = torch.stack([(k64 * l64).sum(), (k64 * k64).sum().sqrt(),
+                         (l64 * l64).sum().sqrt()])
     print(f"  cka n{n} dx{dx} dy{dy}: {route} route; max_rel_err "
-          f"{errs['wrapper']:.3g} (feature form {errs['feature']:.3g}, "
-          f"example form {errs['example']:.3g})")
+          f"{errs['wrapper']:.3g} ("
+          + ", ".join(f"{r} form {errs[r]:.3g}" for r in routes)
+          + f"); against float64: wrapper {_rel_err(got, exact):.3g}, plain "
+          f"{_rel_err(want, exact):.3g}")
     return float((got - want).abs().max())
 
 
@@ -390,6 +425,23 @@ def kernel_phase():
     print(f"  cka(x, x) = {one!r}; two launches agree bit for bit on each "
           f"route")
     check_cka_precision(gen)
+    # the CNN probes (the main path of the CNN loops): every map of a
+    # full-width MobileNetV2 probe pass and ResNet50's largest, example
+    # route only (the feature route's Gram would be d x d)
+    cnn_err = 0.0
+    for d in sorted(set(probe_dims(get_config("mobilenetv2")))
+                    | {max(probe_dims(get_config("resnet50")))}):
+        cnn_err = max(cnn_err, check_cka(gen, CNN_PROBE, d, d,
+                                         routes=("example",)))
+    a, b = (cka_ops._prepare(t) for t in _cka_inputs(gen, CNN_PROBE,
+                                                      MBV2_STEM_D,
+                                                      MBV2_STEM_D))
+    if not torch.equal(_terms(cka_ops._launch_example, a, b),
+                       _terms(cka_ops._launch_example, a, b)):
+        raise AssertionError("two CKA example-form launches differ at the "
+                             "MobileNetV2 stem shape")
+    print(f"  cka example route at n{CNN_PROBE} d{MBV2_STEM_D}: two launches "
+          f"agree bit for bit")
 
     wkv_err = 0.0
     for draw in ("init", "wide"):
@@ -408,7 +460,7 @@ def kernel_phase():
             raise AssertionError(f"two WKV6 launches differ at {shape}")
     print("  wkv6: two launches agree bit for bit (o and final state), at 4 "
           "prompts and at one")
-    return att_err, cka_err, wkv_err
+    return att_err, cka_err, cnn_err, wkv_err
 
 
 # ---------------------------------------------------------------------------
@@ -545,18 +597,25 @@ def run_slice(model, params0, bench, events, move, *, use_kernel,
             "wall_s": wall, **calls}
 
 
+def loop_data(image_size):
+    """The loops' data and timeline, from fixed seeds: 50 classes in 4
+    scenarios of 6 batches of 16 images, and 48 requests over the data
+    events of scenarios 1-3 (scenario 0 pretrains)."""
+    bench = nc_benchmark(num_classes=50, num_scenarios=4, batches=6,
+                         batch_size=16, image_size=image_size, seed=0)
+    events = [dataclasses.replace(e, scenario=e.scenario + 1)
+              for e in build_timeline(num_scenarios=3, batches_per_scenario=6,
+                                      inferences_total=48, seed=0)]
+    return bench, events
+
+
 def deit_setup(cfg):
     """The kernel and plain models, and the run's params, data and
     timeline, all from fixed seeds."""
     kmodel = build_model(cfg.replace(use_pallas=True))
     pmodel = build_model(cfg.replace(use_pallas=False))
     params0 = kmodel.init(torch.Generator().manual_seed(0))
-    bench = nc_benchmark(num_classes=50, num_scenarios=4, batches=6,
-                         batch_size=16, image_size=cfg.image_size, seed=0)
-    events = [dataclasses.replace(e, scenario=e.scenario + 1)
-              for e in build_timeline(num_scenarios=3, batches_per_scenario=6,
-                                      inferences_total=48, seed=0)]
-    return kmodel, pmodel, (params0, bench, events)
+    return kmodel, pmodel, (params0, *loop_data(cfg.image_size))
 
 
 def slice_setup(cfg):
@@ -638,6 +697,13 @@ ETUNER_POLICIES = etuner_stack_spec(
     lazytune_params={"max_batches_needed": 6},
     simfreeze_params={"freeze_interval": 3, "min_history": 2,
                       "cka_threshold": THRESHOLD})
+# the reference's `semi_quant` session (tests/test_regression_runtime.py):
+# a round on every data batch, no freezing, fake-quant QAT at 8 bits and
+# SimSiam on half the batches
+IMMEDIATE_POLICIES = etuner_stack_spec(lazytune=False, simfreeze=False,
+                                       detect_scenario_changes=False)
+SEMI_QUANT_HOOKS = (HookSpec("fake-quant", {"bits": 8}),
+                    HookSpec("simsiam", {"fraction": 0.5}))
 
 
 class _LoopClock(EventScheduler):
@@ -650,17 +716,19 @@ class _LoopClock(EventScheduler):
         super().run(**callbacks)
 
 
-def run_etuner(model, bench, events, *, use_kernel, **session):
+def run_etuner(model, bench, events, *, use_kernel,
+               policies=ETUNER_POLICIES, hooks=(), **session):
     """The ETuner loop through the port's front door,
     `ContinualRuntime.from_config(...).run(events)`, on the injected
-    full-width `model` (the runtime pretrains from
+    full-width `model`, the slot's arch (the runtime pretrains from
     `model.init(torch.Generator().manual_seed(0))` on scenario 0, then
     LazyTune triggers rounds under SimFreeze's freeze plans, serving every
-    request). `session` adds `RuntimeConfig` fields. Counts the predict
-    and features calls and the probe passes, times every train step with
+    request). `policies` and `hooks` are the slot's; `session` adds
+    `RuntimeConfig` fields. Counts the predict and features calls, the
+    probe passes and the SimSiam updates, times every train step with
     CUDA events by plan through the runtime's `TrainStepCache`, and
     records any kernel launch made inside a train step."""
-    calls = {"predict": 0, "features": 0, "passes": 0}
+    calls = {"predict": 0, "features": 0, "passes": 0, "semi": 0}
 
     def counted(name, fn):
         def call(*args):
@@ -673,7 +741,8 @@ def run_etuner(model, bench, events, *, use_kernel, **session):
         features=counted("features", model.features))
     rt = ContinualRuntime.from_config(
         RuntimeConfig(slots={"default": SlotConfig(
-                          arch="deit-tiny", policies=ETUNER_POLICIES)},
+                          arch=model.cfg.name, policies=policies,
+                          hooks=hooks)},
                       seed=0, pretrain_epochs=1, replay_batches=2,
                       use_pallas=use_kernel, **session),
         device=model.device, model=model, benchmark=bench)
@@ -681,8 +750,12 @@ def run_etuner(model, bench, events, *, use_kernel, **session):
     # and a CKA for every layer; the plan a round ran under is the plan
     # when the round reports back; served logits are kept for the checks
     ctrl = rt.controller
-    sf = ctrl.simfreeze
-    sf._all_cka = counted("passes", sf._all_cka)
+    sf = getattr(ctrl.freeze, "simfreeze", None)
+    if sf is not None:
+        sf._all_cka = counted("passes", sf._all_cka)
+    for h in rt.hooks:
+        if isinstance(h, SimSiamHook):
+            h._semi_update = counted("semi", h._semi_update)
     round_plans, logits_out = [], []
     round_finished, inference_served = ctrl.round_finished, \
         ctrl.inference_served
@@ -752,7 +825,8 @@ def run_etuner(model, bench, events, *, use_kernel, **session):
             "served": device.server.served, "predict": calls["predict"],
             "features": calls["features"], "passes": calls["passes"],
             "probes": res.probes, "preemptions": res.preemptions,
-            "in_step": in_step, "step_ms": step_ms, "flops": flops,
+            "semi": calls["semi"], "in_step": in_step, "step_ms": step_ms,
+            "flops": flops,
             "total_time_s": res.total_time_s,
             "pretrain_s": t1 - t0, "loop_s": t2 - t1}
 
@@ -779,11 +853,7 @@ def etuner_phase(cfg):
                 "val_curve"):
         if again[key] != kern[key]:
             raise AssertionError(f"{key} differs between two kernel runs")
-    if not all(np.array_equal(a, b) for a, b in zip(
-            kern["logits"], again["logits"], strict=True)) or \
-            not all(torch.equal(a, b) for a, b in zip(
-                tree_leaves(kern["params"]), tree_leaves(again["params"]),
-                strict=True)):
+    if not bitwise_equal(kern, again):
         raise AssertionError("two kernel runs are not bitwise the same")
 
     L = cfg.num_layers
@@ -827,23 +897,7 @@ def etuner_phase(cfg):
           f"plans, accuracies, validation curve; logits within "
           f"{ATT_RTOL}/{ATT_ATOL}; final params bitwise equal; a second "
           f"kernel run is bitwise the first")
-    base = kern["flops"][(False,) * (L + 2)]
-    for plan, ms in again["step_ms"].items():
-        print(f"  train step, {sum(plan)} of {L + 2} units frozen "
-              f"({''.join('F' if f else '.' for f in plan)}): {len(ms)} steps, "
-              f"CUDA events mean {np.mean(ms):.3f} ms (min {np.min(ms):.3f}, "
-              f"max {np.max(ms):.3f}; plain run mean "
-              f"{np.mean(plain['step_ms'][plan]):.3f}, first kernel run "
-              f"{np.mean(kern['step_ms'][plan]):.3f}); FlopCounterMode "
-              f"{kern['flops'][plan]:.6g} FLOPs, ratio to all-active "
-              f"{kern['flops'][plan] / base:.4f}")
-    for name, run in (("second kernel run", again), ("plain run", plain),
-                      ("first kernel run", kern)):
-        print(f"  loop wall time, {name}: {run['loop_s']:.3f} s "
-              f"({run['rounds'] / run['loop_s']:.3f} rounds/s, "
-              f"{run['served'] / run['loop_s']:.2f} requests/s); "
-              f"pretraining {run['pretrain_s']:.3f} s")
-    print(f"  modeled device time (EdgeCostModel) {kern['total_time_s']:.6g} s")
+    report_loop(L + 2, kern, plain, again)
 
     zero_launches()
     qos = run_etuner(kmodel, *common, use_kernel=True, boundaries="detector",
@@ -864,6 +918,139 @@ def etuner_phase(cfg):
             qos["in_step"]:
         raise AssertionError(f"unexpected launch counts {qos_launches}")
     return launches
+
+
+def report_loop(units, kern, plain, again=None) -> None:
+    """Each plan's train-step time (CUDA events) and FLOPs, and the loop's
+    wall time, of the warm kernel run (`again`, else `kern`) beside the
+    others."""
+    warm = again or kern
+    base = kern["flops"][(False,) * units]
+    for plan, ms in warm["step_ms"].items():
+        others = f"plain run mean {np.mean(plain['step_ms'][plan]):.3f}"
+        if again is not None:
+            others += (f", first kernel run "
+                       f"{np.mean(kern['step_ms'][plan]):.3f}")
+        print(f"  train step, {sum(plan)} of {units} units frozen "
+              f"({''.join('F' if f else '.' for f in plan)}): {len(ms)} steps, "
+              f"CUDA events mean {np.mean(ms):.3f} ms (min {np.min(ms):.3f}, "
+              f"max {np.max(ms):.3f}; {others}); FlopCounterMode "
+              f"{kern['flops'][plan]:.6g} FLOPs, ratio to all-active "
+              f"{kern['flops'][plan] / base:.4f}")
+    runs = (("second kernel run", again), ("plain run", plain),
+            ("first kernel run", kern)) if again is not None else \
+        (("kernel run", kern), ("plain run", plain))
+    for name, run in runs:
+        print(f"  loop wall time, {name}: {run['loop_s']:.3f} s "
+              f"({run['rounds'] / run['loop_s']:.3f} rounds/s, "
+              f"{run['served'] / run['loop_s']:.2f} requests/s); "
+              f"pretraining {run['pretrain_s']:.3f} s")
+    print(f"  modeled device time (EdgeCostModel) {kern['total_time_s']:.6g} s")
+
+
+def bitwise_equal(a, b) -> bool:
+    """Two runs' served logits and final params agree to the bit."""
+    return all(np.array_equal(x, y) for x, y in zip(
+        a["logits"], b["logits"], strict=True)) and \
+        all(torch.equal(x, y) for x, y in zip(
+            tree_leaves(a["params"]), tree_leaves(b["params"]), strict=True))
+
+
+def probe_dims(cfg) -> list:
+    """d = H*W*C of each map of a probe pass of `cfg`'s CNN on a batch of
+    CNN_PROBE images, from shapes on the meta device."""
+    model = build_model(cfg, device="meta")
+    params = model.init(torch.Generator())
+    images = torch.empty((CNN_PROBE, cfg.image_size, cfg.image_size, 3),
+                         device="meta")
+    return [f[0].numel() for f in model.features(params, {"images": images})]
+
+
+def cnn_loop_phase(cfg, *, repeat: bool):
+    """The ETuner loop of `etuner_phase` on a CNN at full width: the kernel
+    run, the plain run and, with `repeat`, the kernel run again (times
+    are read from it). The runs must agree exactly: rounds, recompiles,
+    controller stats, plans, validation curve, accuracies, and served
+    logits and final params bit for bit (CKA runs in the probes only, and
+    the CNN's forward has no kernel). CKA launches once a feature map of a
+    probe pass, all on the example route, none inside a train step."""
+    model = build_model(cfg)
+    bench, events = loop_data(cfg.image_size)
+    units = model.num_freeze_units
+    zero_launches()
+    kern = run_etuner(model, bench, events, use_kernel=True)
+    launches = read_launches()
+    zero_launches()
+    plain = run_etuner(model, bench, events, use_kernel=False)
+    if any(read_launches().values()):
+        raise AssertionError("the plain run launched a kernel")
+    again = None
+    if repeat:
+        zero_launches()
+        again = run_etuner(model, bench, events, use_kernel=True)
+        if read_launches() != launches:
+            raise AssertionError(f"the second kernel run launched "
+                                 f"{read_launches()}, the first {launches}")
+    maps = units - 1
+    print(f"  kernel run: {kern['rounds']} rounds, {kern['recompiles']} "
+          f"recompiles, {kern['served']} requests; {kern['predict']} predict "
+          f"calls, {kern['features']} features calls, {kern['passes']} probe "
+          f"passes")
+    print(f"  controller stats {kern['stats']}")
+    plans = ["".join("F" if f else "." for f in p)
+             for p in kern["round_plans"]]
+    print(f"  freeze plans of the rounds: {plans}")
+    print(f"  validation curve {kern['val_curve']}; mean accuracy "
+          f"{np.mean(kern['accs']):.4f}")
+    print(f"  launches: cka_terms {launches['cka_terms']} (expected {maps} x "
+          f"{kern['passes']}; example route {launches['cka_example']}, "
+          f"feature route {launches['cka_feature']}); in train steps: "
+          f"{len(kern['in_step'])} steps launched a kernel")
+    if launches["cka_terms"] != maps * kern["passes"] or \
+            launches["cka_example"] != launches["cka_terms"] or \
+            not launches["cka_terms"] or launches["flash_attention"] or \
+            launches["wkv6"] or kern["in_step"] or plain["in_step"]:
+        raise AssertionError(f"unexpected launch counts {launches}")
+    for other, name in ((plain, "the plain run"),
+                        (again, "a second kernel run")):
+        if other is None:
+            continue
+        for key in ("rounds", "recompiles", "stats", "round_plans", "accs",
+                    "val_curve", "predict", "features", "passes"):
+            if kern[key] != other[key]:
+                raise AssertionError(f"{key} differs from {name}: "
+                                     f"{kern[key]} against {other[key]}")
+        if not bitwise_equal(kern, other):
+            diff = max(float((a - b).abs().max()) for a, b in zip(
+                tree_leaves(kern["params"]), tree_leaves(other["params"])))
+            raise AssertionError(f"{name} is not bitwise the kernel run: "
+                                 f"final params differ by {diff:.3g}")
+    print("  plain run" + (" and second kernel run" if repeat else "")
+          + " agree: rounds, recompiles, controller stats, freeze plans, "
+          "accuracies, validation curve; served logits and final params "
+          "bitwise equal")
+    report_loop(units, kern, plain, again)
+    return launches
+
+
+def hooks_phase(cfg):
+    """The reference's `semi_quant` session on the full-width CNN of
+    `cfg`: immediate rounds, fake-quant QAT at 8 bits, SimSiam on half
+    the batches, once."""
+    model = build_model(cfg)
+    bench, events = loop_data(cfg.image_size)
+    run = run_etuner(model, bench, events, use_kernel=True,
+                     policies=IMMEDIATE_POLICIES, hooks=SEMI_QUANT_HOOKS)
+    steps = sum(len(ms) for ms in run["step_ms"].values())
+    print(f"  {run['rounds']} rounds, {run['recompiles']} recompiles, "
+          f"{run['semi']} SimSiam updates, {steps} supervised steps; mean "
+          f"accuracy {np.mean(run['accs']):.4f} over "
+          f"{run['served']} requests; loop wall time {run['loop_s']:.3f} s "
+          f"({run['rounds'] / run['loop_s']:.3f} rounds/s)")
+    if not run["semi"] or not run["rounds"] or run["passes"]:
+        raise AssertionError(f"the hooks session ran {run['rounds']} rounds, "
+                             f"{run['semi']} SimSiam updates, "
+                             f"{run['passes']} probe passes")
 
 
 def zero_launches() -> None:
@@ -1141,6 +1328,8 @@ def timing_phase():
           f"CUDA cores); the plain feature form that core/cka.py takes "
           f"without the kernel {feature_ms:.4f} ms")
 
+    cka["cnn"] = cnn_cka_timing(gen)
+
     B, T, H, n = MAIN_WKV
     r, k, v, logw, u = _wkv_inputs(gen, B, T, H, n)
     kernel = lambda: wkv_ops.wkv(r, k, v, logw, u,  # noqa: E731
@@ -1173,6 +1362,113 @@ def timing_phase():
     return att, cka, wkv
 
 
+def cnn_cka_timing(gen) -> dict:
+    """CKA's example route at the CNN probe shapes: one launch at
+    MobileNetV2's stem map (n = 16, d = 131072) and a whole full-width
+    MobileNetV2 probe pass (one launch a map), each against its plain
+    version, beside the bound of the least work (`example_bound`)."""
+    dims = probe_dims(get_config("mobilenetv2"))
+    pairs = [tuple(cka_ops._prepare(t) for t in _cka_inputs(gen, CNN_PROBE,
+                                                             d, d))
+             for d in dims]
+    stem = pairs[dims.index(MBV2_STEM_D)]
+
+    def launch_pass():
+        for x, y in pairs:
+            cka_ops._launch_example(x, y)
+
+    def plain_pass():
+        for x, y in pairs:
+            cka_ops.cka_terms_plain(x, y)
+
+    one = {"ms": time_ms(lambda: cka_ops._launch_example(*stem)),
+           "device_ms": device_ms(lambda: cka_ops._launch_example(*stem)),
+           "plain_ms": time_ms(lambda: cka_ops.cka_terms_plain(*stem)),
+           **example_bound([MBV2_STEM_D])}
+    whole = {"ms": time_ms(launch_pass, iters=10, warmup=2),
+             "device_ms": device_ms(launch_pass, calls=2, replays=5),
+             "plain_ms": time_ms(plain_pass, iters=10, warmup=2),
+             **example_bound(dims)}
+    for name, t in ((f"one launch at n{CNN_PROBE} d{MBV2_STEM_D} (the "
+                     f"MobileNetV2 stem)", one),
+                    (f"a MobileNetV2 probe pass ({len(dims)} launches, d "
+                     f"{min(dims)}-{max(dims)}, {sum(dims)} in all)", whole)):
+        print(f"  cka_terms example route, {name}: kernel {t['ms']:.4f} ms "
+              f"(device {t['device_ms']:.4f}), plain {t['plain_ms']:.4f} ms, "
+              f"bound {t['bound_ms']:.5f} ms ({t['bound_by']}; "
+              f"{t['device_ms'] / t['bound_ms']:.0f}x the bound)")
+    return {"stem": one, "pass": whole, "launches_per_pass": len(dims)}
+
+
+def cudnn_deterministic_cost() -> dict:
+    """What `resolve_device`'s deterministic cuDNN costs: an all-active
+    full-width train step of each CNN, batch of 16 on the card, with
+    cuDNN held to deterministic algorithms and free to take its default
+    ones, in turns (on, off, on, off): the mean CUDA-event time of 10
+    steps (the host's pace) and the card's busy time a step under
+    torch.profiler (3 steps)."""
+    out = {}
+    for name in ("mobilenetv2", "resnet50"):
+        model = build_model(get_config(name))
+        params = model.init(torch.Generator().manual_seed(0))
+        opt_cfg = AdamWConfig(lr=1e-3)
+        state = make_optimizer_state(model, opt_cfg, params)
+        step = TrainStepCache(model, opt_cfg).get(
+            LayerFreezePlan((False,) * model.num_freeze_units))
+        batch = as_tensor(loop_data(model.cfg.image_size)[0]
+                          .scenarios[1].train_batches[0], model.device)
+        times = {True: [], False: []}
+        busy = {True: [], False: []}
+        for det in (True, False, True, False):
+            torch.backends.cudnn.deterministic = det
+            step(params, state, batch)  # warm-up: algorithm choice
+            times[det].append(time_ms(lambda: step(params, state, batch),
+                                      iters=10, warmup=1))
+            busy[det].append(busy_device_ms(
+                lambda: step(params, state, batch), calls=3))
+        torch.backends.cudnn.deterministic = True
+        out[name] = {"deterministic_ms": float(np.mean(times[True])),
+                     "default_ms": float(np.mean(times[False])),
+                     "deterministic_device_ms": float(np.mean(busy[True])),
+                     "default_device_ms": float(np.mean(busy[False]))}
+        print(f"  {name} all-active train step, 2 turns each: cuDNN "
+              f"deterministic {[round(t, 3) for t in times[True]]} ms of "
+              f"CUDA events, {[round(t, 3) for t in busy[True]]} ms busy on "
+              f"the card; default algorithms "
+              f"{[round(t, 3) for t in times[False]]} ms, "
+              f"{[round(t, 3) for t in busy[False]]} ms busy")
+    return out
+
+
+def busy_device_ms(run, calls: int) -> float:
+    """The card's busy time a call of `run` (its kernels and copies,
+    summed) over `calls` calls under torch.profiler; nan when the
+    profiler records no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            run()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA)
+    return us / 1e3 / calls if us else float("nan")
+
+
+def example_bound(dims) -> dict:
+    """The least time for the CKA terms of CNN_PROBE examples at feature
+    dims `dims` (one X and one Y of d columns each): each input read once,
+    three floats written a launch, against the example form's products,
+    the upper triangles of XX^T and YY^T (2d n(n+1)/2 FMAs each) and their
+    n(n+1)/2 entry products, on the fp32 CUDA cores."""
+    n = CNN_PROBE
+    tri = n * (n + 1) / 2
+    flops = sum(2 * 2.0 * d * tri + 3 * 2 * tri for d in dims)
+    nbytes = sum(4.0 * n * 2 * d + 4 * 3 for d in dims)
+    return bound(flops, nbytes)
+
+
 def pass_device_ms(run, names, calls: int) -> dict:
     """The card's mean time a call in each of the kernels `names`, over
     `calls` calls of `run` under torch.profiler; a kernel the profiler
@@ -1194,7 +1490,8 @@ def pass_device_ms(run, names, calls: int) -> dict:
 def profile_phase(deit, rwkv) -> None:
     """One more kernel run of each slice under torch.profiler: the
     device's busy share of the run's wall time and the kernels that fill
-    it. For rwkv6-3b, one `ServeEngine.generate` call in bf16."""
+    it. For rwkv6-3b, one `ServeEngine.generate` call in bf16. Last, what
+    deterministic cuDNN costs the CNNs' train step."""
     gen = torch.Generator().manual_seed(99)
     qt, kt, vt = (torch.randn(MAIN_ATT, generator=gen).cuda().transpose(1, 2)
                   .contiguous() for _ in range(3))
@@ -1209,6 +1506,11 @@ def profile_phase(deit, rwkv) -> None:
     report_profile(f"{deit.name} ETuner loop",
                    lambda: run_etuner(kmodel, bench, events,
                                       use_kernel=True))
+    mbv2 = build_model(get_config("mobilenetv2"))
+    mbv2_data = loop_data(mbv2.cfg.image_size)
+    run_etuner(mbv2, *mbv2_data, use_kernel=True)  # warm-up
+    report_profile("mobilenetv2 ETuner loop",
+                   lambda: run_etuner(mbv2, *mbv2_data, use_kernel=True))
     opt_cfg = AdamWConfig(lr=1e-3)
     step = TrainStepCache(kmodel, opt_cfg).get(
         LayerFreezePlan((False,) * kmodel.num_freeze_units))
@@ -1228,6 +1530,7 @@ def profile_phase(deit, rwkv) -> None:
         0, rwkv.vocab_size, MAIN_WKV[:2]).astype(np.int32)
     serve(kmodel, params, prompts)  # warm-up outside the profiled window
     report_profile(rwkv.name, lambda: serve(kmodel, params, prompts))
+    cudnn_deterministic_cost()
 
 
 def report_profile(name, run) -> None:
@@ -1260,6 +1563,18 @@ def report_profile(name, run) -> None:
             print(f"    {us / 1e3:9.3f} ms {100 * us / busy_us:5.1f}% "
                   f"x{count:<5d} {us / count / 1e3:8.4f} ms each  "
                   f"{key[:90]}")
+
+
+def cka_record(cka) -> dict:
+    """The CKA kernel's record on the MobileNetV2 loop, whose probes this
+    slice puts on the example route: a launch's mean over one full-width
+    probe pass (`pass` holds the pass, `stem` its largest launch)."""
+    cnn = cka["cnn"]
+    whole, k = cnn["pass"], cnn["launches_per_pass"]
+    return {"ms": whole["ms"] / k, "device_ms": whole["device_ms"] / k,
+            "plain_ms": whole["plain_ms"] / k, "library_ms": None,
+            "bound_ms": whole["bound_ms"] / k, "bound_by": whole["bound_by"],
+            "pass": whole, "stem": cnn["stem"]}
 
 
 def bound(flops: float, nbytes: float, tensor_cores: bool = False) -> dict:
@@ -1305,16 +1620,24 @@ def main() -> None:
     print(f"  CUDA runtime mapped: {mapped_cudart()}")
 
     print("phase 2: kernels against their plain versions")
-    att_err, cka_err, wkv_err = kernel_phase()
+    att_err, cka_err, cnn_err, wkv_err = kernel_phase()
     print("phase 3: DeiT-tiny serving and SimFreeze probes at full width")
     launches = slice_phase(get_config("deit-tiny"))
     print("phase 3: the ETuner loop on DeiT-tiny at full width")
     loop_launches = etuner_phase(get_config("deit-tiny"))
+    print("phase 3: the ETuner loop on MobileNetV2 at full width")
+    mbv2_launches = cnn_loop_phase(get_config("mobilenetv2"), repeat=True)
+    print("phase 3: the ETuner loop on ResNet50 at full width")
+    resnet_launches = cnn_loop_phase(get_config("resnet50"), repeat=False)
+    print("phase 3: the round hooks (fake-quant 8 bits, SimSiam 0.5) on "
+          "MobileNetV2 at full width")
+    hooks_phase(get_config("mobilenetv2"))
     print("phase 3: rwkv6-3b serving at full width and depth")
     rwkv = get_config("rwkv6-3b")
     wkv_launches = rwkv_phase(rwkv)
     print("phase 4: timing at the main-path shapes (CUDA events)")
     att, cka, wkv = timing_phase()
+    cka_feature = {k: v for k, v in cka.items() if k != "cnn"}
     if args.profile:
         print("phase 5: where the slices' time goes (torch.profiler)")
         profile_phase(get_config("deit-tiny"), rwkv)
@@ -1331,13 +1654,18 @@ def main() -> None:
         {"name": "cka_terms", "route": "cuda",
          "source": "src/repro_torch/csrc/cka_terms.cu",
          "replaces": "src/repro/kernels/cka/kernel.py:56",
-         "launches": loop_launches["cka_terms"],
+         "launches": mbv2_launches["cka_terms"],
          "launches_by_path": {
+             "cnn_loop_mobilenetv2": mbv2_launches["cka_terms"],
+             "cnn_loop_resnet50": resnet_launches["cka_terms"],
              "etuner_loop": loop_launches["cka_terms"],
              "serving_and_probes": launches["cka_terms"]},
-         "launches_by_route": {"feature": loop_launches["cka_feature"],
-                               "example": loop_launches["cka_example"]},
-         "max_abs_err": cka_err, **cka},
+         "launches_by_route": {
+             route: sum(p[f"cka_{route}"] for p in (
+                 mbv2_launches, resnet_launches, loop_launches, launches))
+             for route in ("feature", "example")},
+         "max_abs_err": cnn_err, **cka_record(cka),
+         "feature_route": {"max_abs_err": cka_err, **cka_feature}},
         {"name": "wkv6", "route": "cuda",
          "source": "src/repro_torch/csrc/wkv6.cu",
          "replaces": "src/repro/kernels/rwkv/kernel.py:58",

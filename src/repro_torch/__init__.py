@@ -27,7 +27,10 @@ def resolve_device(device=None) -> torch.device:
     With no explicit device and no GPU this raises instead of carrying on
     quietly on the CPU. For CUDA it also turns TF32 off for matmuls and
     convolutions: the port computes in full fp32, as the JAX reference
-    does, and its parity tolerances depend on that."""
+    does, and its parity tolerances depend on that. And it keeps cuDNN
+    to deterministic algorithms, chosen by its heuristics rather than by
+    timing: a default backward-weight algorithm may sum in any order, and
+    two runs of the same CNN loop must train to the same bits."""
     if device is None:
         if not torch.cuda.is_available():
             raise RuntimeError(
@@ -38,6 +41,8 @@ def resolve_device(device=None) -> torch.device:
     if device.type == "cuda":
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cudnn.deterministic = True
+        torch.backends.cudnn.benchmark = False
     return device
 
 

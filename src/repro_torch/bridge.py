@@ -10,6 +10,9 @@ as ``x @ W`` — so leaves cross unchanged, except:
   (p, p, 3, d) becomes the [p*p*3, d] matrix of the port's patch reshape
   (repro_torch.models.vit.patches), whose (row, column, channel) order is
   the HWIO order.
+- CNNs: every leaf becomes fp32; the HWIO convolution kernels and the
+  [in, out] head cross unchanged (repro_torch.models.cnn permutes the
+  kernels at call time).
 - LMs: each leaf keeps its own dtype (the rwkv init mixes fp32 and
   `param_dtype` leaves), and the blocks, which JAX stacks along a leading
   group axis [G, ...] (``scan_layers``) or keeps as per-group lists, become
@@ -22,6 +25,7 @@ import torch
 
 from repro_torch import resolve_device, tree_leaves, tree_map
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models import cnn
 from repro_torch.models.vit import patch_size
 
 
@@ -46,6 +50,8 @@ def params_from_jax(tree: dict, cfg: ModelConfig, device=None) -> dict:
     device = resolve_device(device)
     if cfg.family == "vit":
         return _vit_params(tree, cfg, device)
+    if cfg.family == "cnn":
+        return _cnn_params(tree, cfg, device)
     if cfg.is_lm:
         return _lm_params(tree, cfg, device)
     raise NotImplementedError(f"no bridge for {cfg.family!r} params yet")
@@ -57,10 +63,30 @@ def _vit_params(tree: dict, cfg: ModelConfig, device) -> dict:
     if w.shape != (p, p, 3, d) or len(tree["blocks"]) != cfg.num_layers:
         raise ValueError(f"params do not fit {cfg.name}: patch kernel "
                          f"{w.shape}, {len(tree['blocks'])} blocks")
-    out = tree_map(lambda a: torch.tensor(np.asarray(a, np.float32),
-                                          device=device), tree)
+    out = _fp32(tree, device)
     out["patch"]["w"] = out["patch"]["w"].reshape(p * p * 3, d)
     return out
+
+
+def _fp32(tree, device):
+    return tree_map(lambda a: torch.tensor(np.asarray(a, np.float32),
+                                           device=device), tree)
+
+
+def _cnn_params(tree: dict, cfg: ModelConfig, device) -> dict:
+    if cfg.name.startswith("resnet"):
+        spec = cnn.resnet_static_spec(cfg)[:-1]
+        stem = (7, 7, 3, cnn._resnet_spec(cfg)[1])
+    else:
+        spec = cnn.mbv2_static_spec(cfg)
+        stem = (3, 3, 3, spec[0]["cout"])
+    w = np.asarray(tree["units"][0]["conv"])
+    if len(tree["units"]) != len(spec) or w.shape != stem:
+        raise ValueError(f"params do not fit {cfg.name}: "
+                         f"{len(tree['units'])} units (want {len(spec)}), "
+                         f"stem kernel {w.shape} (want {stem})")
+    return {"units": _fp32(tree["units"], device),
+            "head": _fp32(tree["head"], device)}
 
 
 def _lm_params(tree: dict, cfg: ModelConfig, device) -> dict:

@@ -43,5 +43,9 @@ def build_model(cfg: ModelConfig, device=None) -> Model:
         from repro_torch.models import vit
 
         return vit.build(cfg, device)
+    if cfg.family == "cnn":
+        from repro_torch.models import cnn
+
+        return cnn.build(cfg, device)
     raise NotImplementedError(f"{cfg.family!r} models are not ported yet "
-                              f"(ROADMAP A.2: the CNNs and bert-base)")
+                              f"(ROADMAP A.2: bert-base)")

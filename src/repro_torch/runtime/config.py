@@ -31,11 +31,10 @@ policy names and hook names raise with the valid alternatives listed.
 The port's copy (`repro_torch.runtime.config`) keeps the reference's
 names, fields, validation and dict form, so a dict either package's
 `to_dict` writes loads in the other. What the port cannot run yet raises
-`NotImplementedError` naming its ROADMAP item: `fake-quant`/`simsiam`
-hooks (A.4), `compiled=True` (A.6), workload presets (queue A item 6),
-an active `TelemetrySpec` (A.8); a CNN or bert `arch` raises in
-`build_model` (A.2). Sessions take ``device=`` and resolve it through
-`repro_torch.resolve_device`.
+`NotImplementedError` naming its ROADMAP item: `compiled=True` (A.6),
+workload presets (queue A item 6), an active `TelemetrySpec` (A.8); a
+bert `arch` raises in `build_model` (A.2). Sessions take ``device=`` and
+resolve it through `repro_torch.resolve_device`.
 """
 from __future__ import annotations
 
@@ -46,7 +45,8 @@ from repro_torch import resolve_device
 from repro_torch.core.policies import PolicyStackSpec
 from repro_torch.env.spec import EnvSpec
 from repro_torch.obs.spec import TelemetrySpec
-from repro_torch.runtime.executor import RoundHook
+from repro_torch.runtime.executor import (FakeQuantHook, RoundHook,
+                                          SimSiamHook)
 
 #: workload_scale keys forwarded to the workload presets (plus
 #: `batch_size`, consumed by per-stream benchmark materialization).
@@ -93,9 +93,9 @@ def _check_hook_spec(spec: HookSpec) -> None:
 
 def build_hook(spec: HookSpec) -> RoundHook:
     _check_hook_spec(spec)
-    raise NotImplementedError(
-        f"hook {spec.name!r} is not ported yet (ROADMAP A.4: the round "
-        f"hooks, SimSiamHook and FakeQuantHook)")
+    if spec.name == "fake-quant":
+        return FakeQuantHook(int(spec.params["bits"]))
+    return SimSiamHook(float(spec.params["fraction"]))
 
 
 @dataclass(frozen=True)

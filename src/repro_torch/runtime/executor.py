@@ -4,9 +4,10 @@ ported from `repro.runtime.executor`.
 Owns the training state (params/optimizer), the pending-batch buffer, the
 anti-forgetting replay buffer, and the per-round mechanics: plan-aware
 steps (via TrainStepCache), FLOPs per plan, cost-model calibration and
-the `CostLedger` charge. Orthogonal training behaviours are composable
-`RoundHook`s (the reference's SimSiam and fake-quant hooks come with the
-port of `core/semi.py`).
+the `CostLedger` charge. Orthogonal training behaviours — the
+semi-supervised SimSiam pass on unlabeled batches (paper §IV-C) and
+simulated quantization-aware training (paper §V-G) — are composable
+`RoundHook`s rather than special cases inlined in the event loop.
 
 The executor is timeline-agnostic: it receives `now` and an
 `EventScheduler` to reserve device time on, and reports what it did via
@@ -26,7 +27,10 @@ from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
+import torch
 
+from repro_torch import tree_leaves, tree_map, tree_unflatten
+from repro_torch.core import semi
 from repro_torch.runtime.costmodel import EdgeCostModel
 from repro_torch.runtime.ledger import DEFAULT_DEVICE, DEFAULT_MODEL, CostLedger
 from repro_torch.runtime.train_loop import TrainStepCache, as_tensor
@@ -78,6 +82,96 @@ class RoundHook:
 
     def process_batch(self, params, batch: dict, tensor_batch: dict):
         return None
+
+
+#: the generator seeds of the SimSiam augmentations and head: fixed, so
+#: every semi step augments alike (the reference re-seeds its draws on
+#: every call, ROADMAP C.7) and the head is drawn once
+AUGMENT_SEED = 0
+HEAD_SEED = 1
+
+
+def draw_views(images: torch.Tensor):
+    """The two views' augmentation draws of a semi step: the same on
+    every call for a batch shape."""
+    gen = torch.Generator().manual_seed(AUGMENT_SEED)
+    return tuple(semi.draw_augment(gen, images.shape) for _ in range(2))
+
+
+class SimSiamHook(RoundHook):
+    """Semi-supervised rounds (paper §IV-C): with probability
+    `unlabeled_fraction`, an image batch is treated as unlabeled and gets a
+    SimSiam self-supervised update instead of the supervised step.
+
+    As in the reference: the labeled/unlabeled split of a round is drawn
+    from ``default_rng(round_index + 17)``; every semi step augments with
+    the same draws (`draws(images)`, the reference re-seeds its own on
+    every call: ROADMAP C.7); the SimSiam head is initialized once
+    (`init_head(feat_dim)`) on the first 256 flattened numbers of the
+    last activation, not a pool; and the update is plain ``p - 1e-3 g``
+    on autograd gradients, outside the optimizer. `draws` and
+    `init_head` are attributes a caller may replace (a parity test gives
+    the reference's). The reference's `donate` switch, a JAX buffer
+    donation, has no counterpart: the update is out of place."""
+
+    def __init__(self, unlabeled_fraction: float):
+        self.unlabeled_fraction = unlabeled_fraction
+        self.model = None
+        self.draws = draw_views
+        self.init_head = lambda feat_dim: semi.init_simsiam_head(
+            torch.Generator().manual_seed(HEAD_SEED), feat_dim)
+        self._head = None
+        self._feat_dim = None
+        self._rng = np.random.default_rng(17)
+
+    def bind(self, model):
+        self.model = model
+        return model
+
+    def on_round_start(self, round_index: int) -> None:
+        # deterministic per-round labeled/unlabeled split
+        self._rng = np.random.default_rng(round_index + 17)
+
+    def process_batch(self, params, batch, tensor_batch):
+        if self.unlabeled_fraction and "images" in batch and \
+                self._rng.random() < self.unlabeled_fraction:
+            return self._semi_update(params, tensor_batch)
+        return None
+
+    def _pooled(self, params, images):
+        f = self.model.features(params, {"images": images})[-1]
+        return f.reshape(f.shape[0], -1)[:, :self._feat_dim].float()
+
+    def _semi_update(self, params, batch):
+        images = batch["images"]
+        if self._head is None:
+            last = self.model.features(params, batch)[-1]
+            self._feat_dim = min(last[0].numel(), 256)
+            self._head = tree_map(lambda t: t.to(images.device),
+                                  self.init_head(self._feat_dim))
+        leaves = [p.detach().requires_grad_() for p in tree_leaves(params)]
+        with torch.enable_grad():
+            loss = semi.simsiam_loss(self._pooled, self._head,
+                                     tree_unflatten(params, leaves), images,
+                                     self.draws(images))
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        return tree_unflatten(params, [
+            p.detach() if g is None else
+            (p.detach().float() - 1e-3 * g.float()).to(p.dtype)
+            for p, g in zip(leaves, grads)])
+
+
+class FakeQuantHook(RoundHook):
+    """Simulated quantization-aware training (paper §V-G, Table VIII): the
+    model's loss/predict see fake-quantized params (straight-through
+    estimator keeps gradients alive). Purely a model wrap — no per-batch
+    work."""
+
+    def __init__(self, bits: int):
+        self.bits = bits
+
+    def bind(self, model):
+        return quantized_model(model, self.bits)
 
 
 # ---------------------------------------------------------------------------
@@ -396,3 +490,32 @@ class FineTuneExecutor:
                            recompiled=ar.recompiled, start=ar.first_start,
                            end=ar.end, stream=ar.stream,
                            segments=ar.segments, preemptions=ar.preemptions)
+
+
+# ---------------------------------------------------------------------------
+# simulated quantization-aware training (paper §V-G, Table VIII)
+
+
+def fake_quant(x: torch.Tensor, bits: int) -> torch.Tensor:
+    """Symmetric per-tensor fake quantization to `bits` with a
+    straight-through estimator (the gradient passes as if unquantized).
+    `torch.round` rounds half to even, as `jnp.round` does."""
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        return x
+    xf = x.float()
+    qmax = 2.0 ** (bits - 1) - 1
+    scale = torch.clamp(xf.abs().max(), min=1e-8) / qmax
+    q = torch.round(xf / scale) * scale
+    return (xf + (q - xf).detach()).to(x.dtype)  # STE
+
+
+def quantized_model(model, bits: int):
+    def loss(params, batch, plan=None):
+        qp = tree_map(lambda p: fake_quant(p, bits), params)
+        return model.loss(qp, batch, plan)
+
+    def predict(params, batch):
+        qp = tree_map(lambda p: fake_quant(p, bits), params)
+        return model.predict(qp, batch)
+
+    return dataclasses.replace(model, loss=loss, predict=predict)

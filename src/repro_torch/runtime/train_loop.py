@@ -12,12 +12,13 @@ optimizer to every leaf, out of place. The reference's compiled path
 """
 from __future__ import annotations
 
+import weakref
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, Sequence, Tuple
 
 import numpy as np
 import torch
-from torch.utils.flop_counter import FlopCounterMode
+from torch.utils.flop_counter import FlopCounterMode, flop_registry
 
 from repro_torch import tree_leaves, tree_map, tree_unflatten
 from repro_torch.optim import (AdamWConfig, adamw_init, adamw_update,
@@ -44,6 +45,59 @@ def grads_of(loss_fn, params, batch, plan):
              for p, g in zip(leaves, grads)]
     metrics = tree_map(lambda t: t.detach(), metrics)
     return loss.detach(), metrics, tree_unflatten(params, grads)
+
+
+def _taps_in_bounds(size: int, low: int, k: int, stride: int, out: int):
+    """Window taps of a strided 1-D window over `out` outputs that land
+    in an input of `size` padded by `low` in front."""
+    return sum(max(0, min(k, size + low - o * stride)
+                   - max(0, low - o * stride)) for o in range(out))
+
+
+def _in_bounds_conv_formulas():
+    """FlopCounterMode formulas that count a convolution's window taps
+    as XLA's cost analysis does: only those that land in the input, not
+    in the "SAME" padding that `F.pad` put around it (the CNNs pad apart
+    from the convolution, models/cnn.py). Torch's own formulas count
+    every tap; on the deep units' small maps (a 3x3 window over 2x2 has
+    16 of its 36 taps in bounds) that overcounts them, and the count's
+    ratios between freeze plans drift from the reference's. Torch's
+    formulas are kept otherwise, and scaled by the in-bounds share."""
+    aten = torch.ops.aten
+    padded = {}  # id of a padded map -> (its weakref, H, top, W, left)
+
+    def pad(x, widths, *args, out_val=None, **kwargs):
+        if x.dim() == 4 and len(widths) == 4:  # (left, right, top, bottom)
+            padded[id(out_val)] = (weakref.ref(out_val), x.shape[2],
+                                   widths[2], x.shape[3], widths[0])
+        return 0
+
+    def share(x, w, stride, out_hw):
+        entry = padded.get(id(x))
+        if entry is None or entry[0]() is not x:
+            return 1.0
+        _, h, top, wd, left = entry
+        kh, kw = w.shape[2:]
+        return (_taps_in_bounds(h, top, kh, stride[0], out_hw[0])
+                * _taps_in_bounds(wd, left, kw, stride[1], out_hw[1])
+                / (kh * kw * out_hw[0] * out_hw[1]))
+
+    def conv(x, w, bias, stride, *args, out_val=None, **kwargs):
+        full = flop_registry[aten.convolution](x, w, bias, stride, *args,
+                                               out_val=out_val, **kwargs)
+        return round(full * share(x, w, stride, out_val.shape[2:]))
+
+    def conv_backward(grad_out, x, w, bias_sizes, stride, *args,
+                      out_val=None, **kwargs):
+        full = flop_registry[aten.convolution_backward](
+            grad_out, x, w, bias_sizes, stride, *args, out_val=out_val,
+            **kwargs)
+        return round(full * share(x, w, stride, grad_out.shape[2:]))
+
+    for f in (pad, conv, conv_backward):
+        f._get_raw = True
+    return {aten.constant_pad_nd: pad, aten.convolution: conv,
+            aten.convolution_backward: conv_backward}
 
 
 @dataclass
@@ -94,8 +148,9 @@ class TrainStepCache:
 
     def flops(self, plan, example_batch) -> float:
         """FLOPs of one train step's loss and gradient under `plan`, as
-        `FlopCounterMode` counts them (matmuls only, forward and
-        backward), on `meta` tensors of the params' and the batch's
+        `FlopCounterMode` counts them (matmuls and convolutions only,
+        forward and backward; a convolution's taps in its input, as XLA
+        counts them), on `meta` tensors of the params' and the batch's
         shapes: nothing is computed and no state moves. Cached per plan.
         XLA's count, which the reference takes, also counts elementwise
         work, so only the ratios between plans carry over (the cost
@@ -109,7 +164,8 @@ class TrainStepCache:
                                     dtype=torch.as_tensor(v[:0]).dtype,
                                     device="meta")
                      for k, v in example_batch.items()}
-            counter = FlopCounterMode(display=False)
+            counter = FlopCounterMode(
+                display=False, custom_mapping=_in_bounds_conv_formulas())
             with counter:
                 grads_of(self.model.loss, self._meta_params, batch, plan)
             self._flops[plan] = float(counter.get_total_flops())

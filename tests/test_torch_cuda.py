@@ -155,6 +155,26 @@ def test_cka_kernel_is_deterministic_and_one_on_itself(gen, route):
     assert abs(float(cka_ops.cka(x, x)) - 1.0) < 1e-5
 
 
+@pytest.mark.parametrize("d", [2560, 131072, 262144])
+def test_cka_example_route_at_the_cnn_probe_shapes(gen, d):
+    # a CNN probe: 16 examples of a flattened feature map, d = H*W*C from
+    # MobileNetV2's last block (4*4*160) through its stem (64*64*32) to
+    # ResNet50's first stage (32*32*256) at 128x128; d >> n, the example
+    # route
+    x, y = _randn(gen, (16, d)), _randn(gen, (16, d))
+    y += 0.3 * x
+    before = dict(cka_ops.cka_terms.route_launches)
+    got = torch.stack(cka_ops.cka_terms(x, y))
+    assert cka_ops.cka_terms.route_launches == {
+        r: c + (r == "example") for r, c in before.items()}
+    xc, yc = cka_ops._prepare(x), cka_ops._prepare(y)
+    hsic, kk, ll = cka_ops.cka_terms_plain(xc, yc)
+    torch.testing.assert_close(got, torch.stack([hsic, kk.sqrt(), ll.sqrt()]),
+                               rtol=1e-4, atol=0.0)
+    assert torch.equal(torch.stack(cka_ops._launch_example(xc, yc)),
+                       torch.stack(cka_ops._launch_example(xc, yc)))
+
+
 def test_cka_feature_route_products_are_3xtf32(gen):
     # entries +-(1 + 2^-12), rows in +- pairs so the columns are centered:
     # TF32 rounds every entry to +-1, so one TF32 product would be off by

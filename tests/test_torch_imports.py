@@ -43,7 +43,7 @@ def test_importing_every_module_loads_neither_jax_nor_repro():
                           env={**os.environ, "PYTHONPATH": str(ROOT / "src")},
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
-    assert len(_modules()) >= 63
+    assert len(_modules()) >= 65
 
 
 # the fine-tuning slice's modules, each the counterpart of the JAX
@@ -81,9 +81,20 @@ def test_runtime_root_modules_are_ported(name):
                            / "__init__.py").exists()
 
 
+# the CNNs and the round hooks
+CNN_AND_HOOKS = ["models.cnn", "core.semi"]
+
+
+@pytest.mark.parametrize("name", CNN_AND_HOOKS)
+def test_cnn_and_hook_modules_are_ported(name):
+    assert f"repro_torch.{name}" in _modules()
+    assert (ROOT / "src" / "repro" / (name.replace(".", "/") + ".py")).exists()
+
+
 def test_runtime_root_loads_neither_jax_nor_repro():
+    names = ['repro_torch.' + n for n in RUNTIME_ROOT + CNN_AND_HOOKS]
     code = ("import importlib, sys\n"
-            f"for m in {['repro_torch.' + n for n in RUNTIME_ROOT]!r}:\n"
+            f"for m in {names!r}:\n"
             "    importlib.import_module(m)\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro'))\n"
@@ -120,8 +131,16 @@ def _session():
         slots={"default": SlotConfig(arch="deit-tiny")}))
 
 
+def _cnn():
+    build_model(get_reduced("mobilenetv2"))
+
+
+def _default_session():
+    edgeol_session(RuntimeConfig())
+
+
 @pytest.mark.parametrize("entry", [resolve_device, _build, _bridge, _etuner,
-                                   _session])
+                                   _session, _cnn, _default_session])
 def test_entry_points_raise_without_gpu(monkeypatch, entry):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):

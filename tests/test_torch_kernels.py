@@ -282,6 +282,44 @@ RAGGED = [(3152, 192, 192), (3153, 192, 192), (300, 200, 100),
           (97, 30, 50), (1000, 64, 1), (65, 1, 64)]
 
 
+def _example_route_gram(x: torch.Tensor, dk: int = 32) -> torch.Tensor:
+    """X X^T as `cka_terms.cu::gram_tile` sums it: each 32-feature chunk
+    an fp32 chain of FMAs (a float64 product and sum, rounded to fp32 each
+    step), the chunk sums added in order with Kahan compensation."""
+    n, d = x.shape
+    chunks = x.reshape(n, d // dk, dk)
+    part = torch.zeros(n, n, d // dk)
+    for c in range(dk):
+        part = (part.double() + chunks[:, None, :, c].double()
+                * chunks[None, :, :, c].double()).float()
+    acc, comp = torch.zeros(n, n), torch.zeros(n, n)
+    for k in range(d // dk):
+        y = part[..., k] - comp
+        t = acc + y
+        comp = (t - acc) - y
+        acc = t
+    return acc
+
+
+def test_example_route_sums_stay_accurate_at_cnn_widths():
+    """The example route at ResNet50's widest probe map (n = 16,
+    d = 262144): as one fp32 chain over d, its hsic was 1.15e-4 off the
+    plain version on the card, past the kernel tolerance; chunk sums with
+    Kahan compensation keep the terms within 1e-6 of float64."""
+    gen = torch.Generator().manual_seed(0)
+    x = torch.randn((16, 262144), generator=gen)
+    y = torch.randn((16, 262144), generator=gen) + 0.3 * x
+    x, y = x - x.mean(0), y - y.mean(0)
+
+    def terms(k, l):
+        return torch.stack([(k * l).sum(), (k * k).sum(), (l * l).sum()])
+
+    want = terms(x.double() @ x.double().T, y.double() @ y.double().T)
+    got = terms(_example_route_gram(x).double(),
+                _example_route_gram(y).double())
+    assert float(((got - want) / want).abs().max()) < 1e-6
+
+
 @pytest.mark.parametrize("n,dx,dy", RAGGED)
 def test_feature_plan_covers_the_gram_once(n, dx, dy):
     plan = cka_ops.feature_plan(n, dx, dy)

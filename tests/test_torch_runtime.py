@@ -412,18 +412,8 @@ def _tiny_bench():
 
 
 UNPORTED = {
-    "cnn": (dict(slots={"default": config.SlotConfig(arch="mobilenetv2")}),
-            "ROADMAP A.2"),
     "bert": (dict(slots={"default": config.SlotConfig(arch="bert-base")}),
              "ROADMAP A.2"),
-    "fake-quant": (dict(slots={"default": config.SlotConfig(
-        arch="deit-tiny", hooks=(config.HookSpec("fake-quant",
-                                                 {"bits": 8}),))}),
-        "ROADMAP A.4"),
-    "simsiam": (dict(slots={"default": config.SlotConfig(
-        arch="deit-tiny", hooks=(config.HookSpec("simsiam",
-                                                 {"fraction": 0.5}),))}),
-        "ROADMAP A.4"),
     "compiled": (dict(compiled=True), "ROADMAP A.6"),
     "workload": (dict(workload="mixed"), "ROADMAP queue A item 6"),
     "telemetry": (dict(telemetry=TelemetrySpec(enabled=True)),
@@ -461,9 +451,12 @@ def test_legacy_constructor_warns_and_resolves_like_from_config():
     assert isinstance(rt.controller, policies.PolicyStack)
     with warnings.catch_warnings():
         warnings.simplefilter("ignore", DeprecationWarning)
-        with pytest.raises(NotImplementedError, match="ROADMAP A.4"):
-            continual.ContinualRuntime(model, bench, None, device=CPU,
-                                       quant_bits=8)
+        rt = continual.ContinualRuntime(model, bench, None, device=CPU,
+                                        quant_bits=8, unlabeled_fraction=0.5)
+    assert [type(h) for h in rt.hooks] == [executor.FakeQuantHook,
+                                           executor.SimSiamHook]
+    assert rt.hooks[0].bits == 8 and rt.hooks[1].unlabeled_fraction == 0.5
+    assert rt.model.loss is not model.loss  # fake-quant wraps the model
 
 
 def test_injected_model_must_live_on_the_session_device():
