@@ -18,15 +18,19 @@ It imports nothing of JAX and nothing of the JAX package, and fails
    example route only, and against float64), with the route the wrapper
    took printed and held to its rule,
    including shapes on the route boundary, with a ragged last row split
-   and with the X/Y column boundary inside a tile; the feature route's
+   and with the X/Y column boundary inside a tile (`RAGGED`); the example
+   route at n on both sides of its 16-row tiles, dx != dy, dy = 1,
+   d % 4 != 0, rows that are not 16-byte aligned and raw inputs whose
+   columns carry offsets of 1e3-2e3 (which it centers itself where n <= 16)
+   (`EXAMPLE_SHAPES`); the feature route's
    3xTF32 products against float64 on inputs one TF32 product cannot hold;
    CKA(x, x) = 1; WKV6 under two decay draws, the model's init range and
    logw = -exp(U(-8, 2)) (where a factorization exp(c_t) exp(-c_s) from
    a chunk's start overflows), at the main shape, at T = 1, ragged T, T
    at and one past a boundary of the kernel's 8-token tiles, with s0, and
    at head sizes 16, 32 and 64; and two launches that agree bit for bit
-   for flash attention, both CKA routes and WKV6 (at 4 prompts and at
-   one);
+   for flash attention, both CKA routes (the example route also at
+   n = 16, d = 131072 and 262144) and WKV6 (at 4 prompts and at one);
 3. slice phase at full width: DeiT-tiny (`get_config("deit-tiny")`,
    224x224, 12 layers, d=192) with params from a seeded
    `torch.Generator`, serving every inference event of a
@@ -89,10 +93,15 @@ It imports nothing of JAX and nothing of the JAX package, and fails
    (`device_ms`, the card's own time), beside two bounds the card's
    published peaks set for the least work the function needs: on the
    fp32 CUDA cores, and as 3xTF32 on the tensor cores (`bound`); CKA
-   through both routes, and its example route at the CNN probe shapes
-   (one launch at MobileNetV2's stem map, n = 16, d = 131072, and a whole
-   MobileNetV2 probe pass of 19 launches) against the bound of each input
-   read once; for CKA also the feature form
+   through both routes, and its example route at the CNN probe shapes on
+   raw maps (`cnn_cka_timing`: one launch at MobileNetV2's stem map,
+   n = 16, d = 131072, and whole MobileNetV2 and ResNet50 probe passes of
+   19 and 17 launches) as its kernels, as the wrapper the loop calls and
+   as the plain version, eager and on the card, with the card's time in
+   each of its three passes (gram, fold, sum) from torch.profiler,
+   against the bound of each input read once, and one
+   `core.cka.cka(use_kernel=True)` call at the stem, which centers in
+   torch before the wrapper; for CKA also the feature form
    that `core/cka.py` takes without the kernel, for WKV6 also the chunked
    form at chunk 32 and, under torch.profiler, the card's time in each of
    its two passes (the decay pass and the scan); the DeiT-tiny
@@ -101,9 +110,10 @@ It imports nothing of JAX and nothing of the JAX package, and fails
 5. only with --profile: one more kernel run of each slice under
    torch.profiler (the DeiT-tiny slice, the ETuner loops on DeiT-tiny and
    MobileNetV2, one rwkv6-3b `generate`), for
-   the device's busy share of its wall time and the kernels that fill
-   it, one SDPA call at the flash main-path shape, for the name of
-   the kernel PyTorch runs there, and the cost of deterministic cuDNN:
+   the device's busy share of its wall time, the kernels that fill it
+   and the port's kernels' share of it, one SDPA call at the flash
+   main-path shape, for the name of the kernel PyTorch runs there, and
+   the cost of deterministic cuDNN:
    a full-width CNN train step with `resolve_device`'s deterministic
    algorithms and with cuDNN's default ones, in turns.
 
@@ -112,8 +122,9 @@ The last two lines are the kernels' JSON record and
 count of its newest path (CKA: the MobileNetV2 loop; flash attention: the
 DeiT-tiny loop; WKV6: rwkv6-3b serving), and `launches_by_path` has every
 path's count. CKA's times there are those of that path, a launch's mean
-over a MobileNetV2 probe pass; its DeiT-tiny feature-route numbers are
-under `feature_route`.
+over a MobileNetV2 probe pass (with the pass, the stem launch and
+ResNet50's pass in full); its DeiT-tiny feature-route numbers are under
+`feature_route`.
 """
 from __future__ import annotations
 
@@ -134,6 +145,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch import tree_leaves, tree_map  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.core.cka import cka as core_cka  # noqa: E402
 from repro_torch.core.cka import cka_feature_form  # noqa: E402
 from repro_torch.core.freeze_plan import LayerFreezePlan  # noqa: E402
 from repro_torch.core.policies import etuner_stack_spec  # noqa: E402
@@ -177,8 +189,12 @@ MARGIN = 6e-2
 KERNELS = ("flash_attention", "cka_terms", "wkv6")
 # the CUDA kernels of those sources, as the profiler names them
 PORT_KERNELS = ("flash_fwd_kernel", "cka_gram_kernel", "cka_fold_kernel",
-                "cka_sum_kernel", "cka_tiles_kernel", "wkv6_decay_kernel",
+                "cka_sum_kernel", "cka_example_gram_kernel",
+                "cka_example_fold_kernel", "wkv6_decay_kernel",
                 "wkv6_scan_kernel")
+# the passes of one CKA example-route launch, as the profiler names them
+EXAMPLE_PASSES = ("cka_example_gram_kernel", "cka_example_fold_kernel",
+                  "cka_sum_kernel")
 # published peaks of one H100 SXM (NVIDIA data sheet): fp32 on the CUDA
 # cores, dense TF32 on the tensor cores and HBM3 bandwidth
 PEAK_FP32_FLOPS = 67e12
@@ -201,6 +217,20 @@ INFER_BATCH = 16
 # stem map at 128x128 is 64*64*32 = 131072
 CNN_PROBE = 16
 MBV2_STEM_D = 64 * 64 * 32
+# CKA shapes through both routes: ragged row splits and column tiles, the
+# route boundary, the X/Y boundary inside a tile
+RAGGED = ((200, 300, 300), (520, 192, 192), (100, 1000, 1000),
+          (300, 192, 100),
+          (192, 192, 192),   # n = d: the example route
+          (384, 192, 192),   # n = dx + dy: the feature route
+          (3153, 192, 192),  # a ragged last row split
+          (300, 200, 100))   # dx + dy = n; X/Y boundary in a tile
+# the example route around its 16-row tiles and 16-byte loads: n at and
+# past a tile, dx != dy, dy = 1, d % 4 != 0
+EXAMPLE_SHAPES = ((1, 2560, 2560), (13, 2560, 2560), (16, 2560, 2560),
+                  (17, 2560, 2560), (40, 2560, 2560), (64, 2560, 2560),
+                  (65, 2560, 2560), (16, 4096, 2560), (40, 1000, 300),
+                  (16, 5000, 1), (16, 131071, 131071), (17, 999, 1001))
 
 
 def card_line(query: str = "name,power.limit") -> str:
@@ -240,22 +270,41 @@ def check_attention(gen, B, S, Hq, Hkv, hd, *, causal=False, window=0,
     return err
 
 
-def _cka_inputs(gen, n, dx, dy):
+def _cka_inputs(gen, n, dx, dy, offset=0.0):
+    """X [n, dx], Y [n, dy] on the card, Y correlated with X; `offset`
+    times U(1, 2) added to every column (raw, uncentered maps)."""
     x = torch.randn((n, dx), generator=gen)
     y = 0.3 * x[:, :dy] if dy <= dx else torch.zeros((n, dy))
     y = y + torch.randn((n, dy), generator=gen)
+    if offset:
+        x = x + offset * (1 + torch.rand(dx, generator=gen))
+        y = y + offset * (1 + torch.rand(dy, generator=gen))
     return x.cuda(), y.cuda()
+
+
+def _misaligned(t: torch.Tensor) -> torch.Tensor:
+    """t's values in a contiguous tensor 4 bytes past a 16-byte boundary,
+    which the example route reads with scalar loads."""
+    buf = torch.empty(t.numel() + 1, device=t.device)
+    out = buf[1:1 + t.numel()].view(t.shape)
+    out.copy_(t)
+    return out
 
 
 CKA_ROUTES = {"feature": cka_ops._launch_feature,
               "example": cka_ops._launch_example}
 
 
-def check_cka(gen, n, dx, dy, routes=tuple(CKA_ROUTES)) -> float:
+def check_cka(gen, n, dx, dy, routes=tuple(CKA_ROUTES), offset=0.0,
+              aligned=True) -> float:
     """The wrapper, which must take the route of its rule, and `routes`
-    called directly, against the plain version; returns the wrapper's
-    max_abs_err."""
-    x, y = _cka_inputs(gen, n, dx, dy)
+    called directly (the example route on the raw inputs, which it
+    centers itself, the feature route on centered ones), against the plain
+    version; returns the wrapper's max_abs_err. `offset` and `aligned` as
+    `_cka_inputs` and `_misaligned` make the inputs."""
+    x, y = _cka_inputs(gen, n, dx, dy, offset)
+    if not aligned:
+        x, y = _misaligned(x), _misaligned(y)
     before = dict(cka_ops.cka_terms.route_launches)
     got = torch.stack(cka_ops.cka_terms(x, y))
     took = [r for r, c in cka_ops.cka_terms.route_launches.items()
@@ -268,15 +317,18 @@ def check_cka(gen, n, dx, dy, routes=tuple(CKA_ROUTES)) -> float:
     hsic, kk, ll = cka_ops.cka_terms_plain(xc, yc)
     want = torch.stack([hsic, kk.sqrt(), ll.sqrt()])
     errs = {}
-    for name, out in (("wrapper", got),
-                      *((r, _terms(CKA_ROUTES[r], xc, yc)) for r in routes)):
+    for name, out in (("wrapper", got), *(
+            (r, _terms(CKA_ROUTES[r], *((x, y) if r == "example"
+                                        else (xc, yc)))) for r in routes)):
         torch.cuda.synchronize()
         torch.testing.assert_close(out, want, rtol=CKA_RTOL, atol=0.0)
         errs[name] = float(((out - want).abs() / want.abs()).max())
     k64, l64 = xc.double() @ xc.double().T, yc.double() @ yc.double().T
     exact = torch.stack([(k64 * l64).sum(), (k64 * k64).sum().sqrt(),
                          (l64 * l64).sum().sqrt()])
-    print(f"  cka n{n} dx{dx} dy{dy}: {route} route; max_rel_err "
+    how = (f" offset {offset:g}" if offset else "") + \
+        ("" if aligned else " misaligned")
+    print(f"  cka n{n} dx{dx} dy{dy}{how}: {route} route; max_rel_err "
           f"{errs['wrapper']:.3g} ("
           + ", ".join(f"{r} form {errs[r]:.3g}" for r in routes)
           + f"); against float64: wrapper {_rel_err(got, exact):.3g}, plain "
@@ -404,12 +456,7 @@ def kernel_phase():
     print("  flash: two launches agree bit for bit")
 
     cka_err = check_cka(gen, *MAIN_CKA, MAIN_CKA[1])  # main path
-    for n, dx, dy in ((200, 300, 300), (520, 192, 192), (100, 1000, 1000),
-                      (300, 192, 100),
-                      (192, 192, 192),   # n = d: the example route
-                      (384, 192, 192),   # n = dx + dy: the feature route
-                      (3153, 192, 192),  # a ragged last row split
-                      (300, 200, 100)):  # dx + dy = n; X/Y boundary in a tile
+    for n, dx, dy in RAGGED:
         check_cka(gen, n, dx, dy)
     x, _ = _cka_inputs(gen, 520, 192, 192)
     one = float(cka_ops.cka(x, x))
@@ -433,15 +480,21 @@ def kernel_phase():
                     | {max(probe_dims(get_config("resnet50")))}):
         cnn_err = max(cnn_err, check_cka(gen, CNN_PROBE, d, d,
                                          routes=("example",)))
-    a, b = (cka_ops._prepare(t) for t in _cka_inputs(gen, CNN_PROBE,
-                                                      MBV2_STEM_D,
-                                                      MBV2_STEM_D))
-    if not torch.equal(_terms(cka_ops._launch_example, a, b),
-                       _terms(cka_ops._launch_example, a, b)):
-        raise AssertionError("two CKA example-form launches differ at the "
-                             "MobileNetV2 stem shape")
-    print(f"  cka example route at n{CNN_PROBE} d{MBV2_STEM_D}: two launches "
-          f"agree bit for bit")
+    # the example route's edges: row tiles, loads, raw inputs it centers
+    for n, dx, dy in EXAMPLE_SHAPES:
+        check_cka(gen, n, dx, dy, routes=("example",))
+    for n, d in ((16, 4096), (13, 131072)):
+        check_cka(gen, n, d, d, routes=("example",), aligned=False)
+    for n, d in ((16, MBV2_STEM_D), (13, 2560), (40, 2560)):
+        check_cka(gen, n, d, d, routes=("example",), offset=1e3)
+    for d in (MBV2_STEM_D, 2 * MBV2_STEM_D):
+        a, b = _cka_inputs(gen, CNN_PROBE, d, d, offset=1e3)
+        if not torch.equal(_terms(cka_ops._launch_example, a, b),
+                           _terms(cka_ops._launch_example, a, b)):
+            raise AssertionError(f"two CKA example-form launches differ at "
+                                 f"n{CNN_PROBE} d{d}")
+    print(f"  cka example route at n{CNN_PROBE} d{MBV2_STEM_D} and "
+          f"d{2 * MBV2_STEM_D} (raw inputs): two launches agree bit for bit")
 
     wkv_err = 0.0
     for draw in ("init", "wide"):
@@ -1308,8 +1361,9 @@ def timing_phase():
     flops = 2.0 * n * (d * d + d * (d + 1))
     nbytes = 4.0 * n * (d + d) + 4 * 3
     cka.update(bound(flops, nbytes, tensor_cores=True))
-    # the example route tiles the upper triangle of both n x n Grams
-    design = bound(2.0 * (d + d) * n * (n + 1) / 2, nbytes)
+    # the example route: the upper triangle of both n x n Grams, 3xTF32
+    design = bound(2.0 * (d + d) * n * (n + 1) / 2, nbytes,
+                   tensor_cores=True)
     feature_ms = time_ms(lambda: cka_feature_form(xc, yc, use_kernel=False))
     print("  eager: CUDA events around 50 eager calls (ms; the host's time "
           "where launching is slower than the card); device: CUDA graphs "
@@ -1323,10 +1377,11 @@ def timing_phase():
               f"{t['bound_kind']}; on the fp32 CUDA cores "
               f"{t['bound_fp32_ms']:.4f} ms)")
     print(f"  cka_terms: the example route {cka['example_route_ms']:.4f} ms "
-          f"(device {cka['example_route_device_ms']:.4f}; its design's own "
-          f"limit {design['bound_ms']:.4f} ms, {design['bound_by']}, fp32 "
-          f"CUDA cores); the plain feature form that core/cka.py takes "
-          f"without the kernel {feature_ms:.4f} ms")
+          f"(device {cka['example_route_device_ms']:.4f}, the torch "
+          f"centering of its {-(-n // cka_ops.EXAMPLE_ROWS)} row tiles "
+          f"included; its design's own limit {design['bound_ms']:.4f} ms, "
+          f"{design['bound_by']}, 3xTF32); the plain feature form that "
+          f"core/cka.py takes without the kernel {feature_ms:.4f} ms")
 
     cka["cnn"] = cnn_cka_timing(gen)
 
@@ -1363,41 +1418,71 @@ def timing_phase():
 
 
 def cnn_cka_timing(gen) -> dict:
-    """CKA's example route at the CNN probe shapes: one launch at
-    MobileNetV2's stem map (n = 16, d = 131072) and a whole full-width
-    MobileNetV2 probe pass (one launch a map), each against its plain
-    version, beside the bound of the least work (`example_bound`)."""
-    dims = probe_dims(get_config("mobilenetv2"))
-    pairs = [tuple(cka_ops._prepare(t) for t in _cka_inputs(gen, CNN_PROBE,
-                                                             d, d))
-             for d in dims]
-    stem = pairs[dims.index(MBV2_STEM_D)]
+    """CKA's example route at the CNN probe shapes, on raw (uncentered)
+    maps: one launch at MobileNetV2's stem map (n = 16, d = 131072) and a
+    whole full-width probe pass of MobileNetV2 and of ResNet50 (one
+    launch a map). Each is timed as the kernels (`_launch_example`), as
+    the wrapper the loop calls (`cka_terms`: the same launch, two square
+    roots and its checks) and as the plain version of the same function
+    (`_prepare`, then `cka_terms_plain`), eager (`ms`) and on the card
+    (`device_ms`), beside the bound of the least work (`example_bound`),
+    with the card's time in each of the route's three passes under
+    torch.profiler. At the stem also one `core.cka.cka(use_kernel=True)`
+    call, which centers the maps in torch before the wrapper."""
+    out = {}
+    for arch in ("mobilenetv2", "resnet50"):
+        dims = probe_dims(get_config(arch))
+        maps = [_cka_inputs(gen, CNN_PROBE, d, d) for d in dims]
+        runs = {"": cka_ops._launch_example, "wrapper_": cka_ops.cka_terms,
+                "plain_": lambda x, y: cka_ops.cka_terms_plain(
+                    cka_ops._prepare(x), cka_ops._prepare(y))}
+        whole = dict(example_bound(dims), launches=len(dims))
+        for key, run in runs.items():
+            def one_pass(run=run):
+                for x, y in maps:
+                    run(x, y)
+            whole[f"{key}ms"] = time_ms(one_pass, iters=10, warmup=2)
+            whole[f"{key}device_ms"] = device_ms(one_pass, calls=2,
+                                                 replays=5)
+        whole["device_ms_by_pass"] = pass_device_ms(
+            lambda: [cka_ops._launch_example(x, y) for x, y in maps],
+            EXAMPLE_PASSES, calls=5)
+        out[arch] = whole
+        report_cnn_cka(f"a {arch} probe pass ({len(dims)} launches, d "
+                       f"{min(dims)}-{max(dims)}, {sum(dims)} in all)", whole)
+    stem = _cka_inputs(gen, CNN_PROBE, MBV2_STEM_D, MBV2_STEM_D)
+    one = dict(example_bound([MBV2_STEM_D]), launches=1)
+    for key, run in {"": lambda: cka_ops._launch_example(*stem),
+                     "wrapper_": lambda: cka_ops.cka_terms(*stem),
+                     "plain_": lambda: cka_ops.cka_terms_plain(
+                         *(cka_ops._prepare(t) for t in stem)),
+                     "core_cka_": lambda: core_cka(*stem, use_kernel=True)
+                     }.items():
+        one[f"{key}ms"] = time_ms(run)
+        one[f"{key}device_ms"] = device_ms(run)
+    one["device_ms_by_pass"] = pass_device_ms(
+        lambda: cka_ops._launch_example(*stem), EXAMPLE_PASSES, calls=20)
+    report_cnn_cka(f"one launch at n{CNN_PROBE} d{MBV2_STEM_D} (the "
+                   f"MobileNetV2 stem)", one)
+    print(f"  core.cka.cka(use_kernel=True) at the stem, which centers in "
+          f"torch first: {one['core_cka_ms']:.4f} ms (device "
+          f"{one['core_cka_device_ms']:.4f}) against the wrapper's "
+          f"{one['wrapper_ms']:.4f} (device {one['wrapper_device_ms']:.4f})")
+    return {"stem": one, "pass": out["mobilenetv2"],
+            "resnet50_pass": out["resnet50"]}
 
-    def launch_pass():
-        for x, y in pairs:
-            cka_ops._launch_example(x, y)
 
-    def plain_pass():
-        for x, y in pairs:
-            cka_ops.cka_terms_plain(x, y)
-
-    one = {"ms": time_ms(lambda: cka_ops._launch_example(*stem)),
-           "device_ms": device_ms(lambda: cka_ops._launch_example(*stem)),
-           "plain_ms": time_ms(lambda: cka_ops.cka_terms_plain(*stem)),
-           **example_bound([MBV2_STEM_D])}
-    whole = {"ms": time_ms(launch_pass, iters=10, warmup=2),
-             "device_ms": device_ms(launch_pass, calls=2, replays=5),
-             "plain_ms": time_ms(plain_pass, iters=10, warmup=2),
-             **example_bound(dims)}
-    for name, t in ((f"one launch at n{CNN_PROBE} d{MBV2_STEM_D} (the "
-                     f"MobileNetV2 stem)", one),
-                    (f"a MobileNetV2 probe pass ({len(dims)} launches, d "
-                     f"{min(dims)}-{max(dims)}, {sum(dims)} in all)", whole)):
-        print(f"  cka_terms example route, {name}: kernel {t['ms']:.4f} ms "
-              f"(device {t['device_ms']:.4f}), plain {t['plain_ms']:.4f} ms, "
-              f"bound {t['bound_ms']:.5f} ms ({t['bound_by']}; "
-              f"{t['device_ms'] / t['bound_ms']:.0f}x the bound)")
-    return {"stem": one, "pass": whole, "launches_per_pass": len(dims)}
+def report_cnn_cka(name, t) -> None:
+    by_pass = ", ".join(f"{k} {v:.4f}" for k, v in
+                        t["device_ms_by_pass"].items()) or \
+        "not measured (the profiler saw no device time)"
+    print(f"  cka_terms example route, {name}: kernels {t['ms']:.4f} ms "
+          f"(device {t['device_ms']:.4f}), wrapper {t['wrapper_ms']:.4f} "
+          f"(device {t['wrapper_device_ms']:.4f}), plain {t['plain_ms']:.4f} "
+          f"(device {t['plain_device_ms']:.4f}), bound {t['bound_ms']:.5f} ms "
+          f"({t['bound_by']}; device {t['device_ms'] / t['bound_ms']:.2f}x "
+          f"the bound); device ms by pass (torch.profiler, summed over a "
+          f"call's launches): {by_pass}")
 
 
 def cudnn_deterministic_cost() -> dict:
@@ -1461,18 +1546,19 @@ def example_bound(dims) -> dict:
     dims `dims` (one X and one Y of d columns each): each input read once,
     three floats written a launch, against the example form's products,
     the upper triangles of XX^T and YY^T (2d n(n+1)/2 FMAs each) and their
-    n(n+1)/2 entry products, on the fp32 CUDA cores."""
+    n(n+1)/2 entry products, as 3xTF32 as the kernel takes them."""
     n = CNN_PROBE
     tri = n * (n + 1) / 2
     flops = sum(2 * 2.0 * d * tri + 3 * 2 * tri for d in dims)
     nbytes = sum(4.0 * n * 2 * d + 4 * 3 for d in dims)
-    return bound(flops, nbytes)
+    return bound(flops, nbytes, tensor_cores=True)
 
 
 def pass_device_ms(run, names, calls: int) -> dict:
-    """The card's mean time a call in each of the kernels `names`, over
-    `calls` calls of `run` under torch.profiler; a kernel the profiler
-    records no device time for is left out."""
+    """The card's mean time a call in each of the kernels `names` (every
+    kernel whose name holds it, summed), over `calls` calls of `run` under
+    torch.profiler; a kernel the profiler records no device time for is
+    left out."""
     from torch.profiler import ProfilerActivity, profile
 
     run()
@@ -1557,6 +1643,13 @@ def report_profile(name, run) -> None:
     print(f"  {name} under the profiler: wall {wall:.3f} s, device busy "
           f"{busy_us / 1e6:.4f} s ({100 * busy_us / 1e6 / wall:.1f}% of "
           f"wall), {sum(r[2] for r in rows)} device kernels and copies")
+    ours = {k: sum(r[0] for r in rows if k in r[1]) for k in PORT_KERNELS}
+    ours = {k: us for k, us in ours.items() if us}
+    if ours:
+        print(f"    the port's kernels: {sum(ours.values()) / 1e3:.3f} ms, "
+              f"{100 * sum(ours.values()) / busy_us:.2f}% of device time ("
+              + ", ".join(f"{k} {100 * us / busy_us:.2f}%"
+                          for k, us in ours.items()) + ")")
     # the top rows, and the port's own kernels wherever they rank
     for rank, (us, key, count) in enumerate(rows):
         if rank < 8 or any(k in key for k in PORT_KERNELS):
@@ -1566,15 +1659,17 @@ def report_profile(name, run) -> None:
 
 
 def cka_record(cka) -> dict:
-    """The CKA kernel's record on the MobileNetV2 loop, whose probes this
-    slice puts on the example route: a launch's mean over one full-width
-    probe pass (`pass` holds the pass, `stem` its largest launch)."""
+    """The CKA kernel's record on the MobileNetV2 loop, whose probes take
+    the example route: a launch's mean over one full-width probe pass
+    (`pass` holds the pass, `stem` its largest launch, `resnet50_pass`
+    ResNet50's pass)."""
     cnn = cka["cnn"]
-    whole, k = cnn["pass"], cnn["launches_per_pass"]
+    whole, k = cnn["pass"], cnn["pass"]["launches"]
     return {"ms": whole["ms"] / k, "device_ms": whole["device_ms"] / k,
             "plain_ms": whole["plain_ms"] / k, "library_ms": None,
             "bound_ms": whole["bound_ms"] / k, "bound_by": whole["bound_by"],
-            "pass": whole, "stem": cnn["stem"]}
+            "pass": whole, "stem": cnn["stem"],
+            "resnet50_pass": cnn["resnet50_pass"]}
 
 
 def bound(flops: float, nbytes: float, tensor_cores: bool = False) -> dict:

@@ -37,17 +37,49 @@
 // fixed order. The splits and the tile
 // count depend on the shape only (kernels/cka/ops.py::feature_plan).
 //
-// Example form (cka_tiles_kernel, cka_sum_kernel), for n < dx + dy: tiles
-// of the two n x n Grams, never written to memory, fp32 FMAs on the CUDA
-// cores. Each block owns one 64x64 tile pair (i <= j) of the upper
-// triangle, loops over the feature dim in 32-wide chunks staged in shared
-// memory and accumulates its K_ij = X_i X_j^T and L_ij = Y_i Y_j^T tiles
-// in registers (a 4x4 register tile per thread), chunk by chunk with
-// Kahan-compensated sums of the chunks (`gram_tile`). From the two tiles it
-// reduces sum K*L, sum K^2 and sum L^2 with warp shuffles and a fixed
-// order across warps, counts an off-diagonal tile twice (K_ji = K_ij^T),
-// and writes three partials for cka_sum_kernel. Rows past n and features
-// past d are loaded as zeros, which leave every Gram entry unchanged.
+// Example form (cka_example_gram_kernel, cka_example_fold_kernel,
+// cka_sum_kernel), for n < dx + dy: the two n x n Grams K = X X^T and
+// L = Y Y^T, never whole in memory. It replaces a first design of one
+// block per 64 x 64 tile pair that walked all of d alone: at a CNN probe
+// (n = 16) one block for the whole card, 48 of its 64 rows empty, 17 ms
+// at d = 131072 on an H100. What bounds it: bytes. At n = 16, d = 131072
+// the inputs are 16.8 MB, 5.0 us at 3.35 TB/s; the products are 134
+// MFLOP, 0.8 us as 3xTF32. So the design spreads the reading over every
+// SM and keeps each byte read once:
+// - Split over features first (kernels/cka/ops.py::example_plan): a block
+//   is one tile pair (i <= j) of 16-row tiles and one range of `width`
+//   features, enough ranges for ~2 blocks an SM at d = 131072, fewer
+//   where d is small. At n <= 16 one tile pair is the whole Gram: no row
+//   is wasted.
+// - A warp takes 32-feature steps of the block's range in turn. A lane
+//   (g, t) reads rows g and g + 8 of its tile, features 4t..4t+3 and
+//   16+4t..16+4t+3 of the step: 16-byte loads (d % 4 == 0 and 16-byte
+//   aligned rows), four lanes on 64 contiguous bytes of a row, else scalar
+//   loads. Every load of a step is issued before its products, and eight
+//   warps a block keep enough bytes in flight; nothing is staged.
+// - Those registers are an m16n8k8 A fragment as they stand (k runs over
+//   the step's features in any order, so feature 4t+c is column t and
+//   16+4t+c column t+4 of the c-th product), and since B = X_j^T, B's
+//   fragments are the same registers of tile j: for i = j, A's own. The
+//   products are 3xTF32 mma.sync (tf32x3.cuh), fp32-accurate; fp32 FMAs
+//   would need the 16 x 16 entries spread over threads and the operands
+//   through shared memory. Each warp keeps a 16 x 16 K and L partial, 16
+//   registers, adding each product to it in fp32 (`gram_step`); the warps
+//   add theirs in shared memory in warp order and the block writes one K
+//   and one L tile to scratch.
+// - Centering fused: where the plan has one row tile (n <= 16, every CNN
+//   probe), the kernel takes the raw rows and centers each column before
+//   the products: the n values summed in a fixed order (rows g and g + 8,
+//   then lanes g ^ 4, g ^ 2, g ^ 1 by shuffles), divided by n,
+//   subtracted; rows past n stay zero. With more tiles the wrapper centers
+//   in torch first.
+// - cka_example_fold_kernel sums each entry of K and L over the splits in
+//   double, in a fixed order (8 warps a block take every 8th split, then
+//   warp order), and only then forms K*L, K^2 and L^2, weighting an
+//   off-diagonal tile pair 2 (its mirror is not computed);
+//   cka_sum_kernel reduces the blocks' terms in double.
+// Rows past n and features past d are loaded as zeros, which leave every
+// Gram entry unchanged.
 //
 // Neither route uses float atomics, so two launches on the same inputs
 // agree bit for bit and a freeze decision replays exactly.
@@ -60,14 +92,10 @@
 
 namespace {
 
-constexpr int TILE = 64;      // examples per tile side
-constexpr int DK = 32;        // features staged per step
-constexpr int LD = DK + 1;    // padded pitch: conflict-free column reads
-constexpr int THREADS = 256;  // 16 x 16, a 4x4 register tile each
 constexpr int SUM_THREADS = 256;
 
 // tile pair (i, j), i <= j, of block p, row-major over the upper
-// triangle of tiles x tiles (kernels/cka/ops.py::FeaturePlan.pair)
+// triangle of tiles x tiles (kernels/cka/ops.py::_tile_pair)
 __device__ void tile_pair(int p, int tiles, int& i, int& j) {
   i = 0;
   while (p >= tiles - i) {
@@ -77,67 +105,6 @@ __device__ void tile_pair(int p, int tiles, int& i, int& j) {
   j = i + p;
 }
 
-__device__ void stage(float* __restrict__ dst, const float* __restrict__ src,
-                      int row0, int n, int d, int c0) {
-  for (int i = threadIdx.x; i < TILE * DK; i += THREADS) {
-    const int r = i / DK, c = i % DK;
-    const int gr = row0 + r, gc = c0 + c;
-    dst[r * LD + c] = (gr < n && gc < d)
-                          ? src[static_cast<long long>(gr) * d + gc] : 0.f;
-  }
-}
-
-// acc[r][s] = sum_c src[i0 + 4*ty + r][c] * src[j0 + tx + 16*s][c]
-//
-// Each staged chunk of DK features is summed on its own, and the chunk
-// sums are added with Kahan compensation. One fp32 chain over all d
-// features loses accuracy as d grows: at n = 16, d = 262144 (ResNet50's
-// first stage at 128x128) its hsic was 1.15e-4 off the plain version,
-// past the 1e-4 tolerance.
-__device__ void gram_tile(float (&acc)[4][4], const float* __restrict__ src,
-                          int n, int d, int i0, int j0, float* As,
-                          float* Bs) {
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-  float comp[4][4];
-#pragma unroll
-  for (int r = 0; r < 4; ++r)
-#pragma unroll
-    for (int s = 0; s < 4; ++s) acc[r][s] = comp[r][s] = 0.f;
-  for (int c0 = 0; c0 < d; c0 += DK) {
-    __syncthreads();  // the previous chunk is no longer read
-    stage(As, src, i0, n, d, c0);
-    stage(Bs, src, j0, n, d, c0);
-    __syncthreads();
-    float part[4][4];
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-#pragma unroll
-      for (int s = 0; s < 4; ++s) part[r][s] = 0.f;
-#pragma unroll 8
-    for (int c = 0; c < DK; ++c) {
-      float a[4], b[4];
-#pragma unroll
-      for (int r = 0; r < 4; ++r) a[r] = As[(4 * ty + r) * LD + c];
-#pragma unroll
-      for (int s = 0; s < 4; ++s) b[s] = Bs[(tx + 16 * s) * LD + c];
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int s = 0; s < 4; ++s)
-          part[r][s] = fmaf(a[r], b[s], part[r][s]);
-    }
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-#pragma unroll
-      for (int s = 0; s < 4; ++s) {  // Kahan: acc += part
-        const float y = part[r][s] - comp[r][s];
-        const float t = acc[r][s] + y;
-        comp[r][s] = (t - acc[r][s]) - y;
-        acc[r][s] = t;
-      }
-  }
-}
-
 __device__ float warp_sum(float x) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1)
@@ -145,56 +112,18 @@ __device__ float warp_sum(float x) {
   return x;
 }
 
-__global__ void __launch_bounds__(THREADS)
-cka_tiles_kernel(const float* __restrict__ x, const float* __restrict__ y,
-                 int n, int dx, int dy, int tiles,
-                 float* __restrict__ partials) {
-  __shared__ float As[TILE * LD];
-  __shared__ float Bs[TILE * LD];
-  __shared__ float red[3][THREADS / 32];
-
-  int i, j;
-  tile_pair(blockIdx.x, tiles, i, j);
-
-  float K[4][4], L[4][4];
-  gram_tile(K, x, n, dx, i * TILE, j * TILE, As, Bs);
-  gram_tile(L, y, n, dy, i * TILE, j * TILE, As, Bs);
-
-  float kl = 0.f, kk = 0.f, ll = 0.f;
+__device__ double warp_sum(double x) {
 #pragma unroll
-  for (int r = 0; r < 4; ++r)
-#pragma unroll
-    for (int s = 0; s < 4; ++s) {
-      kl = fmaf(K[r][s], L[r][s], kl);
-      kk = fmaf(K[r][s], K[r][s], kk);
-      ll = fmaf(L[r][s], L[r][s], ll);
-    }
-  kl = warp_sum(kl);
-  kk = warp_sum(kk);
-  ll = warp_sum(ll);
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  if (lane == 0) {
-    red[0][warp] = kl;
-    red[1][warp] = kk;
-    red[2][warp] = ll;
-  }
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    float a = 0.f, b = 0.f, c = 0.f;
-    for (int w = 0; w < THREADS / 32; ++w) {
-      a += red[0][w];
-      b += red[1][w];
-      c += red[2][w];
-    }
-    const float weight = i == j ? 1.f : 2.f;
-    partials[3 * blockIdx.x + 0] = weight * a;
-    partials[3 * blockIdx.x + 1] = weight * b;
-    partials[3 * blockIdx.x + 2] = weight * c;
-  }
+  for (int off = 16; off > 0; off >>= 1)
+    x += __shfl_xor_sync(0xffffffffu, x, off);
+  return x;
 }
 
+// (hsic, kk, ll) of `count` blocks' partials, summed in double in a fixed
+// order
+template <typename T>
 __global__ void __launch_bounds__(SUM_THREADS)
-cka_sum_kernel(const float* __restrict__ partials, int count,
+cka_sum_kernel(const T* __restrict__ partials, int count,
                float* __restrict__ out) {
   __shared__ double buf[3][SUM_THREADS];
   double a = 0.0, b = 0.0, c = 0.0;
@@ -219,6 +148,203 @@ cka_sum_kernel(const float* __restrict__ partials, int count,
     out[0] = static_cast<float>(buf[0][0]);
     out[1] = static_cast<float>(buf[1][0]);
     out[2] = static_cast<float>(buf[2][0]);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// example form
+
+constexpr int ER = 16;           // rows of a row tile (ops.py EXAMPLE_ROWS)
+constexpr int EE = ER * ER;      // entries of a K or L tile
+constexpr int ESTEP = 32;        // features of a warp's step (EXAMPLE_STEP)
+constexpr int EWARPS = 8;        // warps of a gram block (EXAMPLE_WARPS)
+constexpr int EFOLD_PARTS = 8;   // fold blocks a pair (EXAMPLE_FOLD_PARTS)
+constexpr int EFOLD_WARPS = 8;   // split groups of a fold block
+static_assert(EFOLD_PARTS * 32 == EE, "a fold block takes 32 entries");
+
+// A lane's values of one step: v[e][c] = M[row0 + g + 8(e & 1)]
+// [f + 4t + 16(e >> 1) + c], zero past row n and past column d. For each
+// c, v[0..3][c] is the A fragment (a0..a3) of the step's c-th product.
+template <bool VEC>
+__device__ __forceinline__ void load_step(float (&v)[4][4],
+                                          const float* __restrict__ m,
+                                          int row0, int n, int d, int f) {
+  const int g = tf32x3::lane_g(), t = tf32x3::lane_t();
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const int r = row0 + g + 8 * (e & 1);
+    const int c0 = f + 4 * t + 16 * (e >> 1);
+    const float* src = m + static_cast<long long>(r) * d + c0;
+    if (VEC) {  // d % 4 == 0: a group of 4 is all in or all out
+      float4 q = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (r < n && c0 < d) q = __ldg(reinterpret_cast<const float4*>(src));
+      v[e][0] = q.x;
+      v[e][1] = q.y;
+      v[e][2] = q.z;
+      v[e][3] = q.w;
+    } else {
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        v[e][c] = r < n && c0 + c < d ? __ldg(src + c) : 0.f;
+    }
+  }
+}
+
+// Center the step's columns of a one-tile plan (rows 0..15, n <= 16): each
+// column's n values summed in a fixed order (rows g and g + 8 in a lane,
+// then the lanes g ^ 4, g ^ 2, g ^ 1, which every lane adds in the same
+// order up to commutation, so all hold the same sum), divided by n and
+// subtracted; rows past n stay zero.
+__device__ __forceinline__ void center_step(float (&v)[4][4], int n) {
+  const int g = tf32x3::lane_g();
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      float s = v[2 * h][c] + v[2 * h + 1][c];
+      s += __shfl_xor_sync(0xffffffffu, s, 16);
+      s += __shfl_xor_sync(0xffffffffu, s, 8);
+      s += __shfl_xor_sync(0xffffffffu, s, 4);
+      const float mean = s / static_cast<float>(n);
+      v[2 * h][c] = g < n ? v[2 * h][c] - mean : 0.f;
+      v[2 * h + 1][c] = g + 8 < n ? v[2 * h + 1][c] - mean : 0.f;
+    }
+}
+
+// acc[nt] += A B over one step: A the rows of tile i (`a`), B = tile j's
+// rows transposed (`b`, the same array for i = j), as four 3xTF32
+// m16n8k8 products; B's fragment of n-tile nt is (b[nt][c], b[nt + 2][c]).
+// Each product starts from zero and is added to acc by an fp32 add, which
+// rounds to nearest: the tensor cores' own accumulation truncates, and
+// chained over a warp's steps it drifts below the sum (2.2e-6 of float64
+// at n = 16, d = 262144 on an H100, where the plain version is 7.8e-8
+// off), so each truncation stays within one product's 8 features.
+__device__ __forceinline__ void gram_step(float (&acc)[2][4],
+                                          const float (&a)[4][4],
+                                          const float (&b)[4][4]) {
+  using namespace tf32x3;
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    uint32_t abig[4], asmall[4], bbig[4], bsmall[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      split(a[e][c], abig[e], asmall[e]);
+      split(b[e][c], bbig[e], bsmall[e]);
+    }
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt) {
+      const uint32_t bb[2] = {bbig[nt], bbig[nt + 2]};
+      const uint32_t bs[2] = {bsmall[nt], bsmall[nt + 2]};
+      float part[4] = {0.f, 0.f, 0.f, 0.f};
+      mma3(part, abig, asmall, bb, bs);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[nt][e] += part[e];
+    }
+  }
+}
+
+// gram[b] for block b = pair * splits + split: the block's K_ij and L_ij
+// partials over its features, 16 x 16 row-major each (K, then L)
+template <bool VEC, bool CENTER>
+__global__ void __launch_bounds__(32 * EWARPS, 2)
+cka_example_gram_kernel(const float* __restrict__ x,
+                        const float* __restrict__ y, int n, int dx, int dy,
+                        int tiles, int splits, int width,
+                        float* __restrict__ gram) {
+  __shared__ float red[EWARPS][2 * EE];
+  const int pair = blockIdx.x / splits, split = blockIdx.x % splits;
+  int i, j;
+  tile_pair(pair, tiles, i, j);
+  const int warp = threadIdx.x / 32;
+  const int f0 = split * width;
+  const int steps = (min(width, max(dx, dy) - f0) + ESTEP - 1) / ESTEP;
+
+  float K[2][4], L[2][4];
+#pragma unroll
+  for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) K[nt][e] = L[nt][e] = 0.f;
+
+#pragma unroll 2
+  for (int k = warp; k < steps; k += EWARPS) {
+    const int f = f0 + k * ESTEP;
+    float xi[4][4], yi[4][4];
+    load_step<VEC>(xi, x, i * ER, n, dx, f);
+    load_step<VEC>(yi, y, i * ER, n, dy, f);
+    if (i == j) {
+      if (CENTER) {
+        center_step(xi, n);
+        center_step(yi, n);
+      }
+      gram_step(K, xi, xi);
+      gram_step(L, yi, yi);
+    } else {
+      float xj[4][4], yj[4][4];
+      load_step<VEC>(xj, x, j * ER, n, dx, f);
+      load_step<VEC>(yj, y, j * ER, n, dy, f);
+      gram_step(K, xi, xj);
+      gram_step(L, yi, yj);
+    }
+  }
+
+  using tf32x3::c_col;
+  using tf32x3::c_row;
+#pragma unroll
+  for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int at = c_row(e) * ER + 8 * nt + c_col(e);
+      red[warp][at] = K[nt][e];
+      red[warp][EE + at] = L[nt][e];
+    }
+  __syncthreads();
+  float* out = gram + static_cast<long long>(blockIdx.x) * 2 * EE;
+  for (int at = threadIdx.x; at < 2 * EE; at += 32 * EWARPS) {
+    float s = 0.f;
+#pragma unroll
+    for (int w = 0; w < EWARPS; ++w) s += red[w][at];
+    out[at] = s;
+  }
+}
+
+// EFOLD_PARTS blocks a tile pair, 32 entries of K and L each: warp w sums
+// splits w, w + 8, ... of its lane's entry in double, the warps' sums are
+// added in warp order, and only then are K*L, K^2 and L^2 formed and
+// summed over the 32 entries, weighted 2 off the diagonal
+__global__ void __launch_bounds__(32 * EFOLD_WARPS)
+cka_example_fold_kernel(const float* __restrict__ gram, int tiles,
+                        int splits, double* __restrict__ partials) {
+  __shared__ double red[2][EFOLD_WARPS][32];
+  const int pair = blockIdx.x / EFOLD_PARTS;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int at = (blockIdx.x % EFOLD_PARTS) * 32 + lane;
+  const float* src = gram + static_cast<long long>(pair) * splits * 2 * EE +
+                     at;
+  double k = 0.0, l = 0.0;
+#pragma unroll 4
+  for (int s = warp; s < splits; s += EFOLD_WARPS) {
+    k += src[static_cast<long long>(s) * 2 * EE];
+    l += src[static_cast<long long>(s) * 2 * EE + EE];
+  }
+  red[0][warp][lane] = k;
+  red[1][warp][lane] = l;
+  __syncthreads();
+  if (warp) return;
+  k = l = 0.0;
+#pragma unroll
+  for (int w = 0; w < EFOLD_WARPS; ++w) {
+    k += red[0][w][lane];
+    l += red[1][w][lane];
+  }
+  const double kl = warp_sum(k * l), kk = warp_sum(k * k),
+               ll = warp_sum(l * l);
+  if (lane == 0) {
+    int i, j;
+    tile_pair(pair, tiles, i, j);
+    const double weight = i == j ? 1.0 : 2.0;
+    partials[3 * blockIdx.x + 0] = weight * kl;
+    partials[3 * blockIdx.x + 1] = weight * kk;
+    partials[3 * blockIdx.x + 2] = weight * ll;
   }
 }
 
@@ -404,20 +530,39 @@ cka_fold_kernel(const float* __restrict__ gram, int tiles, int splits,
 
 }  // namespace
 
-// x [n, dx], y [n, dy]: centered fp32, row-major contiguous. partials
-// holds 3 floats per tile pair, 3 * T(T+1)/2 with T = ceil(n / 64);
-// out receives (hsic, kk, ll). Returns a cudaError_t (0 = launched).
-extern "C" int cka_terms_fwd(const float* x, const float* y, int n, int dx,
-                             int dy, float* partials, float* out,
-                             void* stream) {
+// The example form. x [n, dx], y [n, dy]: fp32, row-major contiguous,
+// raw where `center` (the kernel centers the columns; only with tiles ==
+// 1), else centered. tiles = ceil(n / 16) row tiles, splits feature ranges
+// of `width` features each (kernels/cka/ops.py::example_plan). With
+// P = tiles(tiles+1)/2 pairs, gram holds P * splits * 2 * 256 floats,
+// partials 3 * P * 8 doubles (EFOLD_PARTS); out receives (hsic, kk, ll).
+// Returns a cudaError_t (0 = launched).
+extern "C" int cka_terms_example_fwd(const float* x, const float* y, int n,
+                                     int dx, int dy, int tiles, int splits,
+                                     int width, int center, float* gram,
+                                     double* partials, float* out,
+                                     void* stream) {
+  if (center && tiles != 1) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int tiles = (n + TILE - 1) / TILE;
-  const int blocks = tiles * (tiles + 1) / 2;
-  cka_tiles_kernel<<<blocks, THREADS, 0, st>>>(x, y, n, dx, dy, tiles,
-                                               partials);
+  const int pairs = tiles * (tiles + 1) / 2;
+  const int blocks = pairs * splits;
+  const bool vec = dx % 4 == 0 && dy % 4 == 0 &&
+                   reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(y) % 16 == 0;
+  auto gram_kernel = vec ? (center ? cka_example_gram_kernel<true, true>
+                                   : cka_example_gram_kernel<true, false>)
+                         : (center ? cka_example_gram_kernel<false, true>
+                                   : cka_example_gram_kernel<false, false>);
+  gram_kernel<<<blocks, 32 * EWARPS, 0, st>>>(x, y, n, dx, dy, tiles, splits,
+                                              width, gram);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  cka_sum_kernel<<<1, SUM_THREADS, 0, st>>>(partials, blocks, out);
+  cka_example_fold_kernel<<<pairs * EFOLD_PARTS, 32 * EFOLD_WARPS, 0, st>>>(
+      gram, tiles, splits, partials);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  cka_sum_kernel<double><<<1, SUM_THREADS, 0, st>>>(
+      partials, pairs * EFOLD_PARTS, out);
   return cudaGetLastError();
 }
 
@@ -449,7 +594,7 @@ extern "C" int cka_terms_feature_fwd(const float* x, const float* y, int n,
       gram, tiles, splits, dx, dy, partials);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  cka_sum_kernel<<<1, SUM_THREADS, 0, st>>>(partials, pairs * FOLD_PARTS,
-                                            out);
+  cka_sum_kernel<float><<<1, SUM_THREADS, 0, st>>>(
+      partials, pairs * FOLD_PARTS, out);
   return cudaGetLastError();
 }

@@ -10,7 +10,7 @@ import pytest
 import torch
 
 from repro_torch import tree_leaves, tree_map
-from repro_torch.configs import get_reduced
+from repro_torch.configs import get_config, get_reduced
 from repro_torch.core.freeze_plan import LayerFreezePlan
 from repro_torch.kernels.attention import ops as att_ops
 from repro_torch.kernels.cka import ops as cka_ops
@@ -173,6 +173,90 @@ def test_cka_example_route_at_the_cnn_probe_shapes(gen, d):
                                rtol=1e-4, atol=0.0)
     assert torch.equal(torch.stack(cka_ops._launch_example(xc, yc)),
                        torch.stack(cka_ops._launch_example(xc, yc)))
+
+
+def _example_matches_plain(x, y):
+    """The wrapper, which takes the example route where its rule says so,
+    and the example route called directly, on x and y as they are (raw or
+    centered, any alignment), against the plain version of the centered
+    inputs."""
+    n, dx = x.shape
+    dy = y.shape[1]
+    hsic, kk, ll = cka_ops.cka_terms_plain(cka_ops._prepare(x),
+                                           cka_ops._prepare(y))
+    want = torch.stack([hsic, kk.sqrt(), ll.sqrt()])
+    before = dict(cka_ops.cka_terms.route_launches)
+    got = torch.stack(cka_ops.cka_terms(x, y))
+    route = "feature" if cka_ops.feature_route(n, dx, dy) else "example"
+    assert cka_ops.cka_terms.route_launches == {
+        r: c + (r == route) for r, c in before.items()}
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=0.0)
+    hsic, kk, ll = cka_ops._launch_example(x, y)
+    torch.testing.assert_close(torch.stack([hsic, kk.sqrt(), ll.sqrt()]),
+                               want, rtol=1e-4, atol=0.0)
+
+
+def _probe_dims(arch):
+    """d = H*W*C of every map of a 16-image probe pass of `arch` at full
+    width, from shapes on the meta device."""
+    cfg = get_config(arch)
+    model = build_model(cfg, device="meta")
+    images = torch.empty((16, cfg.image_size, cfg.image_size, 3),
+                         device="meta")
+    return [f[0].numel() for f in
+            model.features(model.init(torch.Generator()), {"images": images})]
+
+
+@pytest.mark.parametrize("arch", ["mobilenetv2", "resnet50"])
+def test_cka_example_route_at_every_cnn_probe_map(gen, arch):
+    dims = _probe_dims(arch)
+    assert len(dims) == {"mobilenetv2": 19, "resnet50": 17}[arch]
+    for d in sorted(set(dims)):
+        x = _randn(gen, (16, d))
+        _example_matches_plain(x, _randn(gen, (16, d)) + 0.3 * x)
+
+
+@pytest.mark.parametrize("n,dx,dy", [
+    (1, 300, 300), (13, 2560, 2560), (16, 2560, 2560), (17, 2560, 2560),
+    (40, 2560, 2560), (64, 2560, 2560), (65, 2560, 2560),
+    (3152, 192, 192),                      # the DeiT-tiny probe's examples
+    (16, 4096, 2560), (40, 1000, 300),     # dx != dy
+    (16, 5000, 1), (13, 1000, 1),          # dy = 1
+    (3153, 192, 192), (300, 200, 100), (97, 30, 50), (1000, 64, 1),
+    (65, 1, 64),                           # ragged
+    (16, 131071, 131071), (16, 2562, 2561), (17, 999, 1001),  # d % 4 != 0
+])
+def test_cka_example_route_matches_plain(gen, n, dx, dy):
+    x = _randn(gen, (n, dx))
+    y = _randn(gen, (n, dy))
+    y[:, :min(dx, dy)] += 0.3 * x[:, :min(dx, dy)]
+    _example_matches_plain(x, y)
+
+
+@pytest.mark.parametrize("n,d", [(16, 4096), (13, 131072), (40, 1000)])
+def test_cka_example_route_reads_rows_that_are_not_16_byte_aligned(gen, n,
+                                                                   d):
+    # contiguous, but 4 bytes past a 16-byte boundary: scalar loads
+    def misaligned(t):
+        buf = torch.empty(t.numel() + 1, device=t.device)
+        out = buf[1:1 + t.numel()].view(t.shape)
+        out.copy_(t)
+        return out
+
+    x = _randn(gen, (n, d))
+    x, y = misaligned(x), misaligned(_randn(gen, (n, d)) + 0.3 * x)
+    assert x.is_contiguous() and x.data_ptr() % 16
+    _example_matches_plain(x, y)
+
+
+@pytest.mark.parametrize("n,d", [(16, 131072), (13, 2560), (40, 2560)])
+def test_cka_example_route_centers_raw_inputs(gen, n, d):
+    # columns offset by 1e3 to 2e3: the kernel centers a one-tile plan's
+    # columns itself (n <= 16), the wrapper centers the rest in torch
+    offset = 1e3 * (1 + torch.rand(d, generator=gen)).cuda()
+    x = _randn(gen, (n, d)) + offset
+    _example_matches_plain(x, _randn(gen, (n, d)) + 0.3 * x)
+    assert cka_ops.example_plan(n, d, d).center == (n <= 16)
 
 
 def test_cka_feature_route_products_are_3xtf32(gen):

@@ -3,7 +3,8 @@ versions that `flash_attention` and `cka_terms` take for CPU tensors, held
 against the Pallas kernels (interpret mode) and their `ref.py` oracles on
 the same numpy inputs, plus the wrappers' input checks; and the arithmetic
 of the kernels that only the card runs (3xTF32 products, the CKA feature
-route's plan), emulated in plain torch; and the wrappers' refusal to run
+route's plan, the CKA example route's plan, summation order and fused
+centering), emulated in plain torch; and the wrappers' refusal to run
 where autograd would need the backward the kernels do not have."""
 import math
 
@@ -129,7 +130,7 @@ def test_core_cka_matches_jax(shape, use_kernel):
 
 # ---------------------------------------------------------------------------
 # the kernels' arithmetic, which the card alone runs: 3xTF32 products
-# (csrc/tf32x3.cuh) and the CKA feature route's plan (kernels/cka/ops.py)
+# (csrc/tf32x3.cuh) and the CKA routes' plans (kernels/cka/ops.py)
 
 
 def _tf32(x: torch.Tensor) -> torch.Tensor:
@@ -282,42 +283,154 @@ RAGGED = [(3152, 192, 192), (3153, 192, 192), (300, 200, 100),
           (97, 30, 50), (1000, 64, 1), (65, 1, 64)]
 
 
-def _example_route_gram(x: torch.Tensor, dk: int = 32) -> torch.Tensor:
-    """X X^T as `cka_terms.cu::gram_tile` sums it: each 32-feature chunk
-    an fp32 chain of FMAs (a float64 product and sum, rounded to fp32 each
-    step), the chunk sums added in order with Kahan compensation."""
+def _example_route_gram(x: torch.Tensor, plan) -> torch.Tensor:
+    """X X^T as the example route sums it for a one-tile plan (n <= 16):
+    each block's features in 32-feature steps, step k to warp k % 8;
+    within a step the c-th 3xTF32 m16n8k8 product takes features
+    16h + 4t + c (h, t < 2, 4), its three TF32 products (small x big,
+    big x small, big x big: exact 8-term sums) summed from zero in fp32
+    and added to the warp's fp32 partial; a block adds its warps' partials
+    in warp order in fp32; the fold sums the blocks (splits) in double,
+    warp w of the fold taking splits w, w + 8, ..., then the 8 sums in
+    order. The tensor cores truncate where this rounds to nearest; the
+    fresh sum of each product keeps that to one product's 8 features."""
     n, d = x.shape
-    chunks = x.reshape(n, d // dk, dk)
-    part = torch.zeros(n, n, d // dk)
-    for c in range(dk):
-        part = (part.double() + chunks[:, None, :, c].double()
-                * chunks[None, :, :, c].double()).float()
-    acc, comp = torch.zeros(n, n), torch.zeros(n, n)
-    for k in range(d // dk):
-        y = part[..., k] - comp
-        t = acc + y
-        comp = (t - acc) - y
-        acc = t
-    return acc
+    R, W = cka_ops.EXAMPLE_ROWS, cka_ops.EXAMPLE_WARPS
+    steps = plan.width // cka_ops.EXAMPLE_STEP
+    rounds = -(-steps // W)
+    rows = torch.zeros((R, plan.splits * plan.width))
+    rows[:n, :d] = x
+    z = torch.zeros((R, plan.splits, rounds * W * cka_ops.EXAMPLE_STEP))
+    z[:, :, :plan.width] = rows.view(R, plan.splits, plan.width)
+    # [row, split, round, warp, h, t, c]: step k = round * 8 + warp
+    z = z.view(R, plan.splits, rounds, W, 2, 4, 4)
+    acc = torch.zeros((plan.splits, W, R, R))
+    for r in range(rounds):
+        for c in range(4):
+            a = z[:, :, r, :, :, :, c].reshape(R, plan.splits, W, 8)
+            big = _tf32(a)
+            small = _tf32(a - big)
+            part = torch.zeros_like(acc)
+            for u, v in ((small, big), (big, small), (big, big)):
+                prod = torch.einsum("ispk,jspk->spij", u.double(), v.double())
+                part = (part.double() + prod).float()
+            acc = acc + part
+    blocks = acc[:, 0]
+    for w in range(1, W):
+        blocks = blocks + acc[:, w]
+    parts = [blocks[w::8].double().sum(0) if w < plan.splits
+             else torch.zeros((R, R), dtype=torch.float64) for w in range(8)]
+    total = parts[0]
+    for part in parts[1:]:
+        total = total + part
+    return total[:n, :n]
+
+
+def _terms64(k, l):
+    return torch.stack([(k * l).sum(), (k * k).sum(), (l * l).sum()])
 
 
 def test_example_route_sums_stay_accurate_at_cnn_widths():
     """The example route at ResNet50's widest probe map (n = 16,
-    d = 262144): as one fp32 chain over d, its hsic was 1.15e-4 off the
-    plain version on the card, past the kernel tolerance; chunk sums with
-    Kahan compensation keep the terms within 1e-6 of float64."""
+    d = 262144): one fp32 chain over d was 1.15e-4 off the plain version
+    on the card, past the kernel tolerance. The route's order, each
+    3xTF32 product added to a short per-warp fp32 partial and the splits
+    folded in double, keeps the terms within 1e-6 of float64."""
     gen = torch.Generator().manual_seed(0)
     x = torch.randn((16, 262144), generator=gen)
     y = torch.randn((16, 262144), generator=gen) + 0.3 * x
     x, y = x - x.mean(0), y - y.mean(0)
-
-    def terms(k, l):
-        return torch.stack([(k * l).sum(), (k * k).sum(), (l * l).sum()])
-
-    want = terms(x.double() @ x.double().T, y.double() @ y.double().T)
-    got = terms(_example_route_gram(x).double(),
-                _example_route_gram(y).double())
+    plan = cka_ops.example_plan(16, 262144, 262144)
+    want = _terms64(x.double() @ x.double().T, y.double() @ y.double().T)
+    got = _terms64(_example_route_gram(x, plan), _example_route_gram(y, plan))
     assert float(((got - want) / want).abs().max()) < 1e-6
+
+
+def _center_as_the_kernel(x: torch.Tensor) -> torch.Tensor:
+    """The example route's fused centering of n <= 16 rows: a lane g holds
+    rows g and g + 8 (zero past n) and adds them, the lanes then add the
+    sums of lanes g ^ 4, g ^ 2 and g ^ 1 in turn (shuffles), all in fp32;
+    the mean is that sum divided by n, subtracted from the n rows."""
+    n, d = x.shape
+    rows = torch.zeros((16, d))
+    rows[:n] = x
+    s = rows[:8] + rows[8:]
+    for off in (4, 2, 1):
+        s = s + s[torch.arange(8) ^ off]
+    assert bool((s == s[0]).all())  # every lane holds the same sum
+    return x - s[0] / n
+
+
+@pytest.mark.parametrize("n", [13, 16])
+def test_fused_centering_matches_prepare(n):
+    """Raw rows whose columns carry offsets of 1e3 to 2e3: the kernel's
+    centering then the plain terms agree with `_prepare` then
+    `cka_terms_plain` within the kernel tolerance, and both with float64."""
+    gen = torch.Generator().manual_seed(n)
+    d = 4096
+    offset = 1e3 * (1 + torch.rand(d, generator=gen))
+    x = torch.randn((n, d), generator=gen) + offset
+    y = torch.randn((n, d), generator=gen) + 0.3 * x
+    got = torch.stack(cka_ops.cka_terms_plain(_center_as_the_kernel(x),
+                                              _center_as_the_kernel(y)))
+    want = torch.stack(cka_ops.cka_terms_plain(cka_ops._prepare(x),
+                                               cka_ops._prepare(y)))
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=0.0)
+    x64, y64 = x.double() - x.double().mean(0), y.double() - y.double().mean(0)
+    exact = _terms64(x64 @ x64.T, y64 @ y64.T)
+    assert float(((got.double() - exact) / exact).abs().max()) < 1e-4
+
+
+# every CNN probe map of MobileNetV2 and ResNet50 at 128x128 (d = H*W*C),
+# the examples of the DeiT-tiny shape, and ragged and one-sided shapes
+EXAMPLE_SHAPES = [(16, d, d) for d in (2560, 4096, 5120, 6144, 8192, 16384,
+                                       24576, 32768, 65536, 131072,
+                                       262144)] + [
+    (1, 300, 300), (13, 1000, 1), (17, 999, 1001), (40, 1000, 300),
+    (65, 1, 64), (100, 1000, 1000), (3152, 192, 192)]
+
+
+@pytest.mark.parametrize("n,dx,dy", EXAMPLE_SHAPES + RAGGED)
+def test_example_plan_covers_every_feature_once(n, dx, dy):
+    plan = cka_ops.example_plan(n, dx, dy)
+    assert (plan.tiles - 1) * cka_ops.EXAMPLE_ROWS < n \
+        <= plan.tiles * cka_ops.EXAMPLE_ROWS
+    # a split is whole 32-feature steps, so whole 16-byte vectors, and at
+    # least one step a warp
+    assert plan.width % cka_ops.EXAMPLE_STEP == 0 and plan.width % 4 == 0
+    assert plan.width >= cka_ops.EXAMPLE_STEP * cka_ops.EXAMPLE_WARPS
+    for d in (dx, dy):
+        seen = torch.zeros(d, dtype=torch.int64)
+        for s in range(plan.splits):
+            lo, hi = plan.feature_range(s, d)
+            seen[lo:hi] += 1
+        assert bool((seen == 1).all())
+    # no split is empty in both X and Y
+    assert plan.feature_range(plan.splits - 1, max(dx, dy))[0] < max(dx, dy)
+    assert plan.center == (n <= cka_ops.EXAMPLE_ROWS)
+    pairs = {plan.pair(p) for p in range(plan.pairs)}
+    assert pairs == {(i, j) for i in range(plan.tiles)
+                     for j in range(i, plan.tiles)}
+
+
+def test_example_plan_depends_on_the_shape_only():
+    shape = (16, 131072, 131072)
+    cached = cka_ops.example_plan(*shape)
+    assert cka_ops.example_plan.__wrapped__(*shape) == cached
+    assert cka_ops.example_plan.__wrapped__(*shape) is not cached
+
+
+def test_example_plan_at_the_cnn_probes():
+    # MobileNetV2's stem map: ~2 blocks an SM of the H100's 132, within
+    # the 2-4 a design around 132 SMs aims at
+    stem = cka_ops.example_plan(16, 131072, 131072)
+    assert (stem.splits, stem.width, stem.blocks) == (256, 512, 256)
+    assert 2 * 132 * 0.9 <= stem.blocks <= 4 * 132
+    # fewer splits where the map is small: one step a warp
+    small = cka_ops.example_plan(16, 2560, 2560)
+    assert (small.splits, small.width) == (10, 256)
+    # ResNet50's first stage: twice the features, as many blocks
+    assert cka_ops.example_plan(16, 262144, 262144).blocks == stem.blocks
 
 
 @pytest.mark.parametrize("n,dx,dy", RAGGED)
