@@ -77,6 +77,23 @@ It imports nothing of JAX and nothing of the JAX package, and fails
    as the DeiT loop. Then the reference's `semi_quant` session on
    MobileNetV2 (`hooks_phase`: immediate rounds, fake-quant 8 bits,
    SimSiam on half the batches), once: rounds, SimSiam updates, accuracy;
+   then the compiled hot path (`compiled_phase`): DeiT-tiny (flash
+   attention on) on the `single-poisson` and preemptible `qos` workload
+   presets and MobileNetV2 on `single-poisson`, through
+   `ContinualRuntime.from_config(RuntimeConfig(workload=...,
+   compiled=...))` at the loops' size (3 scenarios of 6 batches of 16,
+   48 requests a stream, benchmarks injected at the model's image size),
+   each run compiled (train steps and pretraining replayed as CUDA
+   graphs, serving drained as graphs, probes' forwards graphed), compiled
+   with `segment=False`, eager, and compiled again (warm): all four must
+   agree exactly (rounds, plans, recompiles, preemptions, accuracies,
+   validation curve, ledger totals) with bitwise equal final params. It
+   prints the flash launches the card ran inside graphs (captures x
+   replays: the wrappers' counts do not see a replay) beside CKA's
+   (eager), each plan's ms a graph step and a batch against the eager
+   step, rounds/s and peak memory of each run, and, under torch.profiler,
+   host launch calls a train step (eager against a bucket-8 replay) and
+   the flash and CKA kernels one graphed predict and one probe pass ran;
    then rwkv6-3b serving at full width and depth (`get_config("rwkv6-3b")`,
    32 layers, d=2560, bf16, 3.07e9 params from a seeded CUDA generator):
    `ServeEngine.generate` on 4 prompts of 512 tokens for 16 greedy steps,
@@ -109,7 +126,8 @@ It imports nothing of JAX and nothing of the JAX package, and fails
    per second;
 5. only with --profile: one more kernel run of each slice under
    torch.profiler (the DeiT-tiny slice, the ETuner loops on DeiT-tiny and
-   MobileNetV2, one rwkv6-3b `generate`), for
+   MobileNetV2, the DeiT-tiny `single-poisson` session compiled, its
+   graphs captured, and eager, one rwkv6-3b `generate`), for
    the device's busy share of its wall time, the kernels that fill it
    and the port's kernels' share of it, one SDPA call at the flash
    main-path shape, for the name of the kernel PyTorch runs there, and
@@ -151,7 +169,7 @@ from repro_torch.core.freeze_plan import LayerFreezePlan  # noqa: E402
 from repro_torch.core.policies import etuner_stack_spec  # noqa: E402
 from repro_torch.core.simfreeze import SimFreeze, SimFreezeConfig  # noqa: E402
 from repro_torch.data.arrivals import build_timeline  # noqa: E402
-from repro_torch.data.streams import nc_benchmark  # noqa: E402
+from repro_torch.data.streams import REGISTRY, nc_benchmark  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.attention import ops as att_ops  # noqa: E402
 from repro_torch.kernels.cka import ops as cka_ops  # noqa: E402
@@ -164,13 +182,16 @@ from repro_torch.runtime.config import (  # noqa: E402
     HookSpec, RuntimeConfig, SlotConfig)
 from repro_torch.runtime.continual import ContinualRuntime  # noqa: E402
 from repro_torch.runtime.costmodel import EdgeCostModel  # noqa: E402
-from repro_torch.runtime.executor import SimSiamHook  # noqa: E402
+from repro_torch.runtime import train_loop  # noqa: E402
+from repro_torch.runtime.executor import (  # noqa: E402
+    FineTuneExecutor, SimSiamHook)
 from repro_torch.runtime.inference import InferenceServer  # noqa: E402
 from repro_torch.runtime.ledger import CostLedger  # noqa: E402
 from repro_torch.runtime.scheduler import EventScheduler  # noqa: E402
 from repro_torch.runtime.serve import ServeEngine  # noqa: E402
 from repro_torch.runtime.train_loop import (  # noqa: E402
-    TrainStepCache, as_tensor, make_optimizer_state)
+    TrainStepCache, as_tensor, compiled_model, make_optimizer_state)
+from repro_torch.workloads import presets  # noqa: E402
 
 # kernel tolerances, as tests/test_kernels.py holds the Pallas kernels
 ATT_RTOL, ATT_ATOL = 2e-4, 2e-5
@@ -1106,6 +1127,361 @@ def hooks_phase(cfg):
                              f"{run['passes']} probe passes")
 
 
+# ---------------------------------------------------------------------------
+# phase 3: the compiled hot path at full width
+
+
+# the loops' size as a workload preset's scale: 3 scenarios of 6 batches
+# of 16 images, 48 requests a stream (qos: its priority-2 stream 96 and
+# half the batches, its bulk stream 24 and twice the batches)
+WORKLOAD_SCALE = dict(num_scenarios=3, batches_per_scenario=6,
+                      inferences=48, batch_size=16)
+COMPILED_SESSIONS = (("deit-tiny", "single-poisson", False),
+                     ("deit-tiny", "qos", True),
+                     ("mobilenetv2", "single-poisson", False))
+# the runtime-API calls by which the host starts work on the card
+LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                "cuLaunchKernelEx", "cudaGraphLaunch", "cudaMemcpyAsync")
+
+
+def workload_benches(spec, cfg) -> dict:
+    """`runtime.config.materialize_stream_benchmarks` at the model's image
+    size, with the loops' 50 classes and 16-image batches."""
+    return {i: REGISTRY[ss.benchmark](
+        num_classes=50, num_scenarios=spec.num_scenarios + 1,
+        batches=max(ss.batches_per_scenario, 2), batch_size=16,
+        image_size=cfg.image_size, seed=13 * i)
+        for i, ss in enumerate(spec.streams)}
+
+
+class _Captures:
+    """Every CUDA graph captured while it is installed: the graph, the
+    host clock its capture took (warm-up run included) and the kernel
+    wrappers' counts the capture added. A capture adds two of each launch
+    it records: one from the warm-up run, which the card runs, and one
+    from the capture, which the card runs at every replay."""
+
+    def __init__(self):
+        self.graphs = []
+        self._orig = train_loop.CapturedCall._capture
+
+    def __enter__(self):
+        spy = self
+
+        def capture(call, *args):
+            torch.cuda.synchronize()
+            t0, before = time.perf_counter(), read_launches()
+            spy._orig(call, *args)
+            torch.cuda.synchronize()
+            after = read_launches()
+            spy.graphs.append((call, time.perf_counter() - t0,
+                               {k: after[k] - before[k] for k in after}))
+
+        train_loop.CapturedCall._capture = capture
+        return self
+
+    def __exit__(self, *exc):
+        train_loop.CapturedCall._capture = self._orig
+
+    def mark(self) -> tuple:
+        """Where a run starts: the graphs so far and their replays."""
+        return len(self.graphs), [g.replays for g, _, _ in self.graphs]
+
+    def card_launches(self, name: str, mark: tuple) -> int:
+        """Launches of kernel `name` the card ran from graphs since
+        `mark`: each new graph's warm-up run, and every replay of every
+        graph, new or captured before."""
+        n0, replays0 = mark
+        total = 0
+        for i, (g, _, counts) in enumerate(self.graphs):
+            per = counts[name] // 2
+            total += per * ((1 + g.replays) if i >= n0
+                            else g.replays - replays0[i])
+        return total
+
+
+CAPTURES = _Captures()
+
+
+def run_workload(model, workload, benches, *, compiled, segment=True,
+                 preemptible=False):
+    """One session of `workload` through the port's front door on the
+    injected full-width `model`, with the loops' ETuner policies and the
+    kernels (`use_pallas`). Times every train step (eager) or fused call
+    (compiled) with CUDA events by plan, the loop's wall time after
+    pretraining, the captures, and peak device memory."""
+    cfg = RuntimeConfig(
+        slots={"cv": SlotConfig(arch=model.cfg.name,
+                                policies=ETUNER_POLICIES)},
+        workload=workload, workload_scale=dict(WORKLOAD_SCALE), seed=0,
+        pretrain_epochs=1, replay_batches=2, use_pallas=True,
+        preemptible=preemptible, compiled=compiled)
+    rt = ContinualRuntime.from_config(cfg, device=model.device, model=model,
+                                      stream_benchmarks=benches)
+    rt.segment = segment
+    spans, plans = {}, []
+    if compiled:
+        fused = rt.steps.fused_call
+
+        def timed_fused(plan, *args):
+            captures = len(CAPTURES.graphs)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fused(plan, *args)
+            end.record()
+            # (start, end, bucket, batches, captured)
+            spans.setdefault(plan.layers, []).append(
+                (start, end, out[2]["loss"].shape[0], len(args[2]),
+                 len(CAPTURES.graphs) > captures))
+            return out
+
+        rt.steps.fused_call = timed_fused
+    else:
+        raw_step = rt.steps._raw_step
+
+        def timed_step(plan):
+            step = raw_step(plan)
+
+            def run(*args):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                out = step(*args)
+                end.record()
+                spans.setdefault(plan.layers, []).append(
+                    (start, end, 1, 1, False))
+                return out
+            return run
+
+        rt.steps._raw_step = timed_step
+    execute_round = FineTuneExecutor.execute_round
+
+    def spy_round(ex, plan, *a, **k):
+        if ex.buffers.get(k.get("stream", 0)):
+            plans.append(plan.layers)
+        return execute_round(ex, plan, *a, **k)
+
+    FineTuneExecutor.execute_round = spy_round
+    fleet_mod.EventScheduler = _LoopClock
+    zero_launches()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mark = CAPTURES.mark()
+    t0 = time.perf_counter()
+    try:
+        res = rt.run()
+    finally:
+        fleet_mod.EventScheduler = EventScheduler
+        FineTuneExecutor.execute_round = execute_round
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    params = rt.fleet.devices[0].primary.executor.params
+    if not res.rounds or len(plans) != res.rounds or \
+            len(res.inference_accs) != sum(e.kind == "inference"
+                                           for e in rt.session_events):
+        raise AssertionError(f"{res.rounds} rounds, {len(plans)} plans, "
+                             f"{len(res.inference_accs)} requests")
+    if not all(bool(torch.isfinite(t).all()) for t in tree_leaves(params)) \
+            or not np.isfinite(res.total_time_s):
+        raise AssertionError("non-finite params or ledger")
+    steps = {plan: [(s.elapsed_time(e), b, n, c) for s, e, b, n, c in sp]
+             for plan, sp in spans.items()}
+    return {"res": res, "plans": plans, "params": params, "steps": steps,
+            "launches": read_launches(),
+            "captured": CAPTURES.graphs[mark[0]:],
+            "card_flash": CAPTURES.card_launches("flash_attention", mark),
+            "loop_s": t2 - rt.scheduler.started,
+            "pretrain_s": rt.scheduler.started - t0,
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "reserved_gb": torch.cuda.memory_reserved() / 1e9}
+
+
+def same_session(a, b) -> list:
+    """What differs between two runs of one session (empty: nothing)."""
+    ra, rb = a["res"], b["res"]
+    out = [k for k in ("rounds", "recompiles", "preemptions",
+                       "controller_stats", "inference_accs", "val_curve",
+                       "total_time_s", "total_energy_j", "compute_tflops",
+                       "per_stream", "per_model")
+           if getattr(ra, k) != getattr(rb, k)]
+    if a["plans"] != b["plans"]:
+        out.append("plans")
+    if not all(torch.equal(x, y) for x, y in zip(
+            tree_leaves(a["params"]), tree_leaves(b["params"]),
+            strict=True)):
+        out.append("final params")
+    return out
+
+
+def host_launches(run, per: int) -> dict:
+    """Runtime-API launch calls the host makes, and kernels the card runs,
+    for `per` train steps of `run` (under torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    rows = prof.key_averages()
+    calls = sum(e.count for e in rows if e.key in LAUNCH_CALLS)
+    kernels = sum(e.count for e in rows
+                  if e.device_type == torch.autograd.DeviceType.CUDA)
+    flash = sum(e.count for e in rows if "flash_fwd_kernel" in e.key
+                and e.device_type == torch.autograd.DeviceType.CUDA)
+    cka = sum(e.count for e in rows if "cka_" in e.key and "gram" in e.key
+              and e.device_type == torch.autograd.DeviceType.CUDA)
+    return {"calls": calls / per, "kernels": kernels / per, "flash": flash,
+            "cka": cka}
+
+
+def step_launches(model, bench) -> dict:
+    """Host launch calls per all-active train step, eager against a
+    bucket-8 graph replay, and flash/CKA kernels seen on the card in one
+    graphed predict and one graphed probe pass with its CKAs."""
+    opt_cfg = AdamWConfig(lr=1e-3)
+    params = model.init(torch.Generator().manual_seed(0))
+    state = make_optimizer_state(model, opt_cfg, params)
+    plan = LayerFreezePlan((False,) * model.num_freeze_units)
+    cache = TrainStepCache(model, opt_cfg)
+    batches = bench.scenarios[1].train_batches[:6]
+    step = cache.get(plan)
+    device_batch = as_tensor(batches[0], model.device)
+
+    def eager(n):
+        p, s = params, state
+        for _ in range(n):
+            p, s, _ = step(p, s, device_batch)
+
+    eager(1)
+    cache.fused_call(plan, params, state, batches[:5])  # capture bucket 8
+    out = {"eager": host_launches(lambda: eager(2), 2),
+           "graph": host_launches(lambda: cache.fused_call(
+               plan, params, state, batches[:5]), 8)}
+    graphed = compiled_model(model)
+    sf = SimFreeze(model.num_freeze_units, graphed.features,
+                   SimFreezeConfig(use_kernel=True))
+    probe = as_tensor(bench.scenarios[1].train_batches[0], model.device)
+    sf.start_scenario(params, probe)  # captures the features graph
+    graphed.predict(params, probe)  # captures the predict graph
+    sf._all_cka(params)
+    out["predict"] = host_launches(lambda: graphed.predict(params, probe), 1)
+    out["probe"] = host_launches(lambda: sf._all_cka(params), 1)
+    return out
+
+
+def compiled_phase() -> dict:
+    """Each session of `COMPILED_SESSIONS` at full width four ways:
+    compiled, compiled with `segment=False`, eager (`compiled=False`) and
+    compiled again (every graph already captured: the warm compiled run).
+    All four must give the same rounds, plans, recompiles, preemptions,
+    accuracies, validation curve and ledger totals, and bitwise equal
+    final params. Returns the flash and CKA launches the card ran, by
+    session."""
+    CAPTURES.graphs.clear()
+    models = {"deit-tiny": build_model(get_config("deit-tiny").replace(
+        use_pallas=True)), "mobilenetv2": build_model(get_config(
+            "mobilenetv2"))}
+    scale = {k: v for k, v in WORKLOAD_SCALE.items() if k != "batch_size"}
+    card = {}
+    for arch, workload, preemptible in COMPILED_SESSIONS:
+        model = models[arch]
+        benches = workload_benches(presets(seed=0, **scale)[workload],
+                                   model.cfg)
+        name = f"{arch} {workload}" + (" preemptible" if preemptible else "")
+        runs = {}
+        for label, kw in (("compiled", dict(compiled=True)),
+                          ("compiled, segment=False",
+                           dict(compiled=True, segment=False)),
+                          ("eager", dict(compiled=False)),
+                          ("compiled again", dict(compiled=True))):
+            runs[label] = run_workload(model, workload, benches,
+                                       preemptible=preemptible, **kw)
+        first = runs["compiled"]
+        res = first["res"]
+        print(f"  {name}: {res.rounds} rounds, {len(set(first['plans']))} "
+              f"plans, {res.recompiles} recompiles, {res.preemptions} "
+              f"preemptions, {len(res.inference_accs)} requests; controller "
+              f"stats {res.controller_stats}")
+        plans = ["".join("F" if f else "." for f in p)
+                 for p in first["plans"]]
+        print(f"    freeze plans: {plans}")
+        for label, run in runs.items():
+            diff = same_session(first, run)
+            if diff:
+                raise AssertionError(f"{name}: the {label} run differs from "
+                                     f"the compiled run in {diff}")
+        if preemptible and not res.preemptions:
+            raise AssertionError(f"{name}: no round was preempted")
+        print("    compiled, compiled segment=False, eager and compiled "
+              "again agree exactly: rounds, plans, recompiles, "
+              "preemptions, accuracies, validation curve, ledger totals; "
+              "final params bitwise equal")
+        eager = runs["eager"]
+        L = model.cfg.num_layers
+        flash = first["card_flash"]
+        card[name] = {"flash_attention": flash,
+                      "cka_terms": first["launches"]["cka_terms"]}
+        print(f"    launches on the card, compiled run: flash_attention "
+              f"{flash} (each new graph's warm-up run and every replay), "
+              f"cka_terms "
+              f"{first['launches']['cka_terms']} (eager, between replays); "
+              f"eager run: flash_attention "
+              f"{eager['launches']['flash_attention']}, cka_terms "
+              f"{eager['launches']['cka_terms']}")
+        if eager["launches"]["cka_terms"] != first["launches"]["cka_terms"] \
+                or (L and (not flash or eager["launches"]["flash_attention"]
+                           % L or flash % L)):
+            raise AssertionError(f"{name}: unexpected launch counts")
+        captures = first["captured"]
+        print(f"    captures: {len(captures)} new graphs in "
+              f"{sum(t for _, t, _ in captures):.3f} s of host time "
+              f"(warm-up runs included)")
+        for plan in eager["steps"]:
+            ms_eager = [ms for ms, _, _, _ in eager["steps"][plan]]
+            line = (f"    plan {''.join('F' if f else '.' for f in plan)}: "
+                    f"eager {np.mean(ms_eager):.3f} ms a step "
+                    f"({len(ms_eager)} steps)")
+            for label in ("compiled again", "compiled"):
+                calls = [c for c in runs[label]["steps"].get(plan, ())
+                         if not c[3]]
+                if calls:
+                    per_step = [ms / b for ms, b, _, _ in calls]
+                    per_batch = sum(ms for ms, _, _, _ in calls) / sum(
+                        n for _, _, n, _ in calls)
+                    line += (f"; {label} {np.mean(per_step):.3f} ms a graph "
+                             f"step, {per_batch:.3f} ms a batch ({len(calls)} "
+                             f"replays, buckets "
+                             f"{sorted({b for _, b, _, _ in calls})})")
+            print(line)
+        for label, run in runs.items():
+            print(f"    {label}: loop {run['loop_s']:.3f} s "
+                  f"({run['res'].rounds / run['loop_s']:.3f} rounds/s), "
+                  f"pretraining {run['pretrain_s']:.3f} s, peak device "
+                  f"memory {run['peak_gb']:.2f} GB allocated, "
+                  f"{run['reserved_gb']:.2f} GB reserved")
+        if workload == "single-poisson":
+            counts = step_launches(model, benches[0])
+            eager_c, graph_c = counts["eager"], counts["graph"]
+            print(f"    host launch calls a train step: eager "
+                  f"{eager_c['calls']:.1f} ({eager_c['kernels']:.1f} "
+                  f"kernels on the card), bucket-8 graph "
+                  f"{graph_c['calls']:.2f} ({graph_c['kernels']:.1f} "
+                  f"kernels on the card)")
+            print(f"    on the card (torch.profiler): a graphed predict ran "
+                  f"{counts['predict']['flash']} flash kernels (L = {L}), a "
+                  f"graphed probe pass {counts['probe']['flash']} flash and "
+                  f"{counts['probe']['cka']} CKA gram kernels "
+                  f"({model.num_freeze_units - 1} maps)")
+            if counts["predict"]["flash"] != L or \
+                    counts["probe"]["flash"] != L or \
+                    counts["probe"]["cka"] != model.num_freeze_units - 1 or \
+                    counts["graph"]["calls"] >= counts["eager"]["calls"]:
+                raise AssertionError(f"{name}: unexpected counts {counts}")
+    return card
+
+
 def zero_launches() -> None:
     att_ops.flash_attention.launches = cka_ops.cka_terms.launches = 0
     cka_ops.cka_terms.route_launches = {"feature": 0, "example": 0}
@@ -1592,6 +1968,17 @@ def profile_phase(deit, rwkv) -> None:
     report_profile(f"{deit.name} ETuner loop",
                    lambda: run_etuner(kmodel, bench, events,
                                       use_kernel=True))
+    scale = {k: v for k, v in WORKLOAD_SCALE.items() if k != "batch_size"}
+    benches = workload_benches(presets(seed=0, **scale)["single-poisson"],
+                               kmodel.cfg)
+    with CAPTURES:
+        run_workload(kmodel, "single-poisson", benches, compiled=True)
+    report_profile(f"{deit.name} single-poisson, compiled (graphs "
+                   f"captured)", lambda: run_workload(
+                       kmodel, "single-poisson", benches, compiled=True))
+    report_profile(f"{deit.name} single-poisson, eager",
+                   lambda: run_workload(kmodel, "single-poisson", benches,
+                                        compiled=False))
     mbv2 = build_model(get_config("mobilenetv2"))
     mbv2_data = loop_data(mbv2.cfg.image_size)
     run_etuner(mbv2, *mbv2_data, use_kernel=True)  # warm-up
@@ -1727,6 +2114,9 @@ def main() -> None:
     print("phase 3: the round hooks (fake-quant 8 bits, SimSiam 0.5) on "
           "MobileNetV2 at full width")
     hooks_phase(get_config("mobilenetv2"))
+    print("phase 3: the compiled hot path at full width (CUDA graphs)")
+    with CAPTURES:
+        compiled_launches = compiled_phase()
     print("phase 3: rwkv6-3b serving at full width and depth")
     rwkv = get_config("rwkv6-3b")
     wkv_launches = rwkv_phase(rwkv)
@@ -1744,7 +2134,10 @@ def main() -> None:
          "launches": loop_launches["flash_attention"],
          "launches_by_path": {
              "etuner_loop": loop_launches["flash_attention"],
-             "serving_and_probes": launches["flash_attention"]},
+             "serving_and_probes": launches["flash_attention"],
+             **{f"compiled {name}": n["flash_attention"]
+                for name, n in compiled_launches.items()
+                if n["flash_attention"]}},
          "max_abs_err": att_err, **att},
         {"name": "cka_terms", "route": "cuda",
          "source": "src/repro_torch/csrc/cka_terms.cu",
@@ -1754,7 +2147,9 @@ def main() -> None:
              "cnn_loop_mobilenetv2": mbv2_launches["cka_terms"],
              "cnn_loop_resnet50": resnet_launches["cka_terms"],
              "etuner_loop": loop_launches["cka_terms"],
-             "serving_and_probes": launches["cka_terms"]},
+             "serving_and_probes": launches["cka_terms"],
+             **{f"compiled {name}": n["cka_terms"]
+                for name, n in compiled_launches.items()}},
          "launches_by_route": {
              route: sum(p[f"cka_{route}"] for p in (
                  mbv2_launches, resnet_launches, loop_launches, launches))

@@ -31,10 +31,11 @@ policy names and hook names raise with the valid alternatives listed.
 The port's copy (`repro_torch.runtime.config`) keeps the reference's
 names, fields, validation and dict form, so a dict either package's
 `to_dict` writes loads in the other. What the port cannot run yet raises
-`NotImplementedError` naming its ROADMAP item: `compiled=True` (A.6),
-workload presets (queue A item 6), an active `TelemetrySpec` (A.8); a
-bert `arch` raises in `build_model` (A.2). Sessions take ``device=`` and
-resolve it through `repro_torch.resolve_device`.
+`NotImplementedError` naming its ROADMAP item: a workload with an `nlp`
+stream (the `mixed` preset's bert-base slot, queue A item 6), an active
+`TelemetrySpec` (A.8); a bert `arch` raises in `build_model` (A.2).
+Sessions take ``device=`` and resolve it through
+`repro_torch.resolve_device`.
 """
 from __future__ import annotations
 
@@ -240,8 +241,8 @@ class RuntimeConfig:
     preempt_resume_cost_s: float = 0.0
     memory_budget_mb: float = 0.0
     # compiled hot path (DESIGN.md §12): fused scan training, deferred
-    # vmapped serving, segment-sliced event loop. Off by default; the
-    # port raises on it until ROADMAP A.6.
+    # vmapped serving, segment-sliced event loop; in the port, CUDA
+    # graphs of the train steps and of serving. Off by default.
     compiled: bool = False
     # route attention forwards and the SimFreeze CKA probe through the
     # CUDA kernels (their wrappers take the plain versions on the CPU)
@@ -410,14 +411,20 @@ def _build_benchmark(slot_cfg: SlotConfig, seed: int):
     return streams.REGISTRY[name](**kw)
 
 
-def _build_model(arch: str, *, use_pallas: bool = False, device=None):
+def _build_model(arch: str, *, use_pallas: bool = False,
+                 compiled: bool = False, device=None):
     from repro_torch.configs import get_reduced
     from repro_torch.models import build_model
 
     mcfg = get_reduced(arch)
     if use_pallas:
         mcfg = mcfg.replace(use_pallas=True)
-    return build_model(mcfg, device=device)
+    model = build_model(mcfg, device=device)
+    if compiled:
+        from repro_torch.runtime.train_loop import compiled_model
+
+        model = compiled_model(model)
+    return model
 
 
 def _slot_policies(cfg: RuntimeConfig, sc: SlotConfig) -> PolicyStackSpec:
@@ -435,6 +442,24 @@ def _slot_policies(cfg: RuntimeConfig, sc: SlotConfig) -> PolicyStackSpec:
     return dataclasses.replace(sc.policies, freeze=freeze)
 
 
+def _pool_from_config(cfg: RuntimeConfig, spec, benches, device):
+    """One `ModelSlot` per workload modality, arch/memory from the
+    matching `SlotConfig`; each slot pretrains/validates on the benchmark
+    of its first bound stream."""
+    from repro_torch.runtime.modelpool import ModelPool, ModelSlot
+
+    slots = []
+    for m in spec.modalities:
+        sc = cfg.slots[m]
+        first = next(i for i, s in enumerate(spec.streams)
+                     if s.modality == m)
+        slots.append(ModelSlot(
+            m, _build_model(sc.arch, use_pallas=cfg.use_pallas,
+                            compiled=cfg.compiled, device=device),
+            benches[first], memory_mb=sc.memory_mb))
+    return ModelPool(slots, memory_budget_mb=cfg.memory_budget_mb)
+
+
 def resolve_session(cfg: RuntimeConfig, *, device=None, model=None,
                     benchmark=None, controller=None,
                     controller_factory=None, stream_benchmarks=None,
@@ -448,15 +473,26 @@ def resolve_session(cfg: RuntimeConfig, *, device=None, model=None,
     names another) is where the models, train steps and batches live; an
     injected model must already be there."""
     cfg.validate()
-    if cfg.compiled:
+    session_events = None
+    spec = workload_spec
+
+    if spec is None and cfg.workload is not None:
+        from repro_torch.workloads import presets
+
+        scale = dict(cfg.workload_scale)
+        batch_size = scale.pop("batch_size", 8)
+        known = presets(seed=cfg.seed, **scale)
+        if cfg.workload not in known:
+            raise ValueError(f"unknown workload preset {cfg.workload!r}; "
+                             f"known presets: {sorted(known)}")
+        spec = known[cfg.workload]
+    else:
+        batch_size = dict(cfg.workload_scale).get("batch_size", 8)
+    if spec is not None and "nlp" in spec.modalities:
         raise NotImplementedError(
-            "compiled=True is not ported yet (ROADMAP A.6: the fused train "
-            "step and the compiled serving path)")
-    if cfg.workload is not None or workload_spec is not None:
-        raise NotImplementedError(
-            "workload presets are not ported yet (ROADMAP queue A item 6: "
-            "bert-base and the 'mixed' preset bring the port's copy of "
-            "workloads/)")
+            f"workload {spec.name!r} has an nlp stream, whose bert-base "
+            f"slot is not ported yet (ROADMAP queue A item 6: bert-base "
+            f"and the 'mixed' preset)")
     _build_telemetry(cfg.telemetry)
     device = resolve_device(device)
     for m in ([model] if model is not None else []) + \
@@ -467,6 +503,25 @@ def resolve_session(cfg: RuntimeConfig, *, device=None, model=None,
                              f"session on {device}")
 
     slot_hooks: Dict[str, List[RoundHook]] = {}
+    config_built_pool = False
+
+    if spec is not None:
+        from repro_torch.workloads.generators import compile_workload
+
+        missing = [m for m in spec.modalities if m not in cfg.slots]
+        if missing:
+            raise ValueError(
+                f"workload {spec.name!r} needs a SlotConfig per modality; "
+                f"missing {missing} (have {sorted(cfg.slots)})")
+        if stream_benchmarks is None:
+            stream_benchmarks = materialize_stream_benchmarks(
+                spec, cfg.seed, batch_size)
+        session_events = compile_workload(spec)
+        if len(spec.modalities) > 1 and model_pool is None:
+            model_pool = _pool_from_config(cfg, spec, stream_benchmarks,
+                                           device)
+            config_built_pool = True
+
     hooks: List[RoundHook] = []
     if model_pool is not None:
         # per-slot hooks: each pool slot binds the hooks its SlotConfig
@@ -484,6 +539,16 @@ def resolve_session(cfg: RuntimeConfig, *, device=None, model=None,
                     f"has {sorted(model_pool.slots)}; RoundHooks bind "
                     f"per slot under a ModelPool")
             slot_hooks[name] = sc.build_hooks()
+        # synthesize per-slot controllers from the slot policies ONLY for
+        # a pool this resolution built from the config — an injected pool
+        # keeps the explicit "slot has no controller" contract
+        if controller_factory is None and config_built_pool:
+            pool = model_pool
+            stacks = {n: _slot_policies(cfg, sc)
+                      for n, sc in cfg.slots.items()}
+
+            def controller_factory(key, _pool=pool, _stacks=stacks):
+                return _stacks[key].build(_pool.slot(key).model)
     else:
         single = cfg.slots[next(iter(cfg.slots))] if len(cfg.slots) == 1 \
             else None
@@ -494,7 +559,14 @@ def resolve_session(cfg: RuntimeConfig, *, device=None, model=None,
                 f"{sorted(cfg.slots)} and neither)")
         if model is None:
             model = _build_model(single.arch, use_pallas=cfg.use_pallas,
-                                 device=device)
+                                 compiled=cfg.compiled, device=device)
+        elif cfg.compiled:
+            # injected model: still graph its serving/probe forwards (the
+            # controller below is built on the wrapped model, so
+            # SimFreeze's feature probes replay from graphs too)
+            from repro_torch.runtime.train_loop import compiled_model
+
+            model = compiled_model(model)
         if benchmark is None:
             if stream_benchmarks is not None and 0 in stream_benchmarks:
                 benchmark = stream_benchmarks[0]
@@ -502,6 +574,12 @@ def resolve_session(cfg: RuntimeConfig, *, device=None, model=None,
                 benchmark = _build_benchmark(single, cfg.seed)
         if controller is None:
             controller = _slot_policies(cfg, single).build(model)
+        if controller_factory is None and spec is not None:
+            mdl = model
+            policies = _slot_policies(cfg, single)
+
+            def controller_factory(key, _m=mdl, _p=policies):
+                return _p.build(_m)
         hooks = single.build_hooks()
         hooks.extend(extra_hooks or [])
 
@@ -521,5 +599,7 @@ def resolve_session(cfg: RuntimeConfig, *, device=None, model=None,
         controller_factory=controller_factory,
         preemptible=cfg.preemptible,
         preempt_resume_cost_s=cfg.preempt_resume_cost_s,
-        model_pool=model_pool, devices=cfg.devices, routing=cfg.routing,
+        model_pool=model_pool, compiled=cfg.compiled,
+        session_events=session_events, devices=cfg.devices,
+        routing=cfg.routing,
         aggregate_every=cfg.aggregate_every, device=device)

@@ -166,8 +166,11 @@ class ContinualRuntime:
         session from a validated `RuntimeConfig` on `device`. Anything
         the config cannot express serializably — a custom benchmark
         object, a pre-built controller/factory/pool, a cost model, live
-        RoundHooks — is injected as a keyword and wins over what the
-        config would build."""
+        RoundHooks, an already-scaled `WorkloadSpec` — is injected as a
+        keyword and wins over what the config would build. When the
+        config names a workload preset, the per-stream benchmarks and the
+        compiled event timeline are materialized too and `run()` replays
+        them by default."""
         rt = cls.__new__(cls)
         rt._init(**resolve_session(
             cfg, device=device, model=model, benchmark=benchmark,
@@ -182,6 +185,7 @@ class ContinualRuntime:
               inference_batch, calibrate_cost, inference_window, hooks,
               slot_hooks, stream_benchmarks, controller_factory,
               preemptible, preempt_resume_cost_s, model_pool, device,
+              compiled=False, session_events=None,
               devices=(), routing="static", aggregate_every=0.0):
         # ModelPool construction path: the pool's slots carry the models,
         # benchmarks and (optionally) controllers; model/benchmark/
@@ -218,6 +222,15 @@ class ContinualRuntime:
         self.preemptible = preemptible
         # QoS: modeled checkpoint-resume overhead paid on each round split
         self.preempt_resume_cost_s = preempt_resume_cost_s
+        # compiled hot path (DESIGN.md §12): all training goes through the
+        # fused masked step (CUDA graphs on the card), serving through
+        # deferred stacked dispatch, and the event loop through segment
+        # slicing. `segment` (overridable before run(); the equivalence
+        # tests force it off) additionally fuses whole same-shape runs —
+        # per-event compiled execution is the same masked loop at bucket
+        # 1, so toggling it never moves a bit.
+        self.compiled = bool(compiled)
+        self.segment = True
         # round hooks: model-wrapping ones bind first so every later
         # consumer sees the wrapped model
         self.hooks: List[RoundHook] = list(hooks or [])
@@ -232,10 +245,19 @@ class ContinualRuntime:
         self.aggregate_every = float(aggregate_every)
         # the DeviceFleet the last run() drove (live handle for tests)
         self.fleet = None
+        # a config-built session may carry its workload's compiled event
+        # timeline; run() replays it when no explicit events are passed
+        self._session_events: Optional[List[Event]] = session_events
         # single-model step cache lives on the runtime (reused across
         # run() calls); pool slots build their own caches per run
         self.steps = None if model_pool is not None else \
             TrainStepCache(model=self.model, opt_cfg=self.opt_cfg)
+
+    @property
+    def session_events(self) -> Optional[List[Event]]:
+        """The workload timeline a config-built session will replay when
+        `run()` is called without explicit events (None otherwise)."""
+        return self._session_events
 
     # -------------------------------------------------------------------
     def _build_slots(self, ledger: CostLedger, rng: np.random.Generator,
@@ -259,7 +281,8 @@ class ContinualRuntime:
                 ledger, replay, rng=rng,
                 hooks=self.hooks, calibrate_cost=self.calibrate_cost,
                 device_name=spec.name, speed_scale=spec.speed_scale,
-                preempt_resume_cost_s=self.preempt_resume_cost_s)
+                preempt_resume_cost_s=self.preempt_resume_cost_s,
+                compiled=self.compiled, fuse=self.segment)
             slots[DEFAULT_MODEL] = _SlotState(
                 DEFAULT_MODEL, self.model, self.bench, self.controller,
                 self.steps, executor)
@@ -291,7 +314,8 @@ class ContinualRuntime:
                 hooks=hooks, calibrate_cost=self.calibrate_cost,
                 model_name=slot.name, device_name=spec.name,
                 speed_scale=spec.speed_scale,
-                preempt_resume_cost_s=self.preempt_resume_cost_s)
+                preempt_resume_cost_s=self.preempt_resume_cost_s,
+                compiled=self.compiled, fuse=self.segment)
             slots[slot.name] = _SlotState(slot.name, model,
                                           slot.benchmark, ctrl, steps,
                                           executor)
@@ -302,22 +326,28 @@ class ContinualRuntime:
             inferences_total: Optional[int] = None,
             data_dist: Optional[str] = None,
             inf_dist: Optional[str] = None) -> RunResult:
-        """Drive the full continual-learning session. The timeline is the
-        explicit `events`, or a legacy timeline generated from
-        `inferences_total`/`data_dist`/`inf_dist` (defaults
-        60/"poisson"/"poisson") — the generation knobs apply only to that
-        case."""
+        """Drive the full continual-learning session. The timeline comes
+        from, in precedence order: explicit `events`, the config-built
+        session's compiled workload (`session_events`), or a legacy
+        timeline generated from `inferences_total`/`data_dist`/`inf_dist`
+        (defaults 60/"poisson"/"poisson") — the generation knobs apply
+        only to that last case."""
         timeline_kw = {k: v for k, v in (("inferences_total",
                                           inferences_total),
                                          ("data_dist", data_dist),
                                          ("inf_dist", inf_dist))
                        if v is not None}
-        if timeline_kw and events is not None:
+        if timeline_kw and (events is not None
+                            or self._session_events is not None):
             warnings.warn(
                 f"run(): {sorted(timeline_kw)} only shape the generated "
                 f"legacy timeline and are ignored when events are "
-                f"supplied", UserWarning, stacklevel=2)
+                f"supplied (explicit or from the session's workload "
+                f"config)", UserWarning, stacklevel=2)
         bench = self.bench
+        if events is None and self._session_events is not None:
+            # config-built session: replay the workload's compiled timeline
+            events = list(self._session_events)
         if events is None:
             events = build_timeline(
                 num_scenarios=bench.num_scenarios - 1,

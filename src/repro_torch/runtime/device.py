@@ -26,8 +26,7 @@ Not ported yet: the device's physical environment (the reference's
 the port's fleet takes no active `EnvSpec`, so every round is allowed,
 as on an env-less reference device — and what the merge and the
 straggler tracker read (`rounds_since_sync`, `round_times`), all
-ROADMAP A.8; the compiled path's deferred serving
-(`InferenceServer.drain`, A.6).
+ROADMAP A.8.
 """
 from __future__ import annotations
 
@@ -72,6 +71,7 @@ class DeviceRuntime:
         self.server = InferenceServer(self.primary.model,
                                       batch_window=host.inference_window,
                                       on_served=self.served,
+                                      fused=host.compiled,
                                       tracer=self.tracer, track=self.name)
         for name, st in slots.items():
             self.server.register(name, st.model)
@@ -201,6 +201,7 @@ class DeviceRuntime:
         # inference_served (LazyTune decay, scenario detection) lag by
         # at most one window.
         self.server.expire(ev.time)
+        self.server.drain()  # fused mode: deliver deferred serves now
         change = fleet.pending_change.get(st, False) \
             and self.host.boundaries == "detector"
         if (boundary and self.host.boundaries == "oracle") or change:
@@ -265,6 +266,7 @@ class DeviceRuntime:
         # ~1/3 of a measured train step: forward only)
         fleet = self.fleet
         st = ev.stream
+        self.server.drain()  # fused mode: serve anything deferred first
         fleet.probes_fired[0] += 1
         slot = self.slot_of(st)
         self.acquire(slot, ev.time, st)
@@ -330,7 +332,8 @@ def clone_device_slots(fleet, spec, index: int, slots0: Dict,
             hooks=src.executor.hooks, calibrate_cost=host.calibrate_cost,
             model_name=name, device_name=spec.name,
             speed_scale=spec.speed_scale,
-            preempt_resume_cost_s=host.preempt_resume_cost_s)
+            preempt_resume_cost_s=host.preempt_resume_cost_s,
+            compiled=host.compiled, fuse=host.segment)
         executor.load(tree_map(torch.clone, src.executor.params),
                       _clone_state(src.executor.opt_state))
         slots[name] = _SlotState(name, src.model, src.bench, ctrl,

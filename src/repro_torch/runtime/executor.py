@@ -15,10 +15,12 @@ The executor is timeline-agnostic: it receives `now` and an
 controller notification stay with the caller. The reference's tracer
 spans come with the port of `repro.obs`'s live tracer.
 
-The train steps are out of place, so the params that escape the
-executor (published to serving, held as SimFreeze's reference) are never
-written: the reference's `_own_buffers` copy, which its donating steps
-need, has nothing to do here.
+The eager train steps are out of place, and the compiled path's
+`TrainStepCache.fused_call` copies the params and optimizer state into
+its graph's static buffers before every replay and hands out fresh
+tensors after it (the counterpart of the reference's `_own_buffers`,
+which its donating steps need). So the params that escape the executor
+(published to serving, held as SimFreeze's reference) are never written.
 """
 from __future__ import annotations
 
@@ -33,7 +35,8 @@ from repro_torch import tree_leaves, tree_map, tree_unflatten
 from repro_torch.core import semi
 from repro_torch.runtime.costmodel import EdgeCostModel
 from repro_torch.runtime.ledger import DEFAULT_DEVICE, DEFAULT_MODEL, CostLedger
-from repro_torch.runtime.train_loop import TrainStepCache, as_tensor
+from repro_torch.runtime.train_loop import (TrainStepCache, as_tensor,
+                                            same_shape_runs)
 
 
 # ---------------------------------------------------------------------------
@@ -240,7 +243,9 @@ class FineTuneExecutor:
                  model_name: str = DEFAULT_MODEL,
                  device_name: str = DEFAULT_DEVICE,
                  speed_scale: float = 1.0,
-                 preempt_resume_cost_s: float = 0.0):
+                 preempt_resume_cost_s: float = 0.0,
+                 compiled: bool = False,
+                 fuse: bool = True):
         self.steps = steps
         self.device = steps.model.device
         self.cost = cost
@@ -249,6 +254,13 @@ class FineTuneExecutor:
         self.rng = rng
         self.hooks = list(hooks)
         self.calibrate_cost = calibrate_cost
+        # compiled hot path (DESIGN.md §12): every supervised update goes
+        # through the fused masked step — `fuse` additionally batches each
+        # maximal same-shape run of a round into one call, and can be
+        # dropped per run without moving a bit, since both are the same
+        # masked loop
+        self.compiled = bool(compiled)
+        self.fuse = bool(fuse)
         # model-slot and fleet-device attribution keys of every ledger
         # charge and occupancy; cost calibration multiplies flops_per_sec
         # by `speed_scale`
@@ -290,19 +302,36 @@ class FineTuneExecutor:
     # ---- round -----------------------------------------------------------
     def _train_batch(self, step, plan, b: dict) -> None:
         """One training iteration: the first hook that claims the batch
-        updates the params; otherwise the plan-aware supervised step."""
-        tb = as_tensor(b, self.device)
+        updates the params; otherwise the plan-aware supervised step (the
+        bucket-1 fused step in compiled mode, so per-batch and
+        segment-batched execution are the same masked loop, which takes
+        the host batch)."""
+        tb = as_tensor(b, self.device) \
+            if self.hooks or not self.compiled else None
         for h in self.hooks:
             handled = h.process_batch(self.params, b, tb)
             if handled is not None:
                 self.params = handled
                 return
+        if self.compiled:
+            self.params, self.opt_state, _ = self.steps.fused_call(
+                plan, self.params, self.opt_state, [b])
+            return
         self.params, self.opt_state, _ = step(self.params, self.opt_state,
                                               tb)
 
     def _run_batches(self, step, plan, batches: Sequence[dict]) -> None:
-        for b in batches:
-            self._train_batch(step, plan, b)
+        """Train a round's batches. Compiled hook-free rounds batch each
+        maximal run of same-shape batches into one fused call; hooks claim
+        batches one at a time (their RNG draws are order-dependent), so
+        hook-bearing rounds stay per batch."""
+        if not (self.compiled and self.fuse) or self.hooks:
+            for b in batches:
+                self._train_batch(step, plan, b)
+            return
+        for run in same_shape_runs(batches):
+            self.params, self.opt_state, _ = self.steps.fused_call(
+                plan, self.params, self.opt_state, run)
 
     def _calibrated(self, per_iter_flops: float) -> EdgeCostModel:
         # Preserve the paper's compute/overhead balance (Fig. 3) at
@@ -480,6 +509,8 @@ class FineTuneExecutor:
         ar = self.active_round
         if ar is None or (now is not None and now < ar.end):
             return None
+        # preemption boundaries advance batch by batch (the bucket-1 fused
+        # step in compiled mode) — QoS semantics untouched
         while ar.trained < len(ar.batches):
             self._train_batch(ar.step, ar.plan, ar.batches[ar.trained])
             ar.trained += 1

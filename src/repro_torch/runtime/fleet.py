@@ -31,7 +31,8 @@ from repro_torch.runtime.device import DeviceRuntime
 from repro_torch.runtime.ledger import (DEFAULT_DEVICE, DEVICE_KEYS,
                                         MODEL_KEYS, STREAM_KEYS, CostLedger)
 from repro_torch.runtime.scheduler import EventScheduler
-from repro_torch.runtime.train_loop import as_tensor, make_optimizer_state
+from repro_torch.runtime.train_loop import (as_tensor, make_optimizer_state,
+                                            same_shape_runs)
 
 #: Pseudo-stream id cross-device sync charges land on: no arrival stream
 #: caused them, the fleet did.
@@ -185,10 +186,16 @@ class DeviceFleet:
             plan0 = st.controller.plan
             pre = [b for _ in range(host.pretrain_epochs)
                    for b in st.bench.scenarios[0].train_batches]
-            step0 = st.steps.get(plan0)
-            for b in pre:
-                params, opt_state, _ = step0(params, opt_state,
-                                             as_tensor(b, st.model.device))
+            if host.compiled:
+                # one fused call per same-shape run of pretrain batches
+                for run in same_shape_runs(pre):
+                    params, opt_state, _ = st.steps.fused_call(
+                        plan0, params, opt_state, run)
+            else:
+                step0 = st.steps.get(plan0)
+                for b in pre:
+                    params, opt_state, _ = step0(
+                        params, opt_state, as_tensor(b, st.model.device))
             st.reference_params = params  # "initial model before fine-tuning"
             st.executor.load(params, opt_state)
         if host.pool is not None:
@@ -270,12 +277,34 @@ class DeviceFleet:
             self._settle_all(ev.time)
             self.device_for(ev.stream).on_probe(ev)
 
-        scheduler.run(on_data=on_data, on_inference=on_inference,
-                      on_scenario_change=on_scenario_change,
-                      on_probe=on_probe)
+        def on_inference_event(ev: Event) -> None:
+            # compiled but unsegmented (detector mode, or `segment` off):
+            # serve each event's deferred dispatch before the next event
+            on_inference(ev)
+            self.device_for(ev.stream).server.drain()
+
+        def on_inference_segment(segment: List[Event]) -> None:
+            # a maximal run of consecutive inference events (compiled hot
+            # path, DESIGN.md §12): per-event bookkeeping is unchanged,
+            # only each device's dispatch is deferred and fused per drain
+            for ev in segment:
+                on_inference(ev)
+            for dev in self.devices:
+                dev.server.drain()
+
+        segmented = (host.compiled and host.segment
+                     and host.boundaries != "detector")
+        scheduler.run(
+            on_data=on_data,
+            on_inference=on_inference_event if host.compiled
+            else on_inference,
+            on_scenario_change=on_scenario_change, on_probe=on_probe,
+            on_inference_segment=on_inference_segment if segmented
+            else None)
         self._settle_all(float("inf"))  # finalize rounds still in flight
         for dev in self.devices:
             dev.server.flush()
+            dev.server.drain()
             dev.trailing_flush()
 
         return self._assemble(RunResult)

@@ -34,9 +34,14 @@ params-identity split) is unchanged either way.
 `batch_window=0` (the default) reproduces the legacy per-request path
 exactly — bit-for-bit, including the shared RNG consumption order.
 
-Counterpart of `repro.runtime.inference`: the eager request path. The
-deferred vmapped serving of the compiled path (`fused`, `drain`) is not
-ported yet.
+Counterpart of `repro.runtime.inference`. The compiled path's deferred
+serving (`fused`, `drain`) stacks same-(slot, params, shape) groups as
+the reference's vmapped dispatch does, but runs each group's `predict` at
+the group's own shape, one after another in one CUDA graph per (predict,
+concat signature, bucket) on the card (eagerly on the CPU). The groups
+are never merged into one larger batch: the CNNs normalize on batch
+statistics, per group under `jax.vmap`, and a merged batch would change
+the served numbers (and give cuBLAS other shapes than the eager path).
 """
 from __future__ import annotations
 
@@ -47,7 +52,13 @@ import numpy as np
 
 from repro_torch.obs.trace import NULL_TRACER
 from repro_torch.runtime.ledger import DEFAULT_MODEL
-from repro_torch.runtime.train_loop import as_tensor, evaluate
+from repro_torch.runtime.train_loop import (CapturedCall, as_tensor,
+                                            evaluate, on_card, pinned)
+
+# Process-global serving graphs keyed on the eager predict function plus
+# (concat signature, stack bucket), so every server over the same model
+# shares them.
+_STACKS: Dict[Any, CapturedCall] = {}
 
 
 @dataclass
@@ -85,7 +96,7 @@ class InferenceServer:
 
     def __init__(self, model, *, batch_window: float = 0.0,
                  on_served: Optional[Callable[[np.ndarray, int], bool]] = None,
-                 tracer=NULL_TRACER,
+                 fused: bool = False, tracer=NULL_TRACER,
                  track: Optional[str] = None):
         self.batch_window = float(batch_window)
         self.on_served = on_served
@@ -95,6 +106,14 @@ class InferenceServer:
         # with `track`, the owning device's lane. NULL_TRACER = free.
         self.tracer = tracer
         self.track = track
+        # compiled hot path (DESIGN.md §12): defer closed groups to a FIFO
+        # and execute them in `drain()`, same-shape groups for one (slot,
+        # params) in a single call. Recording and `on_served` delivery
+        # stay in arrival order; the composition root drains at every
+        # event boundary, so controller signal timing matches the eager
+        # path.
+        self.fused = bool(fused)
+        self._ready: List[List[_Pending]] = []
         # model slots: the single-model path lives entirely in "default";
         # a ModelPool runtime registers one extra lane per slot.
         self._lanes: Dict[str, _SlotLane] = {DEFAULT_MODEL: _SlotLane(model)}
@@ -156,6 +175,7 @@ class InferenceServer:
         genuinely serve the pre-round model — the paper §III-A "outdated
         model" effect."""
         self.flush()
+        self.drain()
         if self.tracer:
             self.tracer.instant("publish", f"publish/{slot}", visible_at,
                                 device=self.track, slot=slot,
@@ -236,6 +256,9 @@ class InferenceServer:
 
     # ---- execution -------------------------------------------------------
     def _serve(self, group: List[_Pending]) -> None:
+        if self.fused:
+            self._ready.append(group)
+            return
         if self.tracer:
             self.tracer.instant("serve", f"serve/{group[0].slot}",
                                 group[0].time, device=self.track,
@@ -263,6 +286,78 @@ class InferenceServer:
                                  np.asarray(p.request["labels"]))
                                 .astype(np.float32)))
             self._record(p, acc, lg)
+
+    def drain(self) -> None:
+        """Execute every deferred group (fused mode; no-op otherwise).
+
+        Groups are concatenated exactly like the eager multi-request path,
+        then same-(slot, params, shape) concats are stacked and run in one
+        call (`_forward_stack`). Results are recorded strictly in arrival
+        order."""
+        if not self._ready:
+            return
+        ready, self._ready = self._ready, []
+        concats: List[Dict[str, np.ndarray]] = []
+        stacks: Dict[Any, List[int]] = {}
+        for gi, group in enumerate(ready):
+            if len(group) == 1:
+                batch = {k: np.asarray(v) for k, v in group[0].request.items()}
+            else:
+                batch = {k: np.concatenate([p.request[k] for p in group])
+                         for k in group[0].request}
+            concats.append(batch)
+            sig = tuple(sorted((k, v.shape, str(v.dtype))
+                               for k, v in batch.items()))
+            key = (group[0].slot, id(group[0].params), sig)
+            stacks.setdefault(key, []).append(gi)
+        logits_by_group: Dict[int, np.ndarray] = {}
+        for (slot, _, sig), idxs in stacks.items():
+            first = ready[idxs[0]][0]
+            if self.tracer:
+                self.tracer.instant("serve", f"vmap/{slot}", first.time,
+                                    device=self.track, slot=slot,
+                                    groups=len(idxs),
+                                    requests=sum(len(ready[i])
+                                                 for i in idxs))
+            out = self._forward_stack(first.model, first.params, slot, sig,
+                                      [concats[i] for i in idxs])
+            for row, gi in enumerate(idxs):
+                logits_by_group[gi] = out[row]
+        for gi, group in enumerate(ready):
+            self.eval_calls += 1
+            logits = logits_by_group[gi]
+            offset = 0
+            for p in group:
+                n = len(p.request["labels"])
+                lg = logits[offset:offset + n]
+                offset += n
+                acc = float(np.mean((np.argmax(lg, -1) ==
+                                     np.asarray(p.request["labels"]))
+                                    .astype(np.float32)))
+                self._record(p, acc, lg)
+
+    def _forward_stack(self, model, params, slot, sig,
+                       concats: List[Dict[str, np.ndarray]]
+                       ) -> List[np.ndarray]:
+        """Each concat's logits from its own `predict` call at its own
+        shape. On the card: one CUDA graph of `bucket` calls, the padding
+        calls repeating the first concat and dropped, as the reference
+        pads its vmapped stack; on the CPU: the calls themselves."""
+        predict = getattr(model.predict, "eager", model.predict)
+        device = model.device
+        if not on_card(device):
+            return [predict(params, as_tensor(c, device)).cpu().numpy()
+                    for c in concats]
+        n = len(concats)
+        bucket = 1 << max(n - 1, 0).bit_length()
+        key = (predict, sig, bucket)
+        graph = _STACKS.get(key)
+        if graph is None:
+            graph = _STACKS[key] = CapturedCall(
+                lambda args: [predict(args[0], b) for b in args[1]], device)
+        padded = concats + [concats[0]] * (bucket - n)
+        out = graph((params, [pinned(c) for c in padded]))
+        return [t.cpu().numpy() for t in out[:n]]
 
     def _record(self, p: _Pending, acc: float, logits) -> None:
         self.accs.append(acc)

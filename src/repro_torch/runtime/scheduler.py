@@ -8,8 +8,7 @@ owns exactly that: the priority-ordered event queue, the `now`/`busy_until`
 device-occupancy semantics, and scenario-boundary bookkeeping. It knows
 nothing about models, params or cost models — those live behind the typed
 callbacks (`on_data` / `on_inference` / `on_scenario_change`) a composition
-root wires up. Counterpart of `repro.runtime.scheduler`, without the
-compiled path's inference segments.
+root wires up. Counterpart of `repro.runtime.scheduler`.
 """
 from __future__ import annotations
 
@@ -34,6 +33,7 @@ OnData = Callable[[Event, bool], None]          # (event, scenario_boundary)
 OnInference = Callable[[Event], None]
 OnScenarioChange = Callable[[int, Event], None]  # (previous_scenario, event)
 OnProbe = Callable[[Event], None]                # detector-driven probe
+OnInferenceSegment = Callable[[list], None]      # maximal run of inferences
 
 
 @dataclass
@@ -209,12 +209,23 @@ class EventScheduler:
     # ---- dispatch --------------------------------------------------------
     def run(self, *, on_data: OnData, on_inference: OnInference,
             on_scenario_change: Optional[OnScenarioChange] = None,
-            on_probe: Optional[OnProbe] = None) -> None:
+            on_probe: Optional[OnProbe] = None,
+            on_inference_segment: Optional[OnInferenceSegment] = None
+            ) -> None:
         """Drain the queue in time order, advancing `now` monotonically and
         emitting one callback per event. "probe" events (detector-driven
         drift confirmation, typically pushed mid-drain) go to `on_probe`
         and are dropped when no handler is wired — they carry no payload a
-        generic embedder must not lose."""
+        generic embedder must not lose.
+
+        With `on_inference_segment` wired (the compiled hot path,
+        DESIGN.md §12), each *maximal run of consecutive inference
+        events* — the timeline slice between two non-inference events —
+        is popped in one go and delivered as a single segment, so the
+        handler can fuse the whole run into one device call. Slicing
+        never reorders: the segment's events are exactly the events
+        `on_inference` would have seen, in the same order, and `now` /
+        `dispatched` advance identically."""
         trace = self.tracer if self.trace_dispatch else NULL_TRACER
         while self._heap:
             _, ev = heapq.heappop(self._heap)
@@ -247,5 +258,18 @@ class EventScheduler:
                         "probe event dropped at t=%.3f (stream %s): no "
                         "on_probe handler wired (%d dropped so far)",
                         ev.time, ev.stream, self.dropped_probes)
+            elif on_inference_segment is not None:
+                segment = [ev]
+                while self._heap and self._heap[0][1].kind == "inference":
+                    _, nxt = heapq.heappop(self._heap)
+                    self.dispatched += 1
+                    segment.append(nxt)
+                if trace:
+                    for nxt in segment[1:]:
+                        trace.instant("dispatch", nxt.kind, nxt.time,
+                                      stream=nxt.stream,
+                                      scenario=nxt.scenario)
+                self.now = max(self.now, segment[-1].time)
+                on_inference_segment(segment)
             else:
                 on_inference(ev)

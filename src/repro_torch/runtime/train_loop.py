@@ -7,11 +7,32 @@ A step takes the gradient of the model's `loss` on fresh leaves made
 from the params (the stored params never require grad), turns the
 `None` autograd gives a leaf the plan froze into a zero gradient, as
 `jax.grad` gives zeros behind `stop_gradient`, and applies the
-optimizer to every leaf, out of place. The reference's compiled path
-(`multi_step`, `fused_call`, `compiled_model`) has no counterpart yet.
+optimizer to every leaf, out of place.
+
+Compiled hot path (DESIGN.md §12; the reference's `multi_step`,
+`fused_call`, `compiled_model`): `fused_call` runs a same-shape run of
+batches as one call of a masked loop of `bucket` steps, the run padded up
+to a power-of-two bucket with a per-step validity mask
+(``torch.where(valid[i], new, old)`` on every leaf, Adam's step count
+included, so a padding step leaves the carry bitwise unchanged). On the
+CPU that loop runs eagerly. On a CUDA device it is one CUDA graph of
+`bucket` steps (`CapturedCall`): a replay launches exactly the kernels
+the eager steps launch, in the same order, so fused, per-batch and eager
+training agree to the bit, which is what XLA's scan gives the reference.
+`compiled_model` replays a model's `predict` and `features` from a graph
+per batch signature. There is no fallback: a capture or replay that fails
+on the card raises.
+
+A graph reads its inputs from static buffers and writes its outputs to
+memory the next replay overwrites, while the runtime keeps params in
+several holders between rounds (serving lanes, SimFreeze's reference,
+the pretrained reference params). So every call copies its inputs into
+the graph's buffers and hands out fresh copies of its outputs: no tensor
+a caller holds is ever written by a replay.
 """
 from __future__ import annotations
 
+import dataclasses
 import weakref
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, Sequence, Tuple
@@ -25,12 +46,140 @@ from repro_torch.optim import (AdamWConfig, adamw_init, adamw_update,
                                sgdm_init, sgdm_update)
 
 
+# Process-global registries, keyed as the reference's: sessions over the
+# same model (the same loss and forward functions) share every captured
+# graph instead of capturing their own. Keys hold the functions
+# themselves (not id()), so a live entry never collides with a recycled id.
+_MULTI: Dict[Tuple, Callable] = {}
+_MULTI_BUCKETS: Dict[Tuple, set] = {}
+_COMPILED_MODELS: Dict[Any, Any] = {}
+# one CUDA-graph memory pool per device, shared by every graph: replays
+# run one at a time on one stream, and each call copies its outputs out
+# before any other graph replays, so one graph's scratch may reuse
+# another's
+_POOLS: Dict[Any, Any] = {}
+
+
 def batch_signature(batch: dict) -> Tuple:
     """Hashable (shape, dtype) signature of a host/device batch dict —
     the key the recompile ledger counts shapes by."""
     return tuple(sorted(
         (k, tuple(getattr(v, "shape", ())), str(getattr(v, "dtype", "")))
         for k, v in batch.items()))
+
+
+def _bucket(n: int) -> int:
+    """Next power of two >= n (scan-length / group-size padding bucket)."""
+    return 1 << max(n - 1, 0).bit_length()
+
+
+def _flatten(tree, leaves: list):
+    """Append `tree`'s leaves to `leaves`; return its structure (dicts,
+    lists, tuples and NamedTuples kept) for `_unflatten`."""
+    if isinstance(tree, dict):
+        return dict, [(k, _flatten(v, leaves)) for k, v in tree.items()]
+    if isinstance(tree, (list, tuple)):
+        return type(tree), [_flatten(v, leaves) for v in tree]
+    leaves.append(tree)
+    return None
+
+
+def _unflatten(spec, it):
+    if spec is None:
+        return next(it)
+    kind, children = spec
+    if kind is dict:
+        return {k: _unflatten(c, it) for k, c in children}
+    vals = [_unflatten(c, it) for c in children]
+    return kind(*vals) if hasattr(kind, "_fields") else kind(vals)
+
+
+def _copy(dst: list, src: list) -> None:
+    """dst[i].copy_(src[i]) for every i, without blocking the host: one
+    multi-tensor copy per (device, dtype) group of sources, the form that
+    takes a few launches instead of one a tensor."""
+    groups: Dict[Tuple, list] = {}
+    for d, s in zip(dst, src, strict=True):
+        groups.setdefault((s.device, s.dtype), []).append((d, s))
+    for pairs in groups.values():
+        torch._foreach_copy_([d for d, _ in pairs], [s for _, s in pairs],
+                             non_blocking=True)
+
+
+def _fresh(leaves: list) -> list:
+    """New tensors holding `leaves`' values."""
+    out = [torch.empty_like(t) for t in leaves]
+    _copy(out, leaves)
+    return out
+
+
+class CapturedCall:
+    """`fn(tree)` on a CUDA device, replayed from one CUDA graph.
+
+    The first call copies its input leaves into static buffers, runs `fn`
+    once on a side stream (autograd, cuBLAS and the kernel libraries set
+    themselves up there, as capture requires) and captures it into a
+    graph in the device's shared pool. Every call then copies its inputs
+    into the static buffers (device tensors, or pinned host tensors
+    copied without blocking), replays the graph and returns fresh copies
+    of its outputs, in `fn`'s structure. Inputs must keep the shapes,
+    dtypes and structure of the first call. `replays` counts replays
+    (the kernels inside a graph launch on the card without passing their
+    host-side wrappers again)."""
+
+    def __init__(self, fn: Callable, device: torch.device):
+        self.fn = fn
+        self.device = device
+        self.graph = None
+        self.replays = 0
+        self._inputs: list = []
+        self._outputs: list = []
+        self._out_spec = None
+
+    def __call__(self, tree):
+        leaves: list = []
+        spec = _flatten(tree, leaves)
+        if self.graph is None:
+            self._capture(spec, leaves)
+        else:
+            _copy(self._inputs, leaves)
+        self.graph.replay()
+        self.replays += 1
+        return _unflatten(self._out_spec, iter(_fresh(self._outputs)))
+
+    def _capture(self, spec, leaves: list) -> None:
+        with torch.inference_mode(False):
+            self._inputs = [torch.empty_like(t, device=self.device)
+                            for t in leaves]
+        _copy(self._inputs, leaves)
+        static = _unflatten(spec, iter(self._inputs))
+        stream = torch.cuda.current_stream(self.device)
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(stream)
+        with torch.cuda.stream(side):
+            self.fn(static)
+        stream.wait_stream(side)
+        pool = _POOLS.get(self.device)
+        if pool is None:
+            pool = _POOLS[self.device] = torch.cuda.graph_pool_handle()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, pool=pool):
+            out = self.fn(static)
+        self._outputs = []
+        self._out_spec = _flatten(out, self._outputs)
+        self.graph = graph
+
+
+def on_card(device: torch.device) -> bool:
+    """Whether calls on `device` replay from CUDA graphs (else they run
+    eagerly, as on the CPU)."""
+    return device.type == "cuda"
+
+
+def pinned(batch: dict) -> dict:
+    """A host batch as pinned CPU tensors (copied to the card without
+    blocking the host)."""
+    return {k: torch.as_tensor(v).pin_memory() for k, v in batch.items()}
 
 
 def grads_of(loss_fn, params, batch, plan):
@@ -107,8 +256,10 @@ class TrainStepCache:
     `recompiles` counts distinct (plan, batch-shape) programs, as the
     reference's jit cache does: one per new plan, plus one per
     *additional* batch shape a plan is asked to handle (the first shape
-    rides on the plan's own compile). PyTorch runs the steps eagerly, so
-    nothing is compiled: the count is what the cost model charges."""
+    rides on the plan's own compile). The count is what the cost model
+    charges; it is kept the same whether the steps run eagerly or as the
+    fused steps' CUDA graphs (`multi_step`), which are captured per
+    (plan, batch shape, bucket) and counted nowhere."""
     model: Any
     opt_cfg: Any
     _steps: Dict[Any, Callable] = field(default_factory=dict)
@@ -146,6 +297,42 @@ class TrainStepCache:
                 shapes.add(sig)
         return self._steps[plan]
 
+    # ---- fused multi-batch step (compiled hot path) ----------------------
+    def multi_step(self, plan, example_batch: dict,
+                   length: int) -> Tuple[Callable, int]:
+        """The masked loop over a run of `length` same-shape batches;
+        returns (fn, bucket) where fn(params, opt_state, batches, valid)
+        takes `bucket` host batches and a [bucket] bool mask. Padding
+        steps leave the carry bitwise untouched, which also lets a short
+        run ride an already-captured *larger* bucket instead of capturing
+        its own. Reuse is capped at 2x the run's natural bucket so padding
+        never more than doubles the device work. The reference's contract,
+        registries and keys, without its `donate` flag."""
+        base = (self.model.loss, self.opt_cfg, plan,
+                batch_signature(example_batch))
+        need = _bucket(length)
+        captured = _MULTI_BUCKETS.setdefault(base, set())
+        fits = [b for b in captured if need <= b <= 2 * need]
+        bucket = min(fits) if fits else need
+        captured.add(bucket)
+        key = base + (bucket,)
+        fn = _MULTI.get(key)
+        if fn is None:
+            fn = _MULTI[key] = _MultiStep(self._raw_step(plan),
+                                          self.model.device)
+        return fn, bucket
+
+    def fused_call(self, plan, params, opt_state, batches: Sequence[dict]):
+        """Train a same-shape run of host batches in one call (one graph
+        replay on a CUDA device). The single-batch case is the same masked
+        loop at bucket 1, so per-batch and fused execution agree to the
+        bit; the returned params and state are fresh tensors."""
+        self.get(plan, batches[0])  # recompile-ledger bookkeeping
+        fn, bucket = self.multi_step(plan, batches[0], len(batches))
+        padded = list(batches) + [batches[0]] * (bucket - len(batches))
+        valid = np.arange(bucket) < len(batches)
+        return fn(params, opt_state, padded, valid)
+
     def flops(self, plan, example_batch) -> float:
         """FLOPs of one train step's loss and gradient under `plan`, as
         `FlopCounterMode` counts them (matmuls and convolutions only,
@@ -172,6 +359,44 @@ class TrainStepCache:
         return self._flops[plan]
 
 
+class _MultiStep:
+    """`bucket` train steps as one masked loop: step i's outputs replace
+    the carry where ``valid[i]``, leaf by leaf (``torch.where``), so a
+    padding step keeps every bit of the params and the optimizer state.
+    On a CUDA device the loop is one `CapturedCall`; on the CPU it runs
+    eagerly."""
+
+    def __init__(self, raw_step: Callable, device: torch.device):
+        self.raw_step = raw_step
+        self.graph = CapturedCall(self._loop, device) \
+            if on_card(device) else None
+
+    def _loop(self, args):
+        params, opt_state, batches, valid = args
+        metrics = []
+        for i, batch in enumerate(batches):
+            p2, o2, m = self.raw_step(params, opt_state, batch)
+            keep = valid[i]
+            params = tree_map(lambda new, old: torch.where(keep, new, old),
+                              p2, params)
+            opt_state = type(opt_state)(*(
+                tree_map(lambda new, old: torch.where(keep, new, old), a, b)
+                for a, b in zip(o2, opt_state)))
+            metrics.append(m)
+        return params, opt_state, tree_map(lambda *ms: torch.stack(ms),
+                                           *metrics)
+
+    def __call__(self, params, opt_state, batches, valid):
+        if self.graph is None:
+            device = tree_leaves(params)[0].device
+            return self._loop((params, opt_state,
+                               [as_tensor(b, device) for b in batches],
+                               torch.as_tensor(valid)))
+        return self.graph((params, opt_state,
+                           [pinned(b) for b in batches],
+                           torch.as_tensor(valid).pin_memory()))
+
+
 def same_shape_runs(batches: Sequence[dict]):
     """Yield the maximal runs of consecutive same-signature batches."""
     i, n = 0, len(batches)
@@ -196,6 +421,50 @@ def as_tensor(batch: dict, device) -> dict:
     `torch.inference_mode()` for a batch that trains: a tensor made in
     inference mode cannot be saved for backward."""
     return {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
+
+
+class GraphedForward:
+    """A model's `predict` or `features` replayed from a CUDA graph per
+    batch signature: the params and the batch are
+    copied into the graph's static buffers before each replay, and the
+    outputs come back as fresh tensors. `eager` is the function itself;
+    it runs as it is on the CPU, when the call needs a gradient (SimSiam
+    differentiates `features`), and inside another capture, which then
+    records its kernels."""
+
+    def __init__(self, eager: Callable):
+        self.eager = eager
+        self.graphs: Dict[Tuple, CapturedCall] = {}
+
+    def __call__(self, params, batch):
+        leaves = tree_leaves(params)
+        device = leaves[0].device
+        if not on_card(device) or torch.cuda.is_current_stream_capturing() \
+                or (torch.is_grad_enabled()
+                    and any(p.requires_grad for p in leaves)):
+            return self.eager(params, batch)
+        key = batch_signature(batch)
+        graph = self.graphs.get(key)
+        if graph is None:
+            graph = self.graphs[key] = CapturedCall(
+                lambda args: self.eager(*args), device)
+        return graph((params, batch))
+
+
+def compiled_model(model):
+    """The model whose `predict` and `features` replay from CUDA graphs
+    (`GraphedForward`), the compiled hot path's serving and probe side.
+    `loss` stays as it is: it only runs inside train steps. Memoized on
+    the (features, predict) functions, so repeated wraps of one model
+    share its graphs process-wide."""
+    key = (model.features, model.predict)
+    wrapped = _COMPILED_MODELS.get(key)
+    if wrapped is None:
+        kw = {"features": GraphedForward(model.features)}
+        if model.predict is not None:
+            kw["predict"] = GraphedForward(model.predict)
+        wrapped = _COMPILED_MODELS[key] = dataclasses.replace(model, **kw)
+    return wrapped
 
 
 def evaluate(model, params, batch) -> Tuple[float, np.ndarray]:

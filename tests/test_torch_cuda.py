@@ -1,11 +1,13 @@
-"""The port's CUDA kernels on the card against their plain versions, and
-one train step on the card against the same step on the CPU.
+"""The port's CUDA kernels on the card against their plain versions, one
+train step on the card against the same step on the CPU, and the compiled
+hot path's CUDA graphs against the eager calls they replay.
 
 These need an NVIDIA GPU and nvcc: a CUDA kernel has no CPU mode, so on a
 machine without a card every test here skips. Run them on the card with
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
+import numpy as np
 import pytest
 import torch
 
@@ -360,3 +362,131 @@ def test_train_step_on_the_card_matches_the_cpu(gen, flags):
                                    atol=1e-4 * float(w.abs().max()))
     torch.testing.assert_close(out["cuda"][2], out["cpu"][2], rtol=1e-4,
                                atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# the compiled hot path's CUDA graphs
+
+
+def _loop_batches(cfg, n, seed=2, size=8):
+    rng = np.random.default_rng(seed)
+    return [{"images": rng.random((size, cfg.image_size, cfg.image_size, 3),
+                                  dtype=np.float32),
+             "labels": rng.integers(0, cfg.num_classes, size)
+             .astype(np.int32)} for _ in range(n)]
+
+
+def _cuda_model(arch):
+    cfg = get_reduced(arch)
+    if arch == "deit-tiny":
+        cfg = cfg.replace(use_pallas=True)
+    model = build_model(cfg, device="cuda")
+    return model, model.init(torch.Generator().manual_seed(0))
+
+
+@pytest.mark.parametrize("arch", ["deit-tiny", "mobilenetv2"])
+@pytest.mark.parametrize("bucket,length", [(1, 1), (2, 2), (8, 5)])
+def test_graphed_fused_call_is_the_plain_masked_loop(gen, arch, bucket,
+                                                     length):
+    # the graph replays the kernels the eager loop launches, so the
+    # params, Adam's step and both moments agree to the bit, and so do
+    # `length` single eager steps; the caller's tensors stay unwritten
+    model, params = _cuda_model(arch)
+    opt_cfg = AdamWConfig(lr=1e-3)
+    state = make_optimizer_state(model, opt_cfg, params)
+    plan = LayerFreezePlan((False,) * model.num_freeze_units)
+    cache = TrainStepCache(model, opt_cfg)
+    batches = _loop_batches(model.cfg, length)
+    kept = [t.clone() for t in tree_leaves((params, state))]
+    fn, got_bucket = cache.multi_step(plan, batches[0], length)
+    assert got_bucket == bucket and fn.graph is not None
+    fused = cache.fused_call(plan, params, state, batches)
+    fused = cache.fused_call(plan, params, state, batches)  # a replay
+    assert fn.graph.replays == 2
+    padded = batches + [batches[0]] * (bucket - length)
+    plain = fn._loop((params, state, [as_tensor(b, "cuda") for b in padded],
+                      torch.arange(bucket, device="cuda") < length))
+    p, s = params, state
+    step = cache.get(plan)
+    for b in batches:
+        p, s, _ = step(p, s, as_tensor(b, "cuda"))
+    torch.cuda.synchronize()
+    for a, b, c in zip(tree_leaves(fused[:2]), tree_leaves(plain[:2]),
+                       tree_leaves((p, s)), strict=True):
+        assert torch.equal(a, b) and torch.equal(a, c)
+    assert int(fused[1].step) == length
+    for a, b in zip(kept, tree_leaves((params, state)), strict=True):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("arch", ["deit-tiny", "mobilenetv2"])
+def test_forward_stack_graph_is_per_group_eager_predict(gen, arch):
+    # each group keeps its own predict call (MobileNetV2 normalizes on the
+    # group's batch statistics; DeiT-tiny runs flash attention inside the
+    # graph), three groups padded to a bucket of four
+    from repro_torch.runtime.inference import InferenceServer
+
+    model, params = _cuda_model(arch)
+    concats = _loop_batches(model.cfg, 3, seed=3, size=16)
+    sig = tuple(sorted((k, v.shape, str(v.dtype))
+                       for k, v in concats[0].items()))
+    server = InferenceServer(model, fused=True)
+    before = att_ops.flash_attention.launches
+    got = server._forward_stack(model, params, "default", sig, concats)
+    got = server._forward_stack(model, params, "default", sig, concats)
+    counted = att_ops.flash_attention.launches - before
+    want = [model.predict(params, as_tensor(c, "cuda")).cpu().numpy()
+            for c in concats]
+    assert len(got) == 3
+    for a, b in zip(got, want, strict=True):
+        np.testing.assert_array_equal(a, b)
+    if arch == "deit-tiny":
+        # the wrapper counts the warm-up and the capture (4 groups of 2
+        # layers each), not the replays, which launch on the card alone
+        assert counted == 2 * 4 * model.cfg.num_layers
+
+
+def test_graphed_forward_is_the_eager_forward(gen):
+    from repro_torch.runtime.train_loop import compiled_model
+
+    model, params = _cuda_model("deit-tiny")
+    wrapped = compiled_model(model)
+    batch = as_tensor(_loop_batches(model.cfg, 1, size=16)[0], "cuda")
+    for _ in range(2):
+        got = wrapped.predict(params, batch), wrapped.features(params, batch)
+    want = model.predict(params, batch), model.features(params, batch)
+    assert torch.equal(got[0], want[0])
+    for a, b in zip(got[1], want[1], strict=True):
+        assert torch.equal(a, b)
+    graph = wrapped.predict.graphs[next(iter(wrapped.predict.graphs))]
+    assert graph.replays == 2
+
+
+def test_compiled_session_on_the_card_is_the_eager_session(gen):
+    # `tests/test_torch_compiled.py`'s equalities on the card: a compiled
+    # preemptible qos session (train-step graphs, stacked serving graphs,
+    # graphed probes) against per-event and eager runs of the same session
+    from repro_torch.runtime import RuntimeConfig, SlotConfig, edgeol_session
+
+    def run(compiled, segment=True):
+        cfg = RuntimeConfig(
+            slots={"cv": SlotConfig()}, workload="qos",
+            workload_scale=dict(batches_per_scenario=4, inferences=10,
+                                num_scenarios=2),
+            seed=0, pretrain_epochs=1, preemptible=True, compiled=compiled)
+        rt = edgeol_session(cfg, device="cuda")
+        rt.segment = segment
+        res = rt.run()
+        return res, tree_leaves(rt.fleet.devices[0].primary.executor.params)
+
+    base, base_params = run(True)
+    assert base.preemptions > 0
+    for other, params in (run(True, segment=False), run(False)):
+        assert (other.rounds, other.recompiles, other.preemptions) == \
+            (base.rounds, base.recompiles, base.preemptions)
+        assert other.inference_accs == base.inference_accs
+        assert other.val_curve == base.val_curve
+        assert other.total_time_s == base.total_time_s
+        assert other.per_stream == base.per_stream
+        assert all(torch.equal(a, b)
+                   for a, b in zip(params, base_params, strict=True))

@@ -43,7 +43,7 @@ def test_importing_every_module_loads_neither_jax_nor_repro():
                           env={**os.environ, "PYTHONPATH": str(ROOT / "src")},
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
-    assert len(_modules()) >= 65
+    assert len(_modules()) >= 69
 
 
 # the fine-tuning slice's modules, each the counterpart of the JAX
@@ -91,8 +91,23 @@ def test_cnn_and_hook_modules_are_ported(name):
     assert (ROOT / "src" / "repro" / (name.replace(".", "/") + ".py")).exists()
 
 
+# the compiled hot path's workload presets, a copy of the JAX package's
+# jax-free `workloads/`
+WORKLOADS = ["workloads", "workloads.spec", "workloads.generators",
+             "workloads.presets"]
+
+
+@pytest.mark.parametrize("name", WORKLOADS)
+def test_workload_modules_are_ported(name):
+    assert f"repro_torch.{name}" in _modules()
+    assert (ROOT / "src" / "repro" / (name.replace(".", "/") + ".py")
+            ).exists() or (ROOT / "src" / "repro" / name.replace(".", "/")
+                           / "__init__.py").exists()
+
+
 def test_runtime_root_loads_neither_jax_nor_repro():
-    names = ['repro_torch.' + n for n in RUNTIME_ROOT + CNN_AND_HOOKS]
+    names = ['repro_torch.' + n
+             for n in RUNTIME_ROOT + CNN_AND_HOOKS + WORKLOADS]
     code = ("import importlib, sys\n"
             f"for m in {names!r}:\n"
             "    importlib.import_module(m)\n"
@@ -139,8 +154,14 @@ def _default_session():
     edgeol_session(RuntimeConfig())
 
 
+def _compiled_workload_session():
+    edgeol_session(RuntimeConfig(slots={"cv": SlotConfig()},
+                                 workload="single-poisson", compiled=True))
+
+
 @pytest.mark.parametrize("entry", [resolve_device, _build, _bridge, _etuner,
-                                   _session, _cnn, _default_session])
+                                   _session, _cnn, _default_session,
+                                   _compiled_workload_session])
 def test_entry_points_raise_without_gpu(monkeypatch, entry):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):

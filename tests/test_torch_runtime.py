@@ -414,7 +414,10 @@ def _tiny_bench():
 UNPORTED = {
     "bert": (dict(slots={"default": config.SlotConfig(arch="bert-base")}),
              "ROADMAP A.2"),
-    "compiled": (dict(compiled=True), "ROADMAP A.6"),
+    "nlp-workload": (dict(slots={"cv": config.SlotConfig(arch="deit-tiny"),
+                                 "nlp": config.SlotConfig(arch="bert-base")},
+                          workload="mixed", compiled=True),
+                     "ROADMAP queue A item 6"),
     "workload": (dict(workload="mixed"), "ROADMAP queue A item 6"),
     "telemetry": (dict(telemetry=TelemetrySpec(enabled=True)),
                   "ROADMAP A.8"),
