@@ -13,6 +13,8 @@ as ``x @ W`` — so leaves cross unchanged, except:
 - CNNs: every leaf becomes fp32; the HWIO convolution kernels and the
   [in, out] head cross unchanged (repro_torch.models.cnn permutes the
   kernels at call time).
+- BERT: every leaf becomes fp32 and crosses unchanged (token and
+  position tables, [in, out] dense weights).
 - LMs: each leaf keeps its own dtype (the rwkv init mixes fp32 and
   `param_dtype` leaves), and the blocks, which JAX stacks along a leading
   group axis [G, ...] (``scan_layers``) or keeps as per-group lists, become
@@ -25,7 +27,7 @@ import torch
 
 from repro_torch import resolve_device, tree_leaves, tree_map
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import cnn
+from repro_torch.models import bert, cnn
 from repro_torch.models.vit import patch_size
 
 
@@ -52,6 +54,8 @@ def params_from_jax(tree: dict, cfg: ModelConfig, device=None) -> dict:
         return _vit_params(tree, cfg, device)
     if cfg.family == "cnn":
         return _cnn_params(tree, cfg, device)
+    if cfg.family == "encoder":
+        return _bert_params(tree, cfg, device)
     if cfg.is_lm:
         return _lm_params(tree, cfg, device)
     raise NotImplementedError(f"no bridge for {cfg.family!r} params yet")
@@ -87,6 +91,19 @@ def _cnn_params(tree: dict, cfg: ModelConfig, device) -> dict:
                          f"stem kernel {w.shape} (want {stem})")
     return {"units": _fp32(tree["units"], device),
             "head": _fp32(tree["head"], device)}
+
+
+def _bert_params(tree: dict, cfg: ModelConfig, device) -> dict:
+    emb = tree["embed"]
+    want = {"tok": (cfg.vocab_size, cfg.d_model),
+            "pos": (bert.MAX_POS, cfg.d_model)}
+    got = {k: np.asarray(emb[k]).shape for k in want}
+    w1 = [np.asarray(b["ffn"]["w1"]).shape for b in tree["blocks"]]
+    if got != want or w1 != [(cfg.d_model, cfg.d_ff)] * cfg.num_layers:
+        raise ValueError(f"params do not fit {cfg.name}: tables {got} "
+                         f"(want {want}), ffn kernels {w1} (want "
+                         f"{cfg.num_layers} of {(cfg.d_model, cfg.d_ff)})")
+    return _fp32(tree, device)
 
 
 def _lm_params(tree: dict, cfg: ModelConfig, device) -> dict:

@@ -47,5 +47,8 @@ def build_model(cfg: ModelConfig, device=None) -> Model:
         from repro_torch.models import cnn
 
         return cnn.build(cfg, device)
-    raise NotImplementedError(f"{cfg.family!r} models are not ported yet "
-                              f"(ROADMAP A.2: bert-base)")
+    if cfg.family == "encoder":
+        from repro_torch.models import bert
+
+        return bert.build(cfg, device)
+    raise ValueError(f"unknown model family {cfg.family!r}")

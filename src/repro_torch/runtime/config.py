@@ -31,10 +31,12 @@ policy names and hook names raise with the valid alternatives listed.
 The port's copy (`repro_torch.runtime.config`) keeps the reference's
 names, fields, validation and dict form, so a dict either package's
 `to_dict` writes loads in the other. What the port cannot run yet raises
-`NotImplementedError` naming its ROADMAP item: a workload with an `nlp`
-stream (the `mixed` preset's bert-base slot, queue A item 6), an active
-`TelemetrySpec` (A.8); a bert `arch` raises in `build_model` (A.2).
-Sessions take ``device=`` and resolve it through
+`NotImplementedError` naming its ROADMAP item, A.8: an active
+`TelemetrySpec` here; more than one device, least-loaded routing,
+cross-device merging and an active `EnvSpec` in the fleet. Every
+workload preset runs, the two-modality `mixed` one too: its `nlp`
+stream binds a bert-base slot beside the CV slot in a config-built
+`ModelPool`. Sessions take ``device=`` and resolve it through
 `repro_torch.resolve_device`.
 """
 from __future__ import annotations
@@ -488,11 +490,6 @@ def resolve_session(cfg: RuntimeConfig, *, device=None, model=None,
         spec = known[cfg.workload]
     else:
         batch_size = dict(cfg.workload_scale).get("batch_size", 8)
-    if spec is not None and "nlp" in spec.modalities:
-        raise NotImplementedError(
-            f"workload {spec.name!r} has an nlp stream, whose bert-base "
-            f"slot is not ported yet (ROADMAP queue A item 6: bert-base "
-            f"and the 'mixed' preset)")
     _build_telemetry(cfg.telemetry)
     device = resolve_device(device)
     for m in ([model] if model is not None else []) + \

@@ -370,6 +370,11 @@ def test_train_step_on_the_card_matches_the_cpu(gen, flags):
 
 def _loop_batches(cfg, n, seed=2, size=8):
     rng = np.random.default_rng(seed)
+    if cfg.family == "encoder":  # bert: 32-token sequences
+        return [{"tokens": rng.integers(0, cfg.vocab_size, (size, 32))
+                 .astype(np.int32),
+                 "labels": rng.integers(0, cfg.num_classes, size)
+                 .astype(np.int32)} for _ in range(n)]
     return [{"images": rng.random((size, cfg.image_size, cfg.image_size, 3),
                                   dtype=np.float32),
              "labels": rng.integers(0, cfg.num_classes, size)
@@ -378,19 +383,21 @@ def _loop_batches(cfg, n, seed=2, size=8):
 
 def _cuda_model(arch):
     cfg = get_reduced(arch)
-    if arch == "deit-tiny":
+    if arch in ("deit-tiny", "bert-base"):
         cfg = cfg.replace(use_pallas=True)
     model = build_model(cfg, device="cuda")
     return model, model.init(torch.Generator().manual_seed(0))
 
 
-@pytest.mark.parametrize("arch", ["deit-tiny", "mobilenetv2"])
+@pytest.mark.parametrize("arch", ["deit-tiny", "mobilenetv2", "bert-base"])
 @pytest.mark.parametrize("bucket,length", [(1, 1), (2, 2), (8, 5)])
 def test_graphed_fused_call_is_the_plain_masked_loop(gen, arch, bucket,
                                                      length):
     # the graph replays the kernels the eager loop launches, so the
     # params, Adam's step and both moments agree to the bit, and so do
     # `length` single eager steps; the caller's tensors stay unwritten
+    # (bert: the token table's gradient, torch's embedding backward, is
+    # captured and replayed like the rest)
     model, params = _cuda_model(arch)
     opt_cfg = AdamWConfig(lr=1e-3)
     state = make_optimizer_state(model, opt_cfg, params)
@@ -419,7 +426,7 @@ def test_graphed_fused_call_is_the_plain_masked_loop(gen, arch, bucket,
         assert torch.equal(a, b)
 
 
-@pytest.mark.parametrize("arch", ["deit-tiny", "mobilenetv2"])
+@pytest.mark.parametrize("arch", ["deit-tiny", "mobilenetv2", "bert-base"])
 def test_forward_stack_graph_is_per_group_eager_predict(gen, arch):
     # each group keeps its own predict call (MobileNetV2 normalizes on the
     # group's batch statistics; DeiT-tiny runs flash attention inside the
@@ -440,7 +447,7 @@ def test_forward_stack_graph_is_per_group_eager_predict(gen, arch):
     assert len(got) == 3
     for a, b in zip(got, want, strict=True):
         np.testing.assert_array_equal(a, b)
-    if arch == "deit-tiny":
+    if arch != "mobilenetv2":
         # the wrapper counts the warm-up and the capture (4 groups of 2
         # layers each), not the replays, which launch on the card alone
         assert counted == 2 * 4 * model.cfg.num_layers
@@ -490,3 +497,24 @@ def test_compiled_session_on_the_card_is_the_eager_session(gen):
         assert other.per_stream == base.per_stream
         assert all(torch.equal(a, b)
                    for a, b in zip(params, base_params, strict=True))
+
+
+def test_bert_train_steps_on_the_card_are_deterministic(gen):
+    # two runs of three eager bert train steps from the same params on
+    # batches of 16 x 32 tokens with repeated ids (the token table's
+    # gradient sums the repeats) give the same bits
+    model, params = _cuda_model("bert-base")
+    opt_cfg = AdamWConfig(lr=1e-3)
+    plan = LayerFreezePlan((False,) * model.num_freeze_units)
+    step = TrainStepCache(model, opt_cfg).get(plan)
+    batches = [as_tensor(b, "cuda")
+               for b in _loop_batches(model.cfg, 3, size=16)]
+    runs = []
+    for _ in range(2):
+        p, s = params, make_optimizer_state(model, opt_cfg, params)
+        for b in batches:
+            p, s, _ = step(p, s, b)
+        runs.append(tree_leaves((p, s)))
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(*runs, strict=True))
+    assert not torch.equal(runs[0][0], tree_leaves(params)[0])

@@ -43,7 +43,7 @@ def test_importing_every_module_loads_neither_jax_nor_repro():
                           env={**os.environ, "PYTHONPATH": str(ROOT / "src")},
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
-    assert len(_modules()) >= 69
+    assert len(_modules()) >= 70
 
 
 # the fine-tuning slice's modules, each the counterpart of the JAX
@@ -81,8 +81,8 @@ def test_runtime_root_modules_are_ported(name):
                            / "__init__.py").exists()
 
 
-# the CNNs and the round hooks
-CNN_AND_HOOKS = ["models.cnn", "core.semi"]
+# the CNNs, the round hooks and BERT
+CNN_AND_HOOKS = ["models.cnn", "core.semi", "models.bert"]
 
 
 @pytest.mark.parametrize("name", CNN_AND_HOOKS)
@@ -154,6 +154,17 @@ def _default_session():
     edgeol_session(RuntimeConfig())
 
 
+def _bert():
+    build_model(get_reduced("bert-base"))
+
+
+def _mixed_session():
+    edgeol_session(RuntimeConfig(
+        slots={"cv": SlotConfig(),
+               "nlp": SlotConfig(arch="bert-base", benchmark="20news")},
+        workload="mixed"))
+
+
 def _compiled_workload_session():
     edgeol_session(RuntimeConfig(slots={"cv": SlotConfig()},
                                  workload="single-poisson", compiled=True))
@@ -161,7 +172,8 @@ def _compiled_workload_session():
 
 @pytest.mark.parametrize("entry", [resolve_device, _build, _bridge, _etuner,
                                    _session, _cnn, _default_session,
-                                   _compiled_workload_session])
+                                   _compiled_workload_session, _bert,
+                                   _mixed_session])
 def test_entry_points_raise_without_gpu(monkeypatch, entry):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):

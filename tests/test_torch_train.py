@@ -522,16 +522,17 @@ def test_train_step_cache_counts_recompiles_as_jax():
         [len(r) for r in jax_train_loop.same_shape_runs(runs)] == [2, 2, 1]
 
 
-def _flop_ratio_gaps(jcfg, cfg):
+def _flop_ratio_gaps(jcfg, cfg, batch=None):
     """XLA's and FlopCounterMode's FLOPs of a train step under the
     all-active plan, a frozen prefix of half the units and all units but
-    the head, at batch 16; returns the gaps between the two counts'
-    ratios to all-active."""
+    the head, at batch 16 (images, unless `batch` is given); returns the
+    gaps between the two counts' ratios to all-active."""
     jsteps = jax_train_loop.TrainStepCache(jax_build_model(jcfg),
                                            jax_optim.AdamWConfig())
     model = build_model(cfg, device=CPU)
     steps = TrainStepCache(model, optim.AdamWConfig())
-    batch = _batch(np.random.default_rng(0), 16, cfg)
+    if batch is None:
+        batch = _batch(np.random.default_rng(0), 16, cfg)
     n = model.num_freeze_units
     plans = [(False,) * n, (True,) * (n // 2) + (False,) * (n - n // 2),
              (True,) * (n - 1) + (False,)]
