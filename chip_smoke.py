@@ -81,9 +81,22 @@ It imports nothing of JAX and nothing of the JAX package, and fails
    as the DeiT loop. Then the reference's `semi_quant` session on
    MobileNetV2 (`hooks_phase`: immediate rounds, fake-quant 8 bits,
    SimSiam on half the batches), once: rounds, SimSiam updates, accuracy;
+   then the paper's baselines (`baselines_phase`): Table V's methods
+   (LazyTune, Egeria, SlimFit, RigL, Ekya and ETuner) and Table VII's
+   `static4` on full-width MobileNetV2 at the loops' size, each through
+   the front door with its controller injected (the parameters of
+   `benchmarks/common.py::make_controller`; RigL's model wrapped), with
+   the kernels and plain: the two runs bitwise equal (served logits,
+   final params, plans) and CKA launched once a map of a SimFreeze probe
+   pass, on the example route; Egeria's probes take plain CKA, as in the
+   reference, and launch nothing. It prints each method's rounds, plans,
+   accuracy, modeled time and energy (Ekya's with its profiling charge),
+   CKA launches and loop time;
    then the compiled hot path (`compiled_phase`): DeiT-tiny (flash
-   attention on) on the `single-poisson` and preemptible `qos` workload
-   presets and MobileNetV2 on `single-poisson`, through
+   attention on; depth cut to `COMPILED_DEIT_LAYERS` of its 12 layers,
+   so the fleet fits the script's time) on the `single-poisson` and
+   preemptible `qos` workload presets and MobileNetV2 on
+   `single-poisson`, through
    `ContinualRuntime.from_config(RuntimeConfig(workload=...,
    compiled=...))` at the loops' size (3 scenarios of 6 batches of 16,
    48 requests a stream, benchmarks injected at the model's image size),
@@ -116,6 +129,20 @@ It imports nothing of JAX and nothing of the JAX package, and fails
    example route; it prints per-slot step times by plan, rounds/s, swaps
    and peak memory, then runs compiled under a budget that holds one
    slot at a time (swaps charged, the budget honoured);
+   then the multi-device fleet (`fleet_phase`) on full-width MobileNetV2:
+   24 of the `fleet` preset's 120 light streams (3 scenarios of 3
+   batches of 16, 12 requests each) on three devices
+   (`fleet_devices(3, seed=0, speed_spread=0.4)`) under least-loaded
+   routing with merges every 25 s of the timeline; 12 of them on the
+   same three and a fourth device five times slower under static
+   routing, which the straggler tracker evicts; and `two-stream` on two
+   devices with a 40 J battery (thermal cap 26 C) under the battery
+   throttle policy. Each runs compiled, compiled with `segment=False`,
+   eager and eager plain (least-loaded also compiled again, warm), all
+   exactly equal (the result with every device's attribution, plans,
+   merges, deferrals, every device's final params bitwise); it prints
+   merges, syncs, evictions, deferrals, each device's DVFS time and CKA
+   launches, rounds/s, requests/s and peak memory;
    then rwkv6-3b serving at full width and depth (`get_config("rwkv6-3b")`,
    32 layers, d=2560, bf16, 3.07e9 params from a seeded CUDA generator):
    `ServeEngine.generate` on 4 prompts of 512 tokens for 16 greedy steps,
@@ -188,14 +215,19 @@ import torch.nn.functional as F
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch import tree_leaves, tree_map  # noqa: E402
+from repro_torch.baselines import (  # noqa: E402
+    make_controller, profiling_charge)
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core.cka import cka as core_cka  # noqa: E402
 from repro_torch.core.cka import cka_feature_form  # noqa: E402
 from repro_torch.core.freeze_plan import LayerFreezePlan  # noqa: E402
-from repro_torch.core.policies import etuner_stack_spec  # noqa: E402
+from repro_torch.core.policies import (  # noqa: E402
+    PolicySpec, etuner_stack_spec)
 from repro_torch.core.simfreeze import SimFreeze, SimFreezeConfig  # noqa: E402
 from repro_torch.data.arrivals import build_timeline  # noqa: E402
 from repro_torch.data.streams import REGISTRY, nc_benchmark  # noqa: E402
+from repro_torch.distributed.straggler import StragglerConfig  # noqa: E402
+from repro_torch.env import EnvSpec  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.attention import ops as att_ops  # noqa: E402
 from repro_torch.kernels.cka import ops as cka_ops  # noqa: E402
@@ -206,9 +238,10 @@ from repro_torch.optim import AdamWConfig  # noqa: E402
 from repro_torch.runtime import config as config_mod  # noqa: E402
 from repro_torch.runtime import fleet as fleet_mod  # noqa: E402
 from repro_torch.runtime.config import (  # noqa: E402
-    HookSpec, RuntimeConfig, SlotConfig)
+    DeviceConfig, HookSpec, RuntimeConfig, SlotConfig)
 from repro_torch.runtime.continual import ContinualRuntime  # noqa: E402
 from repro_torch.runtime.costmodel import EdgeCostModel  # noqa: E402
+from repro_torch.runtime.device import DeviceRuntime  # noqa: E402
 from repro_torch.runtime import train_loop  # noqa: E402
 from repro_torch.runtime.executor import (  # noqa: E402
     FineTuneExecutor, SimSiamHook)
@@ -1187,6 +1220,10 @@ def hooks_phase(cfg):
 # half the batches, its bulk stream 24 and twice the batches)
 WORKLOAD_SCALE = dict(num_scenarios=3, batches_per_scenario=6,
                       inferences=48, batch_size=16)
+#: DeiT-tiny's depth in the compiled phase, cut from 12 so the whole
+#: script, with the fleet phase, stays near half its time limit; the
+#: DeiT-tiny serving and loop phases keep all 12 layers
+COMPILED_DEIT_LAYERS = 6
 COMPILED_SESSIONS = (("deit-tiny", "single-poisson", False),
                      ("deit-tiny", "qos", True),
                      ("mobilenetv2", "single-poisson", False))
@@ -1440,7 +1477,8 @@ def fullest_trace(run, tries: int = 3) -> dict:
 
 
 def compiled_phase() -> dict:
-    """Each session of `COMPILED_SESSIONS` at full width four ways:
+    """Each session of `COMPILED_SESSIONS` at full width (DeiT-tiny at
+    `COMPILED_DEIT_LAYERS` layers) four ways:
     compiled, compiled with `segment=False`, eager (`compiled=False`) and
     compiled again (every graph already captured: the warm compiled run).
     All four must give the same rounds, plans, recompiles, preemptions,
@@ -1449,8 +1487,8 @@ def compiled_phase() -> dict:
     session."""
     CAPTURES.graphs.clear()
     models = {"deit-tiny": build_model(get_config("deit-tiny").replace(
-        use_pallas=True)), "mobilenetv2": build_model(get_config(
-            "mobilenetv2"))}
+        use_pallas=True, num_layers=COMPILED_DEIT_LAYERS)),
+        "mobilenetv2": build_model(get_config("mobilenetv2"))}
     scale = {k: v for k, v in WORKLOAD_SCALE.items() if k != "batch_size"}
     card = {}
     for arch, workload, preemptible in COMPILED_SESSIONS:
@@ -1917,6 +1955,463 @@ def mixed_phase() -> dict:
                              f"{tres.swaps} swaps, {tres.breakdown}")
     return {"flash_eager": launches["flash_attention"],
             "cka_eager": launches["cka_terms"], "flash_card": flash}
+
+
+# ---------------------------------------------------------------------------
+# phase 3: the paper's baselines (Table V) at full width
+
+
+#: Table V's methods and Table VII's `static4`
+TABLE_V = ("lazytune", "egeria", "slimfit", "rigl", "ekya", "etuner",
+           "static4")
+
+
+class _Probes:
+    """While installed, counts SimFreeze probe passes (one features call
+    and a CKA for every map), whichever controller runs them."""
+
+    def __init__(self):
+        self.passes = 0
+        self._orig = SimFreeze._all_cka
+
+    def __enter__(self):
+        spy = self
+
+        def all_cka(sf, *args):
+            spy.passes += 1
+            return spy._orig(sf, *args)
+
+        SimFreeze._all_cka = all_cka
+        return self
+
+    def __exit__(self, *exc):
+        SimFreeze._all_cka = self._orig
+
+
+def run_method(model, bench, events, method: str, *, use_kernel: bool):
+    """One Table V method on the loops' data through the port's front
+    door (`run_method` of `benchmarks/common.py`: the controller
+    injected, RigL's model wrapped; one pretraining epoch, as the loops),
+    with the kernels (`use_pallas`) or plain. Records every round's plan,
+    the served logits, the probe passes and Ekya's post-run profiling
+    charge."""
+    ctrl = make_controller(model, method, use_kernel)
+    rt = ContinualRuntime.from_config(
+        RuntimeConfig(slots={"default": SlotConfig(arch=model.cfg.name)},
+                      seed=0, pretrain_epochs=1, replay_batches=2,
+                      use_pallas=use_kernel),
+        device=model.device,
+        model=ctrl.wrap_model() if method == "rigl" else model,
+        benchmark=bench, controller=ctrl)
+    plans, logits_out = [], []
+    inference_served = ctrl.inference_served
+
+    def served(logits):
+        logits_out.append(logits.copy())
+        return inference_served(logits)
+
+    ctrl.inference_served = served
+    execute_round = FineTuneExecutor.execute_round
+
+    def spy_round(ex, plan, *a, **k):
+        if ex.buffers.get(k.get("stream", 0)):
+            plans.append(plan.layers)
+        return execute_round(ex, plan, *a, **k)
+
+    FineTuneExecutor.execute_round = spy_round
+    fleet_mod.EventScheduler = _LoopClock
+    try:
+        with _Probes() as probes:
+            res = rt.run(events)
+    finally:
+        fleet_mod.EventScheduler = EventScheduler
+        FineTuneExecutor.execute_round = execute_round
+    torch.cuda.synchronize()
+    loop_s = time.perf_counter() - rt.scheduler.started
+    params = rt.fleet.devices[0].primary.executor.params
+    if not res.rounds or len(plans) != res.rounds or \
+            len(logits_out) != len(res.inference_accs) or \
+            not all(np.isfinite(lg).all() for lg in logits_out) or \
+            not all(bool(torch.isfinite(t).all())
+                    for t in tree_leaves(params)):
+        raise AssertionError(f"{method}: {res.rounds} rounds, {len(plans)} "
+                             f"plans, {len(logits_out)} logits")
+    time_s, energy_j = profiling_charge(ctrl, res.rounds, res.total_time_s,
+                                        res.total_energy_j)
+    profile = getattr(ctrl, "profile_rounds", 0)
+    return {"res": res, "plans": plans, "logits": logits_out,
+            "params": params, "passes": probes.passes, "ctrl": ctrl,
+            "profile_rounds": profile, "time_s": time_s,
+            "energy_j": energy_j, "loop_s": loop_s}
+
+
+def same_method(a, b) -> list:
+    """What differs between two runs of one method (empty: nothing)."""
+    ra, rb = a["res"], b["res"]
+    out = [k for k in ("rounds", "recompiles", "controller_stats",
+                       "inference_accs", "val_curve", "total_time_s",
+                       "total_energy_j", "compute_tflops")
+           if getattr(ra, k) != getattr(rb, k)]
+    out += [k for k in ("plans", "passes", "profile_rounds") if a[k] != b[k]]
+    if not bitwise_equal(a, b):
+        out.append("served logits or final params")
+    return out
+
+
+def baselines_phase() -> dict:
+    """Table V's methods and `static4` on full-width MobileNetV2 at the
+    loops' size, each with the kernels and plain: the two runs bitwise
+    equal (final params, served logits, plans). CKA launches once a
+    feature map of a SimFreeze probe pass, on the example route; Egeria's
+    probes take plain CKA (as in the reference) and launch nothing.
+    Returns the CKA launches of each method's kernel run."""
+    model = build_model(get_config("mobilenetv2"))
+    bench, events = loop_data(model.cfg.image_size)
+    maps = model.num_freeze_units - 1
+    out = {}
+    for method in TABLE_V:
+        zero_launches()
+        kern = run_method(model, bench, events, method, use_kernel=True)
+        launches = read_launches()
+        zero_launches()
+        plain = run_method(model, bench, events, method, use_kernel=False)
+        if any(read_launches().values()):
+            raise AssertionError(f"{method}: the plain run launched a kernel")
+        diff = same_method(kern, plain)
+        if diff:
+            raise AssertionError(f"{method}: the plain run differs in {diff}")
+        res, ctrl = kern["res"], kern["ctrl"]
+        egeria = sum(len(h) for h in getattr(ctrl, "_hist", ()))
+        frozen = ["".join("F" if f else "." for f in p)
+                  for p in dict.fromkeys(kern["plans"])]
+        print(f"  {method}: {res.rounds} rounds, {res.recompiles} "
+              f"recompiles, plans {frozen}; mean accuracy "
+              f"{np.mean(res.inference_accs):.4f}; modeled "
+              f"{kern['time_s']:.6g} s, {kern['energy_j']:.6g} J"
+              + (f" ({kern['profile_rounds']} profiling rounds charged)"
+                 if method == "ekya" else "")
+              + f"; CKA launches {launches['cka_terms']} ({kern['passes']} "
+              f"probe passes x {maps} maps; example route "
+              f"{launches['cka_example']})"
+              + (f", {egeria} plain CKA probes" if method == "egeria" else "")
+              + f"; loop {kern['loop_s']:.3f} s "
+              f"({res.rounds / kern['loop_s']:.3f} rounds/s), plain "
+              f"{plain['loop_s']:.3f} s")
+        if launches["cka_terms"] != maps * kern["passes"] or \
+                launches["cka_example"] != launches["cka_terms"] or \
+                launches["flash_attention"] or launches["wkv6"] or \
+                (method == "etuner") != bool(launches["cka_terms"]) or \
+                (method == "egeria" and not egeria):
+            raise AssertionError(f"{method}: unexpected launches {launches}")
+        if method == "rigl":
+            entries = ctrl.traced_masks.items()
+            dens = [float(m.float().mean()) for m in tree_leaves(ctrl.masks)
+                    if m.dim() >= 2]
+            print(f"    RigL masks: mean density of the kernels "
+                  f"{np.mean(dens):.4f}; the masks its programs read "
+                  f"(C.9): {[(k[0], m is not None) for k, m in entries]}")
+            # eager: the train steps' one entry, traced in pretraining,
+            # before the masks existed
+            if not 0.35 < np.mean(dens) < 0.65 or \
+                    any(m is not None for m in ctrl.traced_masks.values()):
+                raise AssertionError("RigL: unexpected masks")
+        out[method] = launches["cka_terms"]
+    print("  every method's plain run agrees with its kernel run: rounds, "
+          "plans, stats, accuracies, validation curve, ledger; served "
+          "logits and final params bitwise equal")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 3: the multi-device fleet and its environment at full width
+
+
+BATTERY_J = 40.0
+
+
+def fleet_sessions() -> dict:
+    """The fleet sessions: the `fleet` preset's light camera streams on
+    three heterogeneous devices under least-loaded routing with merges
+    every 25 s of the timeline; on the same three and a device five times
+    slower, which the straggler tracker evicts; `two-stream` on two
+    devices on a finite battery under the battery throttle policy.
+    `streams` cuts the preset's 120 streams (`FLEET_STREAMS`); `warm`
+    adds a second compiled run, whose loop is the fleet's throughput."""
+    three = fleet_mod.fleet_devices(3, seed=0, speed_spread=0.4)
+    battery = EnvSpec(battery_capacity_j=BATTERY_J, thermal_cap_c=26.0)
+    return {
+        "least-loaded": dict(workload="fleet", devices=three,
+                             streams=FLEET_STREAMS["least-loaded"],
+                             routing="least-loaded", aggregate_every=25.0,
+                             warm=True),
+        "straggler": dict(
+            workload="fleet",
+            devices=three + (DeviceConfig("slow", speed_scale=0.2),),
+            streams=FLEET_STREAMS["straggler"],
+            routing="static", aggregate_every=10.0,
+            straggler=StragglerConfig(min_samples=1, slow_factor=1.5,
+                                      evict_after=2)),
+        "battery": dict(workload="two-stream",
+                        devices=(DeviceConfig("dev0", env=battery),
+                                 DeviceConfig("dev1", env=battery)),
+                        routing="static", aggregate_every=50.0,
+                        throttle=True)}
+
+
+#: the `fleet` preset's streams, cut from its 120 to what the script's
+#: time allows: every session runs four or five ways for its equality
+#: checks, two of them eager at ~3 rounds/s. Each stream is a light
+#: camera stream at the loops' knobs: 3 scenarios of 3 batches of 16, 12
+#: requests. Least-loaded routing and the merges are the throughput
+#: cell; the straggler session needs only enough streams to load the
+#: slow device before its eviction.
+FLEET_STREAMS = {"least-loaded": 24, "straggler": 12}
+
+
+class _DeviceLaunches:
+    """While installed, adds the CKA launches made inside each fleet
+    device's handlers to that device's count."""
+
+    HANDLERS = ("on_data", "on_inference", "on_probe", "on_scenario_change",
+                "settle", "trailing_flush")
+
+    def __init__(self):
+        self.by_device: dict = {}
+        self._depth = 0
+        self._orig = {n: getattr(DeviceRuntime, n) for n in self.HANDLERS}
+
+    def __enter__(self):
+        spy = self
+        for name, orig in self._orig.items():
+            def handler(dev, *args, _orig=orig, **kw):
+                if spy._depth:
+                    return _orig(dev, *args, **kw)
+                spy._depth += 1
+                before = cka_ops.cka_terms.launches
+                try:
+                    return _orig(dev, *args, **kw)
+                finally:
+                    spy._depth -= 1
+                    spy.by_device[dev.name] = spy.by_device.get(
+                        dev.name, 0) + cka_ops.cka_terms.launches - before
+            setattr(DeviceRuntime, name, handler)
+        return self
+
+    def __exit__(self, *exc):
+        for name, orig in self._orig.items():
+            setattr(DeviceRuntime, name, orig)
+
+
+def run_fleet(model, name, benches, *, compiled, segment=True,
+              use_kernel=True):
+    """One fleet session of `fleet_sessions` through the port's front
+    door on the injected full-width `model`, with the loops' ETuner
+    policies (and the battery throttle where the session has one).
+    Records the plans, the merges the fleet made, the deferrals, each
+    device's CKA launches and final params, the loop's wall time and
+    peak device memory."""
+    s = fleet_sessions()[name]
+    policies = dataclasses.replace(
+        ETUNER_POLICIES, throttle=PolicySpec("battery")) \
+        if s.get("throttle") else ETUNER_POLICIES
+    scale = dict(WORKLOAD_SCALE)
+    if s["workload"] == "fleet":
+        scale["fleet_streams"] = s["streams"]
+    cfg = RuntimeConfig(
+        slots={"cv": SlotConfig(arch=model.cfg.name, policies=policies)},
+        workload=s["workload"], workload_scale=scale, seed=0,
+        pretrain_epochs=1, replay_batches=2, use_pallas=use_kernel,
+        compiled=compiled, devices=s["devices"], routing=s["routing"],
+        aggregate_every=s["aggregate_every"])
+    rt = ContinualRuntime.from_config(cfg, device=model.device, model=model,
+                                      stream_benchmarks=benches)
+    rt.segment = segment
+    rt.straggler_config = s.get("straggler")
+    plans, merges = [], []
+    execute_round = FineTuneExecutor.execute_round
+    merge = fleet_mod.DeviceFleet._merge
+
+    def spy_round(ex, plan, *a, **k):
+        if ex.buffers.get(k.get("stream", 0)):
+            plans.append((ex.device_name, plan.layers))
+        return execute_round(ex, plan, *a, **k)
+
+    def spy_merge(fleet, ts):
+        before = fleet.ledger.syncs
+        merge(fleet, ts)
+        if fleet.ledger.syncs > before:
+            merges.append(ts)
+
+    FineTuneExecutor.execute_round = spy_round
+    fleet_mod.DeviceFleet._merge = spy_merge
+    fleet_mod.EventScheduler = _LoopClock
+    zero_launches()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        with _Probes() as probes, _DeviceLaunches() as per_device:
+            res = rt.run()
+    finally:
+        fleet_mod.EventScheduler = EventScheduler
+        fleet_mod.DeviceFleet._merge = merge
+        FineTuneExecutor.execute_round = execute_round
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    fl = rt.fleet
+    params = {d.name: d.primary.executor.params for d in fl.devices}
+    ctrls = {id(c): c for c in fl.controllers.values()}.values()
+    deferrals = sum(c.throttle.stats().get("throttle_deferred", 0)
+                    for c in ctrls)
+    if not res.rounds or len(plans) != res.rounds or \
+            len(res.inference_accs) != sum(e.kind == "inference"
+                                           for e in rt.session_events):
+        raise AssertionError(f"{name}: {res.rounds} rounds, {len(plans)} "
+                             f"plans, {len(res.inference_accs)} requests")
+    if not all(bool(torch.isfinite(t).all()) for t in tree_leaves(params)) \
+            or not np.isfinite(res.total_time_s):
+        raise AssertionError(f"{name}: non-finite params or ledger")
+    for dim in (res.per_stream, res.per_model, res.per_device):
+        for key, total in (("time_s", res.total_time_s),
+                           ("energy_j", res.total_energy_j)):
+            if not math.isclose(sum(v[key] for v in dim.values()), total,
+                                rel_tol=1e-9):
+                raise AssertionError(f"{name}: {key} attributions do not "
+                                     f"sum to the total")
+    return {"res": res, "plans": plans, "merges": merges, "params": params,
+            "deferrals": deferrals, "passes": probes.passes,
+            "launches": read_launches(), "cka_by_device": per_device.by_device,
+            "assignment": dict(fl.assignment),
+            "loop_s": t2 - rt.scheduler.started,
+            "pretrain_s": rt.scheduler.started - t0,
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+def same_fleet(a, b) -> list:
+    """What differs between two runs of one fleet session (empty:
+    nothing): the run result with every attribution, the plans, merges,
+    deferrals, probe passes, stream assignment and every device's final
+    params, bit for bit."""
+    ra, rb = a["res"], b["res"]
+    out = [k for k in ("rounds", "recompiles", "syncs", "swaps",
+                       "preemptions", "probes", "controller_stats",
+                       "inference_accs", "val_curve", "total_time_s",
+                       "total_energy_j", "compute_tflops", "per_stream",
+                       "per_model", "per_device")
+           if getattr(ra, k) != getattr(rb, k)]
+    out += [k for k in ("plans", "merges", "deferrals", "passes",
+                        "assignment") if a[k] != b[k]]
+    if not all(torch.equal(x, y) for x, y in zip(
+            tree_leaves(a["params"]), tree_leaves(b["params"]),
+            strict=True)):
+        out.append("final params")
+    return out
+
+
+def fleet_phase() -> dict:
+    """Each session of `fleet_sessions` on full-width MobileNetV2, four
+    ways: compiled, compiled with `segment=False`, eager and eager with
+    the plain paths, and compiled again (warm) where the session says so.
+    All exactly equal (the run result with every device's attribution,
+    plans, merges, deferrals, every device's final params bitwise); the
+    kernel runs launch CKA once a map of a probe pass on the example
+    route, on the devices that ran the rounds. Returns each session's CKA
+    launches by device."""
+    model = build_model(get_config("mobilenetv2"))
+    maps = model.num_freeze_units - 1
+    base = {k: v for k, v in WORKLOAD_SCALE.items() if k != "batch_size"}
+    # the preset's stream i does not depend on the stream count, so every
+    # fleet session takes a prefix of one set of streams (~1 s of host
+    # time a stream to draw)
+    fleet = workload_benches(presets(
+        seed=0, fleet_streams=max(FLEET_STREAMS.values()),
+        **base)["fleet"], model.cfg)
+    out = {}
+    for name, s in fleet_sessions().items():
+        if s["workload"] == "fleet":
+            benches = {i: fleet[i] for i in range(s["streams"])}
+        else:
+            benches = workload_benches(
+                presets(seed=0, **base)[s["workload"]], model.cfg)
+        ways = [("compiled", dict(compiled=True)),
+                ("compiled, segment=False",
+                 dict(compiled=True, segment=False)),
+                ("eager", dict(compiled=False))]
+        if s.get("warm"):
+            ways.append(("compiled again", dict(compiled=True)))
+        ways.append(("plain eager", dict(compiled=False, use_kernel=False)))
+        runs = {label: run_fleet(model, name, benches, **kw)
+                for label, kw in ways}
+        first = runs["compiled"]
+        for label, run in runs.items():
+            diff = same_fleet(first, run)
+            if diff:
+                raise AssertionError(f"fleet {name}: the {label} run "
+                                     f"differs from the compiled run in "
+                                     f"{diff}")
+        if any(runs["plain eager"]["launches"].values()):
+            raise AssertionError(f"fleet {name}: the plain run launched "
+                                 f"a kernel")
+        res, launches = first["res"], first["launches"]
+        by_device = first["cka_by_device"]
+        devices = res.per_device
+        print(f"  {name}: {len(devices)} devices "
+              f"{[d.name for d in s['devices']]}, {len(benches)} streams, "
+              f"{res.rounds} rounds, {len(first['merges'])} merges "
+              f"(t = {first['merges']}), {res.syncs} syncs, "
+              f"{sum(v['evicted'] for v in devices.values()):.0f} "
+              f"evictions, {first['deferrals']} deferrals; "
+              f"{len(res.inference_accs)} requests, mean accuracy "
+              f"{np.mean(res.inference_accs):.4f}; modeled "
+              f"{res.total_time_s:.6g} s, {res.total_energy_j:.6g} J")
+        for dev, cell in devices.items():
+            print(f"    {dev}: streams {cell['streams']:.0f}, rounds "
+                  f"{cell['rounds']:.0f}, syncs {cell['syncs']:.0f}, "
+                  f"evicted {cell['evicted']:.0f}, battery dead "
+                  f"{cell['battery_dead']:.0f}, DVFS time "
+                  f"{cell['throttle_s']:.6g} s, energy "
+                  f"{cell['energy_j']:.6g} J, utilization "
+                  f"{cell['utilization']:.4f}; CKA launches "
+                  f"{by_device.get(dev, 0)}")
+        print(f"    CKA launches {launches['cka_terms']} ({first['passes']} "
+              f"probe passes x {maps} maps; example route "
+              f"{launches['cka_example']}), the same in every kernel run")
+        for label, run in runs.items():
+            print(f"    {label}: loop {run['loop_s']:.3f} s "
+                  f"({run['res'].rounds / run['loop_s']:.3f} rounds/s, "
+                  f"{len(res.inference_accs) / run['loop_s']:.2f} "
+                  f"requests/s), pretraining {run['pretrain_s']:.3f} s, "
+                  f"peak device memory {run['peak_gb']:.2f} GB")
+        if launches["cka_terms"] != maps * first["passes"] or \
+                not launches["cka_terms"] or \
+                launches["cka_example"] != launches["cka_terms"] or \
+                sum(by_device.values()) != launches["cka_terms"] or \
+                any(run["launches"] != launches
+                    for label, run in runs.items() if label != "plain eager"):
+            raise AssertionError(f"fleet {name}: unexpected launches "
+                                 f"{launches}, by device {by_device}")
+        if name == "least-loaded" and (len(first["merges"]) < 2 or any(
+                not v["syncs"] for v in devices.values())):
+            raise AssertionError("fleet: fewer than two merges")
+        if name == "straggler" and (not devices["slow"]["evicted"] or
+                                    devices["slow"]["streams"] or sum(
+                                        v["streams"] for v in
+                                        devices.values()) != len(benches)):
+            raise AssertionError("fleet: the slow device was not evicted")
+        if name == "battery":
+            engaged = first["deferrals"] or any(
+                v["throttle_s"] or v["battery_dead"] or v["evicted"]
+                for v in devices.values())
+            if not engaged or any(v["energy_j"] > BATTERY_J + 1e-6
+                                  for v in devices.values()):
+                raise AssertionError("fleet: the battery did not throttle "
+                                     "within its budget")
+        out[name] = by_device
+    print("  compiled, compiled segment=False, eager, plain eager (and "
+          "compiled again) agree exactly in every session: results, every "
+          "device's attribution, plans, merges, deferrals; every device's "
+          "final params bitwise equal")
+    return out
 
 
 def zero_launches() -> None:
@@ -2595,6 +3090,11 @@ def main() -> None:
           f"python {sys.version.split()[0]}, "
           f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
     t0 = time.perf_counter()
+
+    def phase(title: str) -> None:
+        print(f"{title} [{time.perf_counter() - t0:.1f} s since the build "
+              f"began]")
+
     reports = build.build(KERNELS)
     print(f"phase 1: built {sorted(reports) or 'nothing (cached)'} in "
           f"{time.perf_counter() - t0:.1f} s")
@@ -2606,37 +3106,43 @@ def main() -> None:
         build.load(name)
     print(f"  CUDA runtime mapped: {mapped_cudart()}")
 
-    print("phase 2: kernels against their plain versions")
+    phase("phase 2: kernels against their plain versions")
     att_err, cka_err, cnn_err, wkv_err, bert_att_err, bert_cka_err = \
         kernel_phase()
-    print("phase 3: DeiT-tiny serving and SimFreeze probes at full width")
+    phase("phase 3: DeiT-tiny serving and SimFreeze probes at full width")
     launches = slice_phase(get_config("deit-tiny"))
-    print("phase 3: the ETuner loop on DeiT-tiny at full width")
+    phase("phase 3: the ETuner loop on DeiT-tiny at full width")
     loop_launches = etuner_phase(get_config("deit-tiny"))
-    print("phase 3: the ETuner loop on MobileNetV2 at full width")
+    phase("phase 3: the ETuner loop on MobileNetV2 at full width")
     mbv2_launches = cnn_loop_phase(get_config("mobilenetv2"), repeat=True)
-    print("phase 3: the ETuner loop on ResNet50 at full width")
+    phase("phase 3: the ETuner loop on ResNet50 at full width")
     resnet_launches = cnn_loop_phase(get_config("resnet50"), repeat=False)
-    print("phase 3: the round hooks (fake-quant 8 bits, SimSiam 0.5) on "
+    phase("phase 3: the round hooks (fake-quant 8 bits, SimSiam 0.5) on "
           "MobileNetV2 at full width")
     hooks_phase(get_config("mobilenetv2"))
-    print("phase 3: the compiled hot path at full width (CUDA graphs)")
+    phase("phase 3: the paper's baselines (Table V) on MobileNetV2 at full "
+          "width")
+    baselines = baselines_phase()
+    phase("phase 3: the compiled hot path at full width (CUDA graphs)")
     with CAPTURES:
         compiled_launches = compiled_phase()
-    print("phase 3: bert-base serving at full width, 512 positions")
+    phase("phase 3: bert-base serving at full width, 512 positions")
     bert_serving = bert_serving_phase()
-    print("phase 3: the mixed session at full width (MobileNetV2 and "
+    phase("phase 3: the mixed session at full width (MobileNetV2 and "
           "bert-base, two slots on one card)")
     with CAPTURES:
         mixed = mixed_phase()
-    print("phase 3: rwkv6-3b serving at full width and depth")
+    phase("phase 3: the multi-device fleet and its environment on "
+          "MobileNetV2 at full width")
+    fleet = fleet_phase()
+    phase("phase 3: rwkv6-3b serving at full width and depth")
     rwkv = get_config("rwkv6-3b")
     wkv_launches = rwkv_phase(rwkv)
-    print("phase 4: timing at the main-path shapes (CUDA events)")
+    phase("phase 4: timing at the main-path shapes (CUDA events)")
     att, cka, wkv, bert = timing_phase()
     cka_feature = {k: v for k, v in cka.items() if k != "cnn"}
     if args.profile:
-        print("phase 5: where the slices' time goes (torch.profiler)")
+        phase("phase 5: where the slices' time goes (torch.profiler)")
         profile_phase(get_config("deit-tiny"), rwkv)
 
     record = {"kernels": [
@@ -2667,11 +3173,14 @@ def main() -> None:
              "serving_and_probes": launches["cka_terms"],
              "mixed_loop": mixed["cka_eager"],
              **{f"compiled {name}": n["cka_terms"]
-                for name, n in compiled_launches.items()}},
+                for name, n in compiled_launches.items()},
+             "baselines": baselines, "fleet": fleet},
          "launches_by_route": {
              route: sum(p[f"cka_{route}"] for p in (
                  mbv2_launches, resnet_launches, loop_launches, launches))
-             + (mixed["cka_eager"] if route == "example" else 0)
+             + (mixed["cka_eager"] + sum(baselines.values())
+                + sum(n for devs in fleet.values() for n in devs.values())
+                if route == "example" else 0)
              for route in ("feature", "example")},
          "max_abs_err": cnn_err, **cka_record(cka),
          "bert_probe": {"max_abs_err": bert_cka_err, **bert["cka"]},
@@ -2683,6 +3192,8 @@ def main() -> None:
          "launches_by_path": {"rwkv6_serving": wkv_launches},
          "max_abs_err": wkv_err, **wkv},
     ]}
+    print(f"all phases done in {time.perf_counter() - t0:.1f} s since the "
+          f"build began")
     print(card)
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {

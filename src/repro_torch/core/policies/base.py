@@ -13,7 +13,7 @@ each behind its own small contract (a copy of
 - **whether the device can afford a round now** (`ThrottlePolicy` —
   battery/thermal gating against the `repro_torch.env` device
   environment, DESIGN.md §15; inert unless the device carries an active
-  `EnvSpec`, which the port's fleet does not take yet, ROADMAP A.8).
+  `EnvSpec`).
 
 `PolicyStack` (policies/stack.py) composes one of each back into a full
 controller. Policies are pure-Python state machines: they *schedule* the

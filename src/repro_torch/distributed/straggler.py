@@ -8,8 +8,9 @@ between:
   returns a per-host batch-fraction plan;
 - `evict`: drop the host.
 
-The port's fleet runs one device, where no straggler can be seen; the
-fleet's eviction path comes with ROADMAP A.8."""
+The port's fleet (runtime/fleet.py) feeds it each device's mean round
+time at every sync and evicts what it says to evict; a flagged device's
+streams re-route to the fastest active one."""
 from __future__ import annotations
 
 from dataclasses import dataclass

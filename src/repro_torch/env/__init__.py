@@ -3,11 +3,11 @@ DESIGN.md §15): a battery drained by the device's ledger charges, a
 first-order thermal RC node driven by its average power, and a DVFS
 governor that rescales the device's cost model under a thermal cap.
 
-`RuntimeConfig` and `DeviceConfig` carry an `EnvSpec`, so the port needs
-the spec. The port's fleet takes only an inactive spec for now: an
-active one raises `NotImplementedError` naming ROADMAP A.8, which makes
-the environment live. The models are copied whole so that A.8 only has to
-wire them in.
+A `DeviceConfig` with an active `EnvSpec` gets a live `DeviceEnv` in the
+port's fleet (runtime/fleet.py): `EnvLedgerObserver` drains its battery
+from the ledger's charges, the fleet steps it at every dispatch and
+evicts the device when its battery dies, and the device consults its
+`ThrottlePolicy` facet before a round. An inactive spec builds nothing.
 """
 from repro_torch.env.models import BatteryModel, DvfsGovernor, ThermalModel
 from repro_torch.env.runtime import DeviceEnv, EnvLedgerObserver, EnvState

@@ -31,9 +31,10 @@ policy names and hook names raise with the valid alternatives listed.
 The port's copy (`repro_torch.runtime.config`) keeps the reference's
 names, fields, validation and dict form, so a dict either package's
 `to_dict` writes loads in the other. What the port cannot run yet raises
-`NotImplementedError` naming its ROADMAP item, A.8: an active
-`TelemetrySpec` here; more than one device, least-loaded routing,
-cross-device merging and an active `EnvSpec` in the fleet. Every
+`NotImplementedError` naming its ROADMAP item: an active
+`TelemetrySpec` (A.8's telemetry item). Several devices, least-loaded
+routing, cross-device merging, straggler eviction and devices with an
+active `EnvSpec` run in the port's fleet (runtime/fleet.py). Every
 workload preset runs, the two-modality `mixed` one too: its `nlp`
 stream binds a bert-base slot beside the CV slot in a config-built
 `ModelPool`. Sessions take ``device=`` and resolve it through
@@ -168,7 +169,7 @@ class DeviceConfig:
     attaches a physical environment (`repro_torch.env.EnvSpec`, DESIGN.md
     §15: battery budget, thermal RC node, DVFS governor); the default
     None — and an inactive spec — is today's unconstrained behavior,
-    bit-exact. The port's fleet raises on an active spec (ROADMAP A.8)."""
+    bit-exact."""
     name: str
     speed_scale: float = 1.0
     energy_scale: float = 1.0
@@ -259,7 +260,8 @@ class RuntimeConfig:
     # observability (DESIGN.md §14): the default spec is inactive — no
     # tracer, no metrics, no sinks; the run is bit-exact with the
     # pre-telemetry runtime. Any of enabled/trace_jsonl/chrome_trace
-    # activates it, which the port does not run until ROADMAP A.8.
+    # activates it, which the port does not run yet (ROADMAP A.8's
+    # telemetry item).
     telemetry: TelemetrySpec = field(default_factory=TelemetrySpec)
 
     # ---- validation ------------------------------------------------------
@@ -380,8 +382,8 @@ def _build_telemetry(spec: TelemetrySpec) -> None:
     The port has no live telemetry yet."""
     if spec.active:
         raise NotImplementedError(
-            "telemetry is not ported yet (ROADMAP A.8: repro.obs metrics, "
-            "sinks and the live tracer)")
+            "telemetry is not ported yet (ROADMAP A.8, telemetry: "
+            "repro.obs metrics, sinks and the live tracer)")
 
 
 def materialize_stream_benchmarks(spec, seed: int,

@@ -13,7 +13,9 @@ params-visibility seam, opt-in micro-batched serving), `FineTuneExecutor`
 (round execution, the replay buffer, `RoundHook`s) and `CostLedger` (all
 time/energy/FLOPs accounting); plus, optionally, a `ModelPool` of model
 slots under a device memory budget. `run()` hands the timeline to a
-`DeviceFleet` of one device (runtime/fleet.py → runtime/device.py).
+`DeviceFleet` (runtime/fleet.py → runtime/device.py): one device by
+default, or the config's `devices` with their routing, merges,
+straggler eviction and environments.
 
 Construction (DESIGN.md §11): the front door is the declarative
 `RuntimeConfig` — `ContinualRuntime.from_config(cfg, ...)` or
@@ -73,7 +75,7 @@ class RunResult:
     # slot): slot -> {time_s, energy_j, flops, rounds, swaps,
     # avg_inference_acc, inferences}
     per_model: Dict[str, Dict[str, float]] = field(default_factory=dict)
-    # per-device attribution (one "dev0" in the port): device -> {time_s,
+    # per-device attribution (one "dev0" by default): device -> {time_s,
     # energy_j, flops, rounds, swaps, syncs, avg_inference_acc,
     # inferences, streams, utilization, evicted, battery_dead,
     # throttle_s}
@@ -243,6 +245,9 @@ class ContinualRuntime:
         self.devices = tuple(devices or ())
         self.routing = routing
         self.aggregate_every = float(aggregate_every)
+        # optional straggler-mitigation config, picked up by the fleet
+        # (None = StragglerConfig defaults)
+        self.straggler_config = None
         # the DeviceFleet the last run() drove (live handle for tests)
         self.fleet = None
         # a config-built session may carry its workload's compiled event
@@ -360,8 +365,9 @@ class ContinualRuntime:
             events = [dataclasses.replace(e, scenario=e.scenario + 1)
                       for e in events]
 
-        # delegate to the fleet (DESIGN.md §13): the session is a
-        # DeviceFleet of one device
+        # delegate to the fleet (DESIGN.md §13): the default session is
+        # a DeviceFleet of one device; `RuntimeConfig.devices` / `routing`
+        # / `aggregate_every` turn it into a multi-device one
         from repro_torch.runtime.fleet import DeviceFleet
 
         self.fleet = DeviceFleet(self)

@@ -21,16 +21,15 @@ curve. Device 0 of the default fleet shares the run's RNG with its
 executor; clone devices draw from `default_rng([seed, 104729, index])`
 (and `[..., slot]` under a pool) so no stream collides with device 0's.
 
-Not ported yet: the device's physical environment (the reference's
-`apply_dvfs` and the `ThrottlePolicy` consultation in `allow_round`) —
-the port's fleet takes no active `EnvSpec`, so every round is allowed,
-as on an env-less reference device — and what the merge and the
-straggler tracker read (`rounds_since_sync`, `round_times`), all
-ROADMAP A.8.
+A device may carry a physical environment (`env`, DESIGN.md §15): the
+fleet builds one for a `DeviceConfig` with an active `EnvSpec`. Then
+`apply_dvfs` rescales the device's cost models to the governor's level,
+and `allow_round` asks the stream's `ThrottlePolicy` facet before a
+round starts. Without one, every round is allowed.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, List
 
 import numpy as np
 import torch
@@ -64,9 +63,19 @@ class DeviceRuntime:
         self.slots = slots
         self.pool = pool
         self.primary = next(iter(slots.values()))
+        # fine-tuning rounds completed since the last cross-device merge
+        # (the FedAvg weight) and the interval's round times (the
+        # straggler-tracker feed), reset by the fleet at each sync
+        self.rounds_since_sync: Dict[str, int] = {n: 0 for n in slots}
+        self.round_times: List[float] = []
         # the fleet's tracer (NULL_TRACER: the port has no live tracer
         # yet) records this device's swap/cka/probe spans
         self.tracer = fleet.tracer
+        # physical environment (DESIGN.md §15): assigned by the fleet
+        # when this device's DeviceConfig carries an active EnvSpec.
+        # None (the default) keeps every env branch untaken.
+        self.env = None
+        self._dvfs_applied: Dict[str, float] = {}
         host = self.host
         self.server = InferenceServer(self.primary.model,
                                       batch_window=host.inference_window,
@@ -158,6 +167,8 @@ class DeviceRuntime:
                                      tc, stream=stream, device=self.name,
                                      slot=slot.name)
         fleet.last_round_end[stream] = report.end
+        self.rounds_since_sync[slot.name] += 1
+        self.round_times.append(report.time_s)
 
     def settle(self, now: float) -> None:
         # preemptible rounds complete lazily: once the timeline passes
@@ -167,6 +178,47 @@ class DeviceRuntime:
             report = st.executor.finalize_round(now)
             if report is not None:
                 self.complete(st, report)
+
+    # ---- env / throttling (DESIGN.md §15) --------------------------------
+    def apply_dvfs(self) -> None:
+        """Rescale this device's executor cost models to the env's
+        current DVFS level. Rescaling is *relative* (new level over the
+        level already applied) so the calibrated base survives repeated
+        transitions; executors still awaiting their one-shot calibration
+        are skipped — calibration would overwrite the scale wholesale —
+        and pick the level up after their first round."""
+        level = self.env.level
+        exp = self.env.spec.dvfs_power_exponent
+        for name, st in self.slots.items():
+            ex = st.executor
+            if ex.calibrate_cost:
+                continue
+            applied = self._dvfs_applied.get(name, 1.0)
+            if level != applied:
+                rel = level / applied
+                ex.cost = scale_cost(ex.cost, speed=rel, energy=rel ** exp)
+                self._dvfs_applied[name] = level
+
+    def allow_round(self, now: float, stream: int) -> bool:
+        """ThrottlePolicy consultation — the fifth PolicyStack facet.
+        Env-less devices, and controllers without a throttle facet
+        (monolithic controllers, the baselines among them), always
+        allow."""
+        if self.env is None:
+            return True
+        ctrl = self.fleet.ctrl_for(stream)
+        pol = getattr(ctrl, "throttle", None)
+        if pol is None:
+            return True
+        slot = self.slot_of(stream)
+        t_est, e_est = slot.executor.estimate_round(ctrl.plan, stream)
+        if pol.allow_round(self.env.state(), time_s=t_est, energy_j=e_est):
+            return True
+        if self.tracer:
+            self.tracer.instant("throttle", f"defer/{slot.name}", now,
+                                stream=stream, device=self.name,
+                                slot=slot.name)
+        return False
 
     def finish_round(self, now: float, stream: int = 0) -> None:
         fleet = self.fleet
@@ -221,7 +273,8 @@ class DeviceRuntime:
                                staleness=ev.time
                                - fleet.last_round_end.get(st, 0.0),
                                priority=fleet.stream_priority.get(st, 0)) \
-                and self.scheduler.idle_at(ev.time, self.name):
+                and self.scheduler.idle_at(ev.time, self.name) \
+                and self.allow_round(ev.time, st):
             self.finish_round(ev.time, st)
 
     def on_inference(self, ev: Event) -> None:
@@ -288,10 +341,15 @@ class DeviceRuntime:
             fleet.pending_change[st] = True
 
     def trailing_flush(self) -> None:
-        # any buffered data still fine-tunes (no data dropped)
+        # any buffered data still fine-tunes (no data dropped) — unless
+        # the device's ThrottlePolicy says it cannot afford the round
+        # (a drained battery must not be overdrawn by the flush)
         for slot in self.slots.values():
             for st in slot.executor.pending_streams:
-                self.finish_round(self.scheduler.busy_until_of(self.name), st)
+                now = self.scheduler.busy_until_of(self.name)
+                if not self.allow_round(now, st):
+                    continue
+                self.finish_round(now, st)
                 self.settle(float("inf"))
 
 
@@ -308,7 +366,7 @@ def clone_device_slots(fleet, spec, index: int, slots0: Dict,
     state (every device starts from the same "originally well-trained"
     model). Under a pool, per-device controllers come from the host's
     `controller_factory` when available, else the slot controller is
-    shared. The port's fleet runs one device until ROADMAP A.8."""
+    shared."""
     from repro_torch.runtime.continual import _SlotState
 
     host = fleet.host

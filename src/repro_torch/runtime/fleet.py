@@ -1,20 +1,38 @@
-"""DeviceFleet — the coordinator over DeviceRuntimes (the port of
-`repro.runtime.fleet`, DESIGN.md §13), at one device.
+"""DeviceFleet — the multi-device coordinator over DeviceRuntimes (the
+port of `repro.runtime.fleet`, DESIGN.md §13).
 
-The reference drives N simulated edge devices — each a full
-`DeviceRuntime` (runtime/device.py) — off ONE shared event timeline and
-ONE shared `CostLedger`, and owns three cross-device concerns: routing
-streams to devices, the federated merge of devices' params every
-`aggregate_every` seconds, and straggler eviction. `ContinualRuntime.run()`
-always delegates here; the default session is a fleet of one device, so
-every `RunResult` carries `per_device` attribution and a `syncs` counter.
+N simulated edge devices — each a full `DeviceRuntime`
+(runtime/device.py) with its own executors, serving lane, pool and
+occupancy lane — driven off ONE shared event timeline and ONE shared
+`CostLedger`. The fleet owns three cross-device concerns:
 
-The port runs that default fleet: one device, `StaticAffinity` routing,
-no aggregation. What needs more than one device raises
-`NotImplementedError` naming ROADMAP A.8 before any work is done: N > 1
-devices, `LeastLoaded` routing, `aggregate_every > 0` (the merge), and a
-device with an active `EnvSpec`. Straggler eviction needs two devices
-and a merge period, so it cannot arise.
+- **routing**: a `RoutingPolicy` assigns each arrival stream to a device
+  up front (`static` index affinity, or `least-loaded` LPT over event
+  counts weighted by device speed), and re-routes the streams of slow or
+  evicted devices mid-run;
+- **aggregation**: every `aggregate_every` timeline seconds, devices'
+  fine-tuned params are merged federated-style — a per-slot weighted
+  average, weight = rounds trained since the last merge, summed in fp32
+  in device order (``0 + w0·l0 + w1·l1 …``, then ``/ total``), as the
+  reference sums. Each participant is charged a cross-device sync
+  (`CostLedger.charge_sync`) on the fleet pseudo-stream `FLEET_STREAM`.
+  A merged tree replaces `executor.params` between rounds; the compiled
+  path copies params into every graph call, so the next replay trains
+  the merged values;
+- **stragglers**: `distributed.StragglerTracker` is fed each device's
+  mean round time per sync interval; flagged devices' streams re-route
+  to the fastest active device and their deltas drop out of the merge;
+  `evict_after` consecutive flags evicts the device for good. A device
+  whose battery dies (an active `EnvSpec`, DESIGN.md §15) rides the same
+  eviction path.
+
+`ContinualRuntime.run()` always delegates here; the default session is a
+fleet of one device. The reference can also shrink an injected JAX mesh
+on eviction and re-shard the survivors' params (`mesh`, `param_specs`,
+`distributed/elastic.py`); that is JAX sharding, and passing a mesh here
+raises `NotImplementedError` naming ROADMAP A.9. The port has no live
+telemetry (ROADMAP A.8's telemetry item), so the reference's metric
+counters and trace spans have no counterpart; its log lines do.
 """
 from __future__ import annotations
 
@@ -23,11 +41,16 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from repro_torch import tree_map
 from repro_torch.core.policies import adapt_controller
 from repro_torch.data.arrivals import Event
+from repro_torch.distributed.straggler import StragglerConfig, StragglerTracker
+from repro_torch.env import DeviceEnv, EnvLedgerObserver
+from repro_torch.obs.log import get_logger
 from repro_torch.obs.trace import NULL_TRACER
 from repro_torch.runtime.config import DeviceConfig
-from repro_torch.runtime.device import DeviceRuntime
+from repro_torch.runtime.device import (DeviceRuntime, clone_device_slots,
+                                        clone_pool)
 from repro_torch.runtime.ledger import (DEFAULT_DEVICE, DEVICE_KEYS,
                                         MODEL_KEYS, STREAM_KEYS, CostLedger)
 from repro_torch.runtime.scheduler import EventScheduler
@@ -38,7 +61,7 @@ from repro_torch.runtime.train_loop import (as_tensor, make_optimizer_state,
 #: caused them, the fleet did.
 FLEET_STREAM = -1
 
-_A8 = "ROADMAP A.8: the multi-device fleet and the device environment"
+log = get_logger("fleet")
 
 
 # ---------------------------------------------------------------------------
@@ -67,15 +90,25 @@ class StaticAffinity(RoutingPolicy):
 
 
 class LeastLoaded(RoutingPolicy):
-    """LPT over per-stream event counts, weighted by device speed. Only
-    more than one device makes it differ from `StaticAffinity`, and the
-    port's fleet has one: it raises until ROADMAP A.8."""
+    """LPT over per-stream event counts: streams are placed heaviest
+    first, each onto the device with the least assigned load, where load
+    is assigned events divided by the device's speed scale (a 2x device
+    absorbs twice the events). Deterministic: ties break on stream id
+    (sort) and device index (argmin)."""
 
     name = "least-loaded"
 
-    def __init__(self):
-        raise NotImplementedError(
-            f"least-loaded routing is not ported yet ({_A8})")
+    def assign(self, stream_ids, events, specs):
+        weight: Dict[int, int] = {st: 0 for st in stream_ids}
+        for e in events:
+            weight[e.stream] = weight.get(e.stream, 0) + 1
+        load = [0.0] * len(specs)
+        out: Dict[int, int] = {}
+        for st in sorted(stream_ids, key=lambda s: (-weight.get(s, 0), s)):
+            d = min(range(len(specs)), key=lambda i: (load[i], i))
+            out[st] = d
+            load[d] += weight.get(st, 0) / specs[d].speed_scale
+        return out
 
 
 ROUTING_POLICIES = {"static": StaticAffinity, "least-loaded": LeastLoaded}
@@ -112,17 +145,25 @@ def fleet_devices(n: int, *, seed: int = 0, speed_spread: float = 0.0,
 
 
 class DeviceFleet:
-    """Drives one session's timeline across its `DeviceRuntime`s.
+    """Drives one session's timeline across N `DeviceRuntime`s.
 
     Constructed from a `ContinualRuntime` (the config holder); device
     specs / routing / aggregation period default to the host's
     (`RuntimeConfig.devices/routing/aggregate_every`) and can be
-    overridden per run. What the port cannot run yet raises here, before
-    any slot is built (module docstring)."""
+    overridden per run. `straggler` takes a `StragglerConfig` (else the
+    host's `straggler_config`, else the tracker's defaults). `mesh` is the
+    reference's elastic JAX mesh, which the port does not take (module
+    docstring)."""
 
     def __init__(self, host, *, devices: Optional[List[DeviceConfig]] = None,
                  routing: Optional[str] = None,
-                 aggregate_every: Optional[float] = None):
+                 aggregate_every: Optional[float] = None,
+                 straggler: Optional[StragglerConfig] = None,
+                 mesh=None, param_specs=None):
+        if mesh is not None or param_specs is not None:
+            raise NotImplementedError(
+                "an elastic device mesh is not ported yet (ROADMAP A.9: "
+                "distributed/elastic.py re-shards params over a JAX mesh)")
         self.host = host
         specs = list(devices) if devices is not None \
             else (list(getattr(host, "devices", ())) or
@@ -130,12 +171,6 @@ class DeviceFleet:
         names = [s.name for s in specs]
         if len(set(names)) != len(names):
             raise ValueError(f"device names must be unique (got {names})")
-        if len(specs) > 1:
-            raise NotImplementedError(
-                f"a fleet of {len(specs)} devices is not ported yet ({_A8})")
-        if specs[0].env is not None and specs[0].env.active:
-            raise NotImplementedError(
-                f"an active device environment is not ported yet ({_A8})")
         self.specs = specs
         self.policy = build_routing(
             routing if routing is not None
@@ -143,15 +178,20 @@ class DeviceFleet:
         self.aggregate_every = float(
             aggregate_every if aggregate_every is not None
             else getattr(host, "aggregate_every", 0.0))
-        if self.aggregate_every > 0.0:
-            raise NotImplementedError(
-                f"the federated merge (aggregate_every > 0) is not ported "
-                f"yet ({_A8})")
+        self._straggler_cfg = straggler \
+            or getattr(host, "straggler_config", None)
         # populated by run()
         self.scheduler: Optional[EventScheduler] = None
         self.ledger: Optional[CostLedger] = None
         self.devices: List[DeviceRuntime] = []
         self.assignment: Dict[int, int] = {}
+        self.tracker: Optional[StragglerTracker] = None
+        self._evicted: set = set()
+        self._flagged: set = set()
+        # physical environment (DESIGN.md §15): device name -> DeviceEnv
+        # for every device whose DeviceConfig carries an active EnvSpec;
+        # empty (the default) keeps every env branch untaken.
+        self.envs: Dict[str, DeviceEnv] = {}
         self.tracer = NULL_TRACER
 
     # ---- lookups (fleet-level policy state, see device.py docstring) -----
@@ -206,7 +246,7 @@ class DeviceFleet:
                                                    st.executor.opt_state))
             host.pool.warm()
 
-        # --- route streams, compose the per-device runtime ---------------
+        # --- route streams, compose the per-device runtimes --------------
         stream_ids = sorted({e.stream for e in events}) or [0]
         self.stream_slot: Dict[int, str] = {}
         if host.pool is not None:
@@ -243,6 +283,27 @@ class DeviceFleet:
 
         self.devices = [DeviceRuntime(self, self.specs[0], 0, slots0,
                                       host.pool, rng)]
+        for d, spec in enumerate(self.specs[1:], start=1):
+            slots, dev_rng = clone_device_slots(self, spec, d, slots0,
+                                                ledger)
+            self.devices.append(DeviceRuntime(
+                self, spec, d, slots, clone_pool(host, spec, slots),
+                dev_rng))
+
+        # --- physical environments (DESIGN.md §15): one DeviceEnv per
+        # device with an active EnvSpec; the env observer takes the
+        # ledger's observer slot, so every charge's energy drains the
+        # owning device's battery / heats its RC node. No active env -> no
+        # observer: the default path is untouched.
+        self.envs = {}
+        for dev in self.devices:
+            env_spec = getattr(dev.spec, "env", None)
+            if env_spec is not None and env_spec.active:
+                dev.env = DeviceEnv(env_spec, dev.name, tracer=self.tracer)
+                self.envs[dev.name] = dev.env
+        if self.envs:
+            ledger.telemetry = EnvLedgerObserver(self.envs,
+                                                 inner=ledger.telemetry)
 
         # per-stream controllers: stream 0 is the primary controller;
         # extra streams get their own from the factory, or share the
@@ -261,20 +322,36 @@ class DeviceFleet:
                             for st, c in controllers.items()}
         self.primary_ctrl = adapt_controller(primary_ctrl)
 
+        # stragglers are observable once >= 2 devices report round times;
+        # mitigation fires at sync boundaries, so it needs a sync period
+        if len(self.specs) > 1 and self.aggregate_every > 0.0:
+            self.tracker = StragglerTracker(
+                len(self.specs), config=self._straggler_cfg)
+        self._next_sync = self.aggregate_every or float("inf")
+
         # --- drive the shared timeline ------------------------------------
         def on_data(ev: Event, boundary: bool) -> None:
+            self._advance(ev.time)
             self._settle_all(ev.time)
+            if self.envs:
+                self._step_envs(ev.time)
             self.device_for(ev.stream).on_data(ev, boundary)
 
         def on_scenario_change(previous: int, ev: Event) -> None:
             self.device_for(ev.stream).on_scenario_change(previous, ev)
 
         def on_inference(ev: Event) -> None:
+            self._advance(ev.time)
             self._settle_all(ev.time)
+            if self.envs:
+                self._step_envs(ev.time)
             self.device_for(ev.stream).on_inference(ev)
 
         def on_probe(ev: Event) -> None:
+            self._advance(ev.time)
             self._settle_all(ev.time)
+            if self.envs:
+                self._step_envs(ev.time)
             self.device_for(ev.stream).on_probe(ev)
 
         def on_inference_event(ev: Event) -> None:
@@ -309,9 +386,142 @@ class DeviceFleet:
 
         return self._assemble(RunResult)
 
+    # ---- aggregation / stragglers ----------------------------------------
     def _settle_all(self, now: float) -> None:
         for dev in self.devices:
             dev.settle(now)
+
+    def _step_envs(self, now: float) -> None:
+        """Advance every live environment to `now` (after the devices
+        settled, so the energy each env integrates is the energy the
+        ledger charged up to `now`), apply any DVFS rescale to the
+        device's executors, and hand battery-dead devices to the eviction
+        path: streams re-route, deltas leave the merge — like a persistent
+        straggler, with another cause."""
+        for dev in self.devices:
+            env = dev.env
+            if env is None:
+                continue
+            env.step(now)
+            dev.apply_dvfs()
+            if env.battery_dead and dev.index not in self._evicted:
+                self.evict_device(dev.index, now, reason="battery dead")
+
+    def _advance(self, t: float) -> None:
+        """Cross the sync boundaries the timeline has passed: settle
+        every device to the boundary instant, then merge/mitigate."""
+        while t >= self._next_sync:
+            ts = self._next_sync
+            self._settle_all(ts)
+            self._sync(ts)
+            self._next_sync += self.aggregate_every
+
+    def _sync(self, ts: float) -> None:
+        if self.tracker is not None:
+            times = {d.index: float(np.mean(d.round_times))
+                     for d in self.devices
+                     if d.round_times and d.index not in self._evicted}
+            if times:
+                self.tracker.record_step(times)
+            for d in self.devices:
+                d.round_times.clear()
+            for h in sorted(set(self.tracker.to_evict()) - self._evicted):
+                self.evict_device(h, ts)
+            current = set(self.tracker.stragglers()) - self._evicted
+            for h in sorted(current - self._flagged):
+                # straggler mitigation must be loud: a flagged device
+                # loses its streams and sits merges out until it recovers
+                log.warning("sync at t=%.3f: device %s flagged as "
+                            "straggler — re-routing its streams",
+                            ts, self.devices[h].name)
+                self._reroute_streams(h, ts)
+            self._flagged = current
+        self._merge(ts)
+
+    def _merge(self, ts: float) -> None:
+        """Federated merge (module docstring): per slot, average the
+        participants' params weighted by rounds trained since the last
+        sync. A device sits a slot's merge out when it is evicted,
+        flagged slow, or mid-round (its params are a checkpointed round
+        in flight); a merge needs >= 2 such devices and > 0 total weight.
+        Optimizer state stays local (FedAvg merges params only)."""
+        candidates = [d for d in self.devices
+                      if d.index not in self._evicted
+                      and d.index not in self._flagged
+                      and not (d.env is not None and d.env.battery_dead)]
+        for name in self.devices[0].slots:
+            group = [d for d in candidates
+                     if d.slots[name].executor.active_round is None]
+            for d in candidates:
+                if d not in group:
+                    # never a silent drop: a mid-round device sitting a
+                    # merge out is expected, but observable
+                    log.info("sync at t=%.3f: device %s sits out slot %r "
+                             "merge (round in flight)", ts, d.name, name)
+            if len(group) < 2:
+                log.info("sync at t=%.3f: slot %r merge skipped "
+                         "(%d eligible device(s), need >= 2)",
+                         ts, name, len(group))
+                continue
+            ws = [float(d.rounds_since_sync.get(name, 0)) for d in group]
+            total = sum(ws)
+            if total <= 0.0:
+                continue
+            merged = tree_map(
+                lambda *ls: (sum(w * l.float() for w, l in zip(ws, ls))
+                             / total).to(ls[0].dtype),
+                *[d.slots[name].executor.params for d in group])
+            for d in group:
+                ex = d.slots[name].executor
+                ex.params = tree_map(torch.clone, merged)
+                d.server.publish(ex.params, ts, slot=name)
+                c = ex.cost
+                t_sync = c.t_save_s + c.t_load_s
+                self.ledger.charge_sync(
+                    time_s=t_sync, energy_j=t_sync * c.overhead_power_w,
+                    device=d.name, stream=FLEET_STREAM, model=name)
+                self.scheduler.occupy(ts, t_sync, stream=FLEET_STREAM,
+                                      device=d.name)
+                d.rounds_since_sync[name] = 0
+
+    def _reroute_streams(self, from_idx: int, ts: float) -> None:
+        """Move every stream off device `from_idx` to the active
+        non-flagged device with the largest rebalance share (inverse EMA
+        step time — the fastest one). Buffered batches move with the
+        stream; controllers and policy latches are fleet-level, so the
+        stream's policy state survives the move untouched."""
+        plan = self.tracker.rebalance_plan() if self.tracker else {}
+        targets = [d for d in self.devices
+                   if d.index not in self._evicted
+                   and d.index not in self._flagged
+                   and d.index != from_idx]
+        if not targets:
+            return
+        target = max(targets, key=lambda d: plan.get(d.index, 0.0))
+        src = self.devices[from_idx]
+        for st, di in sorted(self.assignment.items()):
+            if di != from_idx:
+                continue
+            self.assignment[st] = target.index
+            batches = src.slot_of(st).executor.buffers.pop(st, None)
+            for b in batches or ():
+                target.slot_of(st).executor.enqueue(b, stream=st)
+
+    def evict_device(self, index: int, ts: float, *,
+                     reason: str = "persistent straggler") -> None:
+        """Drop a device for good: its streams re-route and its deltas
+        drop out of every future merge. `reason` tells straggler
+        evictions from environment-driven ones (a dead battery rides the
+        same path, DESIGN.md §15)."""
+        if index in self._evicted:
+            return
+        log.warning("t=%.3f: evicting device %s (%s); "
+                    "its streams re-route and its deltas leave the merge",
+                    ts, self.devices[index].name, reason)
+        if self.tracker is not None:
+            self.tracker.evict(index)
+        self._evicted.add(index)
+        self._reroute_streams(index, ts)
 
     # ---- result ----------------------------------------------------------
     def _assemble(self, RunResult):
@@ -358,6 +568,9 @@ class DeviceFleet:
         makespan = max([scheduler.now]
                        + [scheduler.busy_until_of(d.name)
                           for d in self.devices])
+        for dev in self.devices:
+            if dev.env is not None:
+                dev.env.finalize(makespan)
         per_device: Dict[str, Dict[str, float]] = {}
         for dev in self.devices:
             cell = dict(ledger.per_device.get(
@@ -369,10 +582,11 @@ class DeviceFleet:
                 1 for di in self.assignment.values() if di == dev.index))
             cell["utilization"] = cell["time_s"] / makespan \
                 if makespan > 0 else 0.0
-            # no eviction and no environment at one device (A.8)
-            cell["evicted"] = 0.0
-            cell["battery_dead"] = 0.0
-            cell["throttle_s"] = 0.0
+            cell["evicted"] = float(dev.index in self._evicted)
+            cell["battery_dead"] = float(dev.env.battery_dead) \
+                if dev.env is not None else 0.0
+            cell["throttle_s"] = dev.env.throttle_s \
+                if dev.env is not None else 0.0
             per_device[dev.name] = cell
         return RunResult(
             avg_inference_acc=float(np.mean(all_accs)) if all_accs else 0.0,

@@ -53,7 +53,8 @@ import numpy as np
 from repro_torch.obs.trace import NULL_TRACER
 from repro_torch.runtime.ledger import DEFAULT_MODEL
 from repro_torch.runtime.train_loop import (CapturedCall, as_tensor,
-                                            evaluate, on_card, pinned)
+                                            evaluate, forward_program,
+                                            on_card, pinned)
 
 # Process-global serving graphs keyed on the eager predict function plus
 # (concat signature, stack bucket), so every server over the same model
@@ -342,15 +343,21 @@ class InferenceServer:
         """Each concat's logits from its own `predict` call at its own
         shape. On the card: one CUDA graph of `bucket` calls, the padding
         calls repeating the first concat and dropped, as the reference
-        pads its vmapped stack; on the CPU: the calls themselves."""
-        predict = getattr(model.predict, "eager", model.predict)
+        pads its vmapped stack; on the CPU: the calls themselves. Each
+        call runs inside its forward's entry (`forward_program`)."""
+        eager = getattr(model.predict, "eager", model.predict)
         device = model.device
+
+        def predict(params, batch):
+            with forward_program(eager, batch):
+                return eager(params, batch)
+
         if not on_card(device):
             return [predict(params, as_tensor(c, device)).cpu().numpy()
                     for c in concats]
         n = len(concats)
         bucket = 1 << max(n - 1, 0).bit_length()
-        key = (predict, sig, bucket)
+        key = (eager, sig, bucket)
         graph = _STACKS.get(key)
         if graph is None:
             graph = _STACKS[key] = CapturedCall(

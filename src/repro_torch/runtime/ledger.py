@@ -7,9 +7,12 @@ CKA similarity computations) and ModelPool swap charges (loading/saving a
 model slot across the device memory budget). Centralizing the arithmetic
 keeps the breakdown keys consistent across the runtime, benchmarks and
 tests, and makes "where did the joules go" auditable instead of being
-smeared across the event loop. Counterpart of `repro.runtime.ledger`,
-without the telemetry observer hook (the metrics registry is not ported
-yet).
+smeared across the event loop. Counterpart of `repro.runtime.ledger`.
+Its observer slot (`telemetry`) takes any object with the reference's
+``on_charge`` / ``on_round`` / ``on_preemption`` / ``on_swap`` /
+``on_sync`` hooks: the fleet installs `repro_torch.env.EnvLedgerObserver`
+there when a device carries an active environment (the port has no live
+metrics registry yet, ROADMAP A.8's telemetry item).
 
 Attribution is three-dimensional: every charge lands in the global totals,
 in ``per_stream[stream]`` (which arrival stream caused it), in
@@ -22,7 +25,7 @@ single-device runs put everything under the ``"default"`` slot and the
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Dict
+from typing import Dict, Optional
 
 #: Breakdown keys every `RunResult.breakdown` carries. `t_`/`e_` prefix =
 #: seconds / joules; `compute`/`overhead` follow the paper's Fig. 3 split;
@@ -74,6 +77,11 @@ class CostLedger:
     per_stream: Dict[int, Dict[str, float]] = field(default_factory=dict)
     per_model: Dict[str, Dict[str, float]] = field(default_factory=dict)
     per_device: Dict[str, Dict[str, float]] = field(default_factory=dict)
+    # optional observer: every charge is mirrored into it (the device
+    # environments' `EnvLedgerObserver`). None (the default) is the
+    # zero-overhead path.
+    telemetry: Optional[object] = field(default=None, repr=False,
+                                        compare=False)
 
     def _stream(self, stream: int) -> Dict[str, float]:
         return self.per_stream.setdefault(
@@ -132,10 +140,20 @@ class CostLedger:
             per["rounds"] += 1
             pm["rounds"] += 1
             pd["rounds"] += 1
+        if self.telemetry is not None:
+            self.telemetry.on_charge(time_s=time_s, energy_j=energy_j,
+                                     flops=flops, stream=stream,
+                                     model=model, device=device,
+                                     kind="round")
+            if final:
+                self.telemetry.on_round(stream=stream, model=model,
+                                        device=device)
 
     def note_preemption(self, stream: int = 0) -> None:
         """A higher-priority arrival split `stream`'s in-flight round."""
         self._stream(stream)["preemptions"] += 1
+        if self.telemetry is not None:
+            self.telemetry.on_preemption(stream=stream)
 
     @property
     def preemptions(self) -> int:
@@ -161,6 +179,10 @@ class CostLedger:
         pd = self._device(device)
         pd["time_s"] += time_s
         pd["energy_j"] += energy_j
+        if self.telemetry is not None:
+            self.telemetry.on_charge(time_s=time_s, energy_j=energy_j,
+                                     flops=0.0, stream=stream, model=model,
+                                     device=device, kind=key)
 
     def charge_swap(self, *, time_s: float, energy_j: float, model: str,
                     stream: int = 0, device: str = DEFAULT_DEVICE) -> None:
@@ -172,6 +194,8 @@ class CostLedger:
                           model=model, device=device)
         self._model(model)["swaps"] += 1
         self._device(device)["swaps"] += 1
+        if self.telemetry is not None:
+            self.telemetry.on_swap(model=model, device=device)
 
     def charge_sync(self, *, time_s: float, energy_j: float, device: str,
                     stream: int = 0, model: str = DEFAULT_MODEL) -> None:
@@ -183,6 +207,8 @@ class CostLedger:
         self.charge_probe("sync", time_s, energy_j, stream=stream,
                           model=model, device=device)
         self._device(device)["syncs"] += 1
+        if self.telemetry is not None:
+            self.telemetry.on_sync(device=device)
 
     @property
     def swaps(self) -> int:

@@ -29,9 +29,20 @@ several holders between rounds (serving lanes, SimFreeze's reference,
 the pretrained reference params). So every call copies its inputs into
 the graph's buffers and hands out fresh copies of its outputs: no tensor
 a caller holds is ever written by a replay.
+
+The reference's steps and forwards are jitted, so Python state a jitted
+function reads (RigL's masks) is frozen at its trace, once per cache
+entry. Each cache here runs its calls inside its entry (`program`): the
+eager step per (plan, batch signature), the fused loop per bucket too, a
+compiled forward per batch signature, whether called alone or inside a
+stacked serving call (`forward_program`), so a function that reads such
+state can keep what it first read per entry (`current_program`), on the
+CPU as in a captured graph.
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import dataclasses
 import weakref
 from dataclasses import dataclass, field
@@ -58,6 +69,35 @@ _COMPILED_MODELS: Dict[Any, Any] = {}
 # before any other graph replays, so one graph's scratch may reuse
 # another's
 _POOLS: Dict[Any, Any] = {}
+_PROGRAM: contextvars.ContextVar = contextvars.ContextVar("program",
+                                                         default=None)
+
+
+@contextlib.contextmanager
+def program(key):
+    """Run the block inside the cache entry `key` (module docstring). A
+    call already inside an entry stays in it: the reference traces a
+    nested jitted call into its caller."""
+    token = _PROGRAM.set(key) if _PROGRAM.get() is None else None
+    try:
+        yield
+    finally:
+        if token is not None:
+            _PROGRAM.reset(token)
+
+
+def current_program():
+    """The key of the cache entry the current call runs in; None for a
+    call the reference dispatches eagerly."""
+    return _PROGRAM.get()
+
+
+def forward_program(fn: Callable, batch: dict):
+    """The entry a compiled forward `fn(params, batch)` runs in: the
+    reference's jitted forward traces once per batch signature, called
+    alone or inside a stacked serving call (a jitted function under
+    `vmap` traces at its unbatched shapes, sharing the entry)."""
+    return program(("forward", fn, batch_signature(batch)))
 
 
 def batch_signature(batch: dict) -> Tuple:
@@ -281,11 +321,23 @@ class TrainStepCache:
 
         return step
 
+    def _eager_step(self, plan):
+        """The single step, run inside its (plan, batch signature) entry:
+        the reference's jitted step traces once per batch shape."""
+        raw = self._raw_step(plan)
+        base = ("step", self.model.loss, self.opt_cfg, plan)
+
+        def step(params, opt_state, batch):
+            with program(base + (batch_signature(batch),)):
+                return raw(params, opt_state, batch)
+
+        return step
+
     def get(self, plan, example_batch: dict = None) -> Callable:
         """The single step for `plan`. Passing the batch about to be
         trained keeps the recompile ledger shape-accurate."""
         if plan not in self._steps:
-            self._steps[plan] = self._raw_step(plan)
+            self._steps[plan] = self._eager_step(plan)
             self._shapes[plan] = set()
             self.recompiles += 1
         if example_batch is not None:
@@ -319,7 +371,7 @@ class TrainStepCache:
         fn = _MULTI.get(key)
         if fn is None:
             fn = _MULTI[key] = _MultiStep(self._raw_step(plan),
-                                          self.model.device)
+                                          self.model.device, key)
         return fn, bucket
 
     def fused_call(self, plan, params, opt_state, batches: Sequence[dict]):
@@ -364,10 +416,11 @@ class _MultiStep:
     the carry where ``valid[i]``, leaf by leaf (``torch.where``), so a
     padding step keeps every bit of the params and the optimizer state.
     On a CUDA device the loop is one `CapturedCall`; on the CPU it runs
-    eagerly."""
+    eagerly. Every call runs inside the entry `key`."""
 
-    def __init__(self, raw_step: Callable, device: torch.device):
+    def __init__(self, raw_step: Callable, device: torch.device, key):
         self.raw_step = raw_step
+        self.key = ("multi",) + key
         self.graph = CapturedCall(self._loop, device) \
             if on_card(device) else None
 
@@ -387,14 +440,15 @@ class _MultiStep:
                                            *metrics)
 
     def __call__(self, params, opt_state, batches, valid):
-        if self.graph is None:
-            device = tree_leaves(params)[0].device
-            return self._loop((params, opt_state,
-                               [as_tensor(b, device) for b in batches],
-                               torch.as_tensor(valid)))
-        return self.graph((params, opt_state,
-                           [pinned(b) for b in batches],
-                           torch.as_tensor(valid).pin_memory()))
+        with program(self.key):
+            if self.graph is None:
+                device = tree_leaves(params)[0].device
+                return self._loop((params, opt_state,
+                                   [as_tensor(b, device) for b in batches],
+                                   torch.as_tensor(valid)))
+            return self.graph((params, opt_state,
+                               [pinned(b) for b in batches],
+                               torch.as_tensor(valid).pin_memory()))
 
 
 def same_shape_runs(batches: Sequence[dict]):
@@ -437,13 +491,16 @@ class GraphedForward:
         self.graphs: Dict[Tuple, CapturedCall] = {}
 
     def __call__(self, params, batch):
+        with forward_program(self.eager, batch):
+            return self._call(params, batch, batch_signature(batch))
+
+    def _call(self, params, batch, key):
         leaves = tree_leaves(params)
         device = leaves[0].device
         if not on_card(device) or torch.cuda.is_current_stream_capturing() \
                 or (torch.is_grad_enabled()
                     and any(p.requires_grad for p in leaves)):
             return self.eager(params, batch)
-        key = batch_signature(batch)
         graph = self.graphs.get(key)
         if graph is None:
             graph = self.graphs[key] = CapturedCall(

@@ -105,9 +105,21 @@ def test_workload_modules_are_ported(name):
                            / "__init__.py").exists()
 
 
+# the paper's SOTA baselines
+BASELINES = ["baselines", "baselines.controllers"]
+
+
+@pytest.mark.parametrize("name", BASELINES)
+def test_baseline_modules_are_ported(name):
+    assert f"repro_torch.{name}" in _modules()
+    assert (ROOT / "src" / "repro" / (name.replace(".", "/") + ".py")
+            ).exists() or (ROOT / "src" / "repro" / name.replace(".", "/")
+                           / "__init__.py").exists()
+
+
 def test_runtime_root_loads_neither_jax_nor_repro():
     names = ['repro_torch.' + n
-             for n in RUNTIME_ROOT + CNN_AND_HOOKS + WORKLOADS]
+             for n in RUNTIME_ROOT + CNN_AND_HOOKS + WORKLOADS + BASELINES]
     code = ("import importlib, sys\n"
             f"for m in {names!r}:\n"
             "    importlib.import_module(m)\n"

@@ -370,7 +370,7 @@ def test_model_pool_matches_reference():
 
 
 # ---------------------------------------------------------------------------
-# the throttle facet and the environment models (copied inert, A.8)
+# the throttle facet and the environment models (live in the fleet)
 
 
 def _env_trace(env_mod, throttle_mod):
@@ -413,15 +413,7 @@ def _tiny_bench():
 
 UNPORTED = {
     "telemetry": (dict(telemetry=TelemetrySpec(enabled=True)),
-                  "ROADMAP A.8"),
-    "two-devices": (dict(devices=(config.DeviceConfig("dev0"),
-                                  config.DeviceConfig("dev1"))),
-                    "ROADMAP A.8"),
-    "least-loaded": (dict(routing="least-loaded"), "ROADMAP A.8"),
-    "merge": (dict(aggregate_every=5.0), "ROADMAP A.8"),
-    "env": (dict(devices=(config.DeviceConfig(
-        "dev0", env=env.EnvSpec(battery_capacity_j=100.0)),)),
-        "ROADMAP A.8"),
+                  r"ROADMAP A\.8, telemetry"),
 }
 
 
@@ -434,6 +426,20 @@ def test_unported_paths_raise_naming_their_roadmap_item(name):
             config.RuntimeConfig(pretrain_epochs=0, **kw), device=CPU,
             benchmark=_tiny_bench())
         rt.run(events=[])
+
+
+def test_elastic_mesh_raises_naming_its_roadmap_item():
+    """The reference's fleet can shrink an injected JAX mesh on eviction
+    (`distributed/elastic.py`); the port's fleet takes no mesh."""
+    from repro_torch.runtime.fleet import DeviceFleet
+
+    rt = continual.ContinualRuntime.from_config(
+        config.RuntimeConfig(pretrain_epochs=0, slots={
+            "default": config.SlotConfig(arch="deit-tiny")}),
+        device=CPU, benchmark=_tiny_bench())
+    for kw in (dict(mesh=object()), dict(param_specs={})):
+        with pytest.raises(NotImplementedError, match=r"ROADMAP A\.9"):
+            DeviceFleet(rt, **kw)
 
 
 def test_legacy_constructor_warns_and_resolves_like_from_config():
