@@ -143,6 +143,21 @@ It imports nothing of JAX and nothing of the JAX package, and fails
    merges, deferrals, every device's final params bitwise); it prints
    merges, syncs, evictions, deferrals, each device's DVFS time and CKA
    launches, rounds/s, requests/s and peak memory;
+   then live telemetry (`telemetry_phase`): the least-loaded session
+   once more, compiled, on the same model and streams with
+   `TelemetrySpec(enabled=True, trace_jsonl=..., chrome_trace=...)` into
+   a temporary directory: bitwise its untraced compiled run (results,
+   plans, merges, every device's params) with the same CKA launches; the
+   metrics reconcile with the ledger below 1e-9 in all nine (dimension,
+   field) entries, each device's spans over `obs.DEVICE_TIME_CATS` sum to
+   its ledger time within 1e-6, one round span a round; the JSONL sink
+   reads back as the run's events and the Chrome trace loads with one
+   track a device, a stream and the fleet. It prints the events by
+   category, the counters' totals, the gauges and the loop's rounds/s
+   traced against the untraced warm run (the host's cost of tracing);
+   then the battery session with a Chrome trace, bitwise its untraced
+   run, whose trace must carry both devices' temperature and
+   state-of-charge counter tracks, gauge events and throttle marks;
    then rwkv6-3b serving at full width and depth (`get_config("rwkv6-3b")`,
    32 layers, d=2560, bf16, 3.07e9 params from a seeded CUDA generator):
    `ServeEngine.generate` on 4 prompts of 512 tokens for 16 greedy steps,
@@ -205,6 +220,7 @@ import json
 import math
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -234,6 +250,8 @@ from repro_torch.kernels.cka import ops as cka_ops  # noqa: E402
 from repro_torch.kernels.rwkv import ops as wkv_ops  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.models.rwkv6 import wkv_chunked  # noqa: E402
+from repro_torch import obs  # noqa: E402
+from repro_torch.obs import TelemetrySpec  # noqa: E402
 from repro_torch.optim import AdamWConfig  # noqa: E402
 from repro_torch.runtime import config as config_mod  # noqa: E402
 from repro_torch.runtime import fleet as fleet_mod  # noqa: E402
@@ -2203,13 +2221,13 @@ class _DeviceLaunches:
 
 
 def run_fleet(model, name, benches, *, compiled, segment=True,
-              use_kernel=True):
+              use_kernel=True, telemetry=None):
     """One fleet session of `fleet_sessions` through the port's front
     door on the injected full-width `model`, with the loops' ETuner
-    policies (and the battery throttle where the session has one).
-    Records the plans, the merges the fleet made, the deferrals, each
-    device's CKA launches and final params, the loop's wall time and
-    peak device memory."""
+    policies (and the battery throttle where the session has one), and
+    `telemetry` (a `TelemetrySpec`; off by default). Records the plans,
+    the merges the fleet made, the deferrals, each device's CKA launches
+    and final params, the loop's wall time and peak device memory."""
     s = fleet_sessions()[name]
     policies = dataclasses.replace(
         ETUNER_POLICIES, throttle=PolicySpec("battery")) \
@@ -2222,7 +2240,8 @@ def run_fleet(model, name, benches, *, compiled, segment=True,
         workload=s["workload"], workload_scale=scale, seed=0,
         pretrain_epochs=1, replay_batches=2, use_pallas=use_kernel,
         compiled=compiled, devices=s["devices"], routing=s["routing"],
-        aggregate_every=s["aggregate_every"])
+        aggregate_every=s["aggregate_every"],
+        telemetry=telemetry or TelemetrySpec())
     rt = ContinualRuntime.from_config(cfg, device=model.device, model=model,
                                       stream_benchmarks=benches)
     rt.segment = segment
@@ -2281,7 +2300,7 @@ def run_fleet(model, name, benches, *, compiled, segment=True,
     return {"res": res, "plans": plans, "merges": merges, "params": params,
             "deferrals": deferrals, "passes": probes.passes,
             "launches": read_launches(), "cka_by_device": per_device.by_device,
-            "assignment": dict(fl.assignment),
+            "assignment": dict(fl.assignment), "telemetry": rt.telemetry,
             "loop_s": t2 - rt.scheduler.started,
             "pretrain_s": rt.scheduler.started - t0,
             "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
@@ -2308,7 +2327,7 @@ def same_fleet(a, b) -> list:
     return out
 
 
-def fleet_phase() -> dict:
+def fleet_phase() -> tuple:
     """Each session of `fleet_sessions` on full-width MobileNetV2, four
     ways: compiled, compiled with `segment=False`, eager and eager with
     the plain paths, and compiled again (warm) where the session says so.
@@ -2316,7 +2335,8 @@ def fleet_phase() -> dict:
     plans, merges, deferrals, every device's final params bitwise); the
     kernel runs launch CKA once a map of a probe pass on the example
     route, on the devices that ran the rounds. Returns each session's CKA
-    launches by device."""
+    launches by device, and for `telemetry_phase` the model and each
+    session's streams and compiled runs."""
     model = build_model(get_config("mobilenetv2"))
     maps = model.num_freeze_units - 1
     base = {k: v for k, v in WORKLOAD_SCALE.items() if k != "batch_size"}
@@ -2326,7 +2346,7 @@ def fleet_phase() -> dict:
     fleet = workload_benches(presets(
         seed=0, fleet_streams=max(FLEET_STREAMS.values()),
         **base)["fleet"], model.cfg)
-    out = {}
+    out, kept = {}, {"model": model}
     for name, s in fleet_sessions().items():
         if s["workload"] == "fleet":
             benches = {i: fleet[i] for i in range(s["streams"])}
@@ -2407,11 +2427,153 @@ def fleet_phase() -> dict:
                 raise AssertionError("fleet: the battery did not throttle "
                                      "within its budget")
         out[name] = by_device
+        kept[name] = dict(benches=benches, runs={
+            label: runs[label] for label in ("compiled", "compiled again")
+            if label in runs})
     print("  compiled, compiled segment=False, eager, plain eager (and "
           "compiled again) agree exactly in every session: results, every "
           "device's attribution, plans, merges, deferrals; every device's "
           "final params bitwise equal")
+    return out, kept
+
+
+# ---------------------------------------------------------------------------
+# phase 3: live telemetry on the fleet
+
+
+def counter_totals(snapshot: dict) -> dict:
+    """Each counter's total over one of its label dimensions (a charge
+    bumps its stream's, its model's and its device's counters alike, so
+    summing every key would count it three times)."""
+    keys: dict = {}
+    for key, value in snapshot["counters"].items():
+        name, _, labels = key.partition("{")
+        dim = labels.split("=")[0] if labels else ""
+        keys.setdefault(name, {}).setdefault(dim, []).append(value)
+    out = {}
+    for name, dims in sorted(keys.items()):
+        dim = next(d for d in ("device", "kind", "stream", "model", "")
+                   if d in dims)
+        out[name] = sum(dims[dim])
     return out
+
+
+def check_traced(name: str, off: dict, traced: dict) -> dict:
+    """A traced run of a fleet session against its untraced run: the
+    results, plans, merges, deferrals and every device's params bitwise,
+    the CKA launches equal; the metrics reconcile with the ledger below
+    1e-9 in every dimension, and each device's spans over the
+    device-time categories sum to its time within 1e-6. Returns the
+    snapshot."""
+    diff = same_fleet(off, traced)
+    if diff:
+        raise AssertionError(f"telemetry {name}: the traced run differs "
+                             f"from the untraced one in {diff}")
+    if traced["launches"] != off["launches"] or \
+            traced["cka_by_device"] != off["cka_by_device"]:
+        raise AssertionError(f"telemetry {name}: launches "
+                             f"{traced['launches']} against "
+                             f"{off['launches']} untraced")
+    res, tel = traced["res"], traced["telemetry"]
+    snap = tel.snapshot(res)
+    rec = snap["reconciliation"]
+    if len(rec) != 9 or max(rec.values()) >= 1e-9:
+        raise AssertionError(f"telemetry {name}: reconciliation {rec}")
+    spans = obs.device_time(tel.tracer.events)
+    for dev, cell in res.per_device.items():
+        if abs(spans.get(dev, 0.0) - cell["time_s"]) > 1e-6:
+            raise AssertionError(f"telemetry {name}: {dev}'s spans sum to "
+                                 f"{spans.get(dev, 0.0)} s, its ledger "
+                                 f"time is {cell['time_s']} s")
+    rounds = sum(e.cat == "round" for e in tel.tracer.events)
+    if rounds != res.rounds:
+        raise AssertionError(f"telemetry {name}: {rounds} round spans for "
+                             f"{res.rounds} rounds")
+    return snap
+
+
+def telemetry_phase(kept: dict) -> dict:
+    """The least-loaded fleet session of `fleet_phase` (its streams,
+    its model) compiled with live telemetry and both sinks, held to that
+    phase's untraced compiled run (`check_traced`); both sinks load with
+    the port's loaders, with one Chrome track a device and a stream and
+    one for the fleet. Prints the events by category, the counters'
+    totals and the loop's warm rounds/s traced against untraced: the
+    host's cost of tracing, against that phase's warm run and against
+    one more untraced run right after the traced one (bitwise it too).
+    Then the battery session with a Chrome trace: its temperature
+    and state-of-charge counters, gauge events and throttle marks.
+    Returns each traced session's CKA launches by device."""
+    model = kept["model"]
+    with tempfile.TemporaryDirectory() as tmp:
+        jsonl, chrome = f"{tmp}/fleet.jsonl", f"{tmp}/fleet.json"
+        s = kept["least-loaded"]
+        traced = run_fleet(model, "least-loaded", s["benches"],
+                           compiled=True, telemetry=TelemetrySpec(
+                               enabled=True, trace_jsonl=jsonl,
+                               chrome_trace=chrome))
+        snap = check_traced("least-loaded", s["runs"]["compiled"], traced)
+        res, events = traced["res"], traced["telemetry"].tracer.events
+        if obs.read_jsonl(jsonl) != events:
+            raise AssertionError("telemetry: the JSONL sink does not read "
+                                 "back as the run's events")
+        doc = obs.load_chrome_trace(chrome)
+        tracks = obs.chrome_tracks(doc)
+        want = {"devices": sorted(res.per_device),
+                "streams": sorted(["fleet"] + [f"stream {i}" for i in
+                                               range(len(s["benches"]))])}
+        if tracks != want:
+            raise AssertionError(f"telemetry: Chrome tracks {tracks}")
+        cats: dict = {}
+        for e in events:
+            cats[e.cat] = cats.get(e.cat, 0) + 1
+        walls = sum(e.args["wall_ms"] for e in events if e.cat == "round")
+        warm = s["runs"]["compiled again"]
+        after = run_fleet(model, "least-loaded", s["benches"], compiled=True)
+        check_traced("least-loaded", after, traced)
+        print(f"  least-loaded traced: {len(events)} events "
+              f"{dict(sorted(cats.items()))}; JSONL "
+              f"{Path(jsonl).stat().st_size} bytes, Chrome trace "
+              f"{Path(chrome).stat().st_size} bytes, "
+              f"{len(doc['traceEvents'])} records on "
+              f"{len(tracks['devices'])} device and "
+              f"{len(tracks['streams'])} stream tracks")
+        print(f"    counters' totals: {counter_totals(snap)}")
+        print(f"    gauges: {snap['gauges']}")
+        print(f"    reconciliation (max over the 9 entries) "
+              f"{max(snap['reconciliation'].values()):.3g}; device-time "
+              f"spans equal each device's ledger time within 1e-6; "
+              f"{traced['launches']['cka_terms']} CKA launches (example "
+              f"route {traced['launches']['cka_example']}), as untraced")
+        print(f"    loop traced {traced['loop_s']:.3f} s "
+              f"({res.rounds / traced['loop_s']:.3f} rounds/s) against "
+              f"untraced {after['loop_s']:.3f} s "
+              f"({res.rounds / after['loop_s']:.3f} rounds/s) right after "
+              f"it and {warm['loop_s']:.3f} s "
+              f"({res.rounds / warm['loop_s']:.3f} rounds/s) in the fleet "
+              f"phase; round spans' wall_ms (the host's time of the "
+              f"launches) sum to {walls:.1f} ms")
+        b = kept["battery"]
+        trace = f"{tmp}/battery.json"
+        battery = run_fleet(model, "battery", b["benches"], compiled=True,
+                            telemetry=TelemetrySpec(chrome_trace=trace))
+        check_traced("battery", b["runs"]["compiled"], battery)
+        doc = obs.load_chrome_trace(trace)
+        counters = {r["name"] for r in doc["traceEvents"]
+                    if r.get("ph") == "C"}
+        evs = obs.events_from_chrome(doc)
+        gauges = sum(e.cat == "gauge" for e in evs)
+        throttles = sum(e.cat == "throttle" for e in evs)
+        if not {"temperature_c/dev0", "soc/dev0", "temperature_c/dev1",
+                "soc/dev1"} <= counters or not gauges or not throttles:
+            raise AssertionError(f"telemetry battery: counters {counters}, "
+                                 f"{gauges} gauge and {throttles} throttle "
+                                 f"events")
+        print(f"  battery traced: {len(doc['traceEvents'])} Chrome records, "
+              f"counter tracks {sorted(counters)}, {gauges} gauge events, "
+              f"{throttles} throttle marks; bitwise the untraced run")
+    return {"least-loaded": traced["cka_by_device"],
+            "battery": battery["cka_by_device"]}
 
 
 def zero_launches() -> None:
@@ -3134,7 +3296,10 @@ def main() -> None:
         mixed = mixed_phase()
     phase("phase 3: the multi-device fleet and its environment on "
           "MobileNetV2 at full width")
-    fleet = fleet_phase()
+    fleet, fleet_runs = fleet_phase()
+    phase("phase 3: live telemetry on the fleet (tracer, metrics, sinks)")
+    traced = telemetry_phase(fleet_runs)
+    del fleet_runs
     phase("phase 3: rwkv6-3b serving at full width and depth")
     rwkv = get_config("rwkv6-3b")
     wkv_launches = rwkv_phase(rwkv)
@@ -3174,12 +3339,14 @@ def main() -> None:
              "mixed_loop": mixed["cka_eager"],
              **{f"compiled {name}": n["cka_terms"]
                 for name, n in compiled_launches.items()},
-             "baselines": baselines, "fleet": fleet},
+             "baselines": baselines, "fleet": fleet,
+             "fleet_traced": traced},
          "launches_by_route": {
              route: sum(p[f"cka_{route}"] for p in (
                  mbv2_launches, resnet_launches, loop_launches, launches))
              + (mixed["cka_eager"] + sum(baselines.values())
-                + sum(n for devs in fleet.values() for n in devs.values())
+                + sum(n for runs in (fleet, traced)
+                      for devs in runs.values() for n in devs.values())
                 if route == "example" else 0)
              for route in ("feature", "example")},
          "max_abs_err": cnn_err, **cka_record(cka),

@@ -9,9 +9,8 @@ or a sink path activates it::
     RuntimeConfig(..., telemetry=TelemetrySpec(enabled=True,
                                                chrome_trace="run.json"))
 
-A copy of `repro.obs.spec`. The port's live telemetry (`obs/telemetry.py`
-and its metrics and sinks) comes with ROADMAP A.8: until then a session
-whose spec is active raises `NotImplementedError`.
+A copy of `repro.obs.spec`; an active spec builds a live
+`repro_torch.obs.Telemetry` for the session.
 """
 from __future__ import annotations
 

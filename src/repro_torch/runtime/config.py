@@ -31,8 +31,8 @@ policy names and hook names raise with the valid alternatives listed.
 The port's copy (`repro_torch.runtime.config`) keeps the reference's
 names, fields, validation and dict form, so a dict either package's
 `to_dict` writes loads in the other. What the port cannot run yet raises
-`NotImplementedError` naming its ROADMAP item: an active
-`TelemetrySpec` (A.8's telemetry item). Several devices, least-loaded
+`NotImplementedError` naming its ROADMAP item. An active `TelemetrySpec`
+builds a live `repro_torch.obs.Telemetry`. Several devices, least-loaded
 routing, cross-device merging, straggler eviction and devices with an
 active `EnvSpec` run in the port's fleet (runtime/fleet.py). Every
 workload preset runs, the two-modality `mixed` one too: its `nlp`
@@ -260,8 +260,7 @@ class RuntimeConfig:
     # observability (DESIGN.md §14): the default spec is inactive — no
     # tracer, no metrics, no sinks; the run is bit-exact with the
     # pre-telemetry runtime. Any of enabled/trace_jsonl/chrome_trace
-    # activates it, which the port does not run yet (ROADMAP A.8's
-    # telemetry item).
+    # builds a live `repro_torch.obs.Telemetry` for the session.
     telemetry: TelemetrySpec = field(default_factory=TelemetrySpec)
 
     # ---- validation ------------------------------------------------------
@@ -377,13 +376,14 @@ class RuntimeConfig:
 # session materialization
 
 
-def _build_telemetry(spec: TelemetrySpec) -> None:
-    """The default inactive spec builds nothing — the zero-overhead path.
-    The port has no live telemetry yet."""
-    if spec.active:
-        raise NotImplementedError(
-            "telemetry is not ported yet (ROADMAP A.8, telemetry: "
-            "repro.obs metrics, sinks and the live tracer)")
+def _build_telemetry(spec: TelemetrySpec):
+    """An active spec becomes a live `repro_torch.obs.Telemetry`; the
+    default inactive spec builds nothing — the zero-overhead path."""
+    if not spec.active:
+        return None
+    from repro_torch.obs.telemetry import Telemetry
+
+    return Telemetry(spec)
 
 
 def materialize_stream_benchmarks(spec, seed: int,
@@ -492,7 +492,6 @@ def resolve_session(cfg: RuntimeConfig, *, device=None, model=None,
         spec = known[cfg.workload]
     else:
         batch_size = dict(cfg.workload_scale).get("batch_size", 8)
-    _build_telemetry(cfg.telemetry)
     device = resolve_device(device)
     for m in ([model] if model is not None else []) + \
             ([s.model for s in model_pool.slots.values()]
@@ -601,4 +600,5 @@ def resolve_session(cfg: RuntimeConfig, *, device=None, model=None,
         model_pool=model_pool, compiled=cfg.compiled,
         session_events=session_events, devices=cfg.devices,
         routing=cfg.routing,
-        aggregate_every=cfg.aggregate_every, device=device)
+        aggregate_every=cfg.aggregate_every, device=device,
+        telemetry=_build_telemetry(cfg.telemetry))

@@ -43,6 +43,7 @@ import numpy as np
 
 from repro_torch.data.arrivals import Event, build_timeline
 from repro_torch.data.streams import ContinualBenchmark
+from repro_torch.obs.trace import NULL_TRACER
 from repro_torch.optim import AdamWConfig
 from repro_torch.runtime.config import (DeviceConfig, HookSpec, RuntimeConfig,
                                         SlotConfig, resolve_session)
@@ -188,7 +189,8 @@ class ContinualRuntime:
               slot_hooks, stream_benchmarks, controller_factory,
               preemptible, preempt_resume_cost_s, model_pool, device,
               compiled=False, session_events=None,
-              devices=(), routing="static", aggregate_every=0.0):
+              devices=(), routing="static", aggregate_every=0.0,
+              telemetry=None):
         # ModelPool construction path: the pool's slots carry the models,
         # benchmarks and (optionally) controllers; model/benchmark/
         # controller may be None and default to the first slot's. Slot
@@ -248,6 +250,12 @@ class ContinualRuntime:
         # optional straggler-mitigation config, picked up by the fleet
         # (None = StragglerConfig defaults)
         self.straggler_config = None
+        # observability (DESIGN.md §14): a live `repro_torch.obs.Telemetry`
+        # bundle (tracer + metrics + sinks) built by resolve_session when
+        # `RuntimeConfig.telemetry` is active; None (the default) keeps
+        # every instrumented path on the falsy NULL_TRACER — bit-exact
+        # and allocation-free. After a run: ``rt.telemetry.snapshot()``.
+        self.telemetry = telemetry
         # the DeviceFleet the last run() drove (live handle for tests)
         self.fleet = None
         # a config-built session may carry its workload's compiled event
@@ -275,6 +283,8 @@ class ContinualRuntime:
         reference's RNG consumption order, which the replay samples and
         request draws depend on."""
         spec = device if device is not None else DeviceConfig(DEFAULT_DEVICE)
+        tracer = self.telemetry.tracer if self.telemetry is not None \
+            else NULL_TRACER
         slots: Dict[str, _SlotState] = {}
         if self.pool is None:
             replay = ReplayBuffer(
@@ -287,7 +297,7 @@ class ContinualRuntime:
                 hooks=self.hooks, calibrate_cost=self.calibrate_cost,
                 device_name=spec.name, speed_scale=spec.speed_scale,
                 preempt_resume_cost_s=self.preempt_resume_cost_s,
-                compiled=self.compiled, fuse=self.segment)
+                compiled=self.compiled, fuse=self.segment, tracer=tracer)
             slots[DEFAULT_MODEL] = _SlotState(
                 DEFAULT_MODEL, self.model, self.bench, self.controller,
                 self.steps, executor)
@@ -320,7 +330,7 @@ class ContinualRuntime:
                 model_name=slot.name, device_name=spec.name,
                 speed_scale=spec.speed_scale,
                 preempt_resume_cost_s=self.preempt_resume_cost_s,
-                compiled=self.compiled, fuse=self.segment)
+                compiled=self.compiled, fuse=self.segment, tracer=tracer)
             slots[slot.name] = _SlotState(slot.name, model,
                                           slot.benchmark, ctrl, steps,
                                           executor)

@@ -68,8 +68,9 @@ class DeviceRuntime:
         # straggler-tracker feed), reset by the fleet at each sync
         self.rounds_since_sync: Dict[str, int] = {n: 0 for n in slots}
         self.round_times: List[float] = []
-        # the fleet's tracer (NULL_TRACER: the port has no live tracer
-        # yet) records this device's swap/cka/probe spans
+        # observability (DESIGN.md §14): the fleet's tracer (NULL_TRACER
+        # when telemetry is off) records this device's swap/cka/probe
+        # spans
         self.tracer = fleet.tracer
         # physical environment (DESIGN.md §15): assigned by the fleet
         # when this device's DeviceConfig carries an active EnvSpec.
@@ -218,6 +219,9 @@ class DeviceRuntime:
             self.tracer.instant("throttle", f"defer/{slot.name}", now,
                                 stream=stream, device=self.name,
                                 slot=slot.name)
+        if self.fleet.telemetry is not None:
+            self.fleet.telemetry.metrics.counter(
+                "throttle_deferrals", device=self.name).inc()
         return False
 
     def finish_round(self, now: float, stream: int = 0) -> None:
@@ -309,6 +313,9 @@ class DeviceRuntime:
         else:
             self.acquire(slot, ev.time, st)
             latency = self.scheduler.busy_until_of(self.name) - ev.time
+        if self.fleet.telemetry is not None:
+            self.fleet.telemetry.metrics.histogram(
+                "latency_s", stream=st).observe(latency)
         self.server.submit(ev.time, {k: v[idx] for k, v in test.items()},
                            stream=st, latency=latency, slot=slot.name)
 
@@ -391,7 +398,8 @@ def clone_device_slots(fleet, spec, index: int, slots0: Dict,
             model_name=name, device_name=spec.name,
             speed_scale=spec.speed_scale,
             preempt_resume_cost_s=host.preempt_resume_cost_s,
-            compiled=host.compiled, fuse=host.segment)
+            compiled=host.compiled, fuse=host.segment,
+            tracer=fleet.tracer)
         executor.load(tree_map(torch.clone, src.executor.params),
                       _clone_state(src.executor.opt_state))
         slots[name] = _SlotState(name, src.model, src.bench, ctrl,

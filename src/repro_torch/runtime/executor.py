@@ -12,8 +12,9 @@ simulated quantization-aware training (paper §V-G) — are composable
 The executor is timeline-agnostic: it receives `now` and an
 `EventScheduler` to reserve device time on, and reports what it did via
 `RoundReport`; publishing the new params to serving, validation and
-controller notification stay with the caller. The reference's tracer
-spans come with the port of `repro.obs`'s live tracer.
+controller notification stay with the caller. A live tracer records
+the round, segment, preempt and resume events on the modeled timeline,
+as the reference's does.
 
 The eager train steps are out of place, and the compiled path's
 `TrainStepCache.fused_call` copies the params and optimizer state into
@@ -25,6 +26,7 @@ which its donating steps need). So the params that escape the executor
 from __future__ import annotations
 
 import dataclasses
+import time
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence
 
@@ -33,6 +35,7 @@ import torch
 
 from repro_torch import tree_leaves, tree_map, tree_unflatten
 from repro_torch.core import semi
+from repro_torch.obs.trace import NULL_TRACER
 from repro_torch.runtime.costmodel import EdgeCostModel
 from repro_torch.runtime.ledger import DEFAULT_DEVICE, DEFAULT_MODEL, CostLedger
 from repro_torch.runtime.train_loop import (TrainStepCache, as_tensor,
@@ -245,13 +248,18 @@ class FineTuneExecutor:
                  speed_scale: float = 1.0,
                  preempt_resume_cost_s: float = 0.0,
                  compiled: bool = False,
-                 fuse: bool = True):
+                 fuse: bool = True,
+                 tracer=NULL_TRACER):
         self.steps = steps
         self.device = steps.model.device
         self.cost = cost
         self.ledger = ledger
         self.replay = replay
         self.rng = rng
+        # observability (DESIGN.md §14): a live Tracer records round /
+        # segment / resume spans on the modeled timeline; the falsy
+        # NULL_TRACER default keeps every guarded site allocation-free
+        self.tracer = tracer
         self.hooks = list(hooks)
         self.calibrate_cost = calibrate_cost
         # compiled hot path (DESIGN.md §12): every supervised update goes
@@ -398,7 +406,13 @@ class FineTuneExecutor:
         for h in self.hooks:
             h.on_round_start(self.ledger.rounds)
         if not preemptible:
+            # `wall_ms` is the host's time of the call: on the card, and
+            # on the compiled path, the time to launch the round's work,
+            # not its device time (nothing here waits for the device)
+            wall = time.perf_counter() if self.tracer else 0.0
             self._run_batches(step, plan, batches)
+            if self.tracer:
+                wall = time.perf_counter() - wall
             flops, t, e, parts = self._round_cost(plan, batches, recompile)
             self.ledger.charge_round(flops=flops, time_s=t, energy_j=e,
                                      parts=parts, stream=stream,
@@ -407,6 +421,13 @@ class FineTuneExecutor:
             start, end = scheduler.occupy(now, t, stream=stream,
                                           priority=priority,
                                           device=self.device_name)
+            if self.tracer:
+                self.tracer.span("round", f"round/{self.model_name}",
+                                 start, t, stream=stream,
+                                 device=self.device_name,
+                                 slot=self.model_name, iters=len(batches),
+                                 recompiled=bool(recompile),
+                                 wall_ms=round(wall * 1e3, 3))
             return RoundReport(iters=len(batches), flops=flops, time_s=t,
                                energy_j=e, recompiled=bool(recompile),
                                start=start, end=end, stream=stream)
@@ -450,6 +471,15 @@ class FineTuneExecutor:
                                          model=self.model_name,
                                          device=self.device_name,
                                          final=final)
+        if self.tracer:
+            # span duration = the charged time slice (not the raw
+            # occupancy delta), so per-device span sums reconcile with the
+            # ledger even on the exact-remainder final segment
+            self.tracer.span("segment", f"round/{self.model_name}",
+                             ar.seg_start, time_s, stream=ar.stream,
+                             device=self.device_name, slot=self.model_name,
+                             seg=ar.segments, final=final,
+                             recompiled=ar.recompiled)
         ar.charged["time_s"] += time_s
         ar.charged["energy_j"] += energy_j
         ar.charged["flops"] += flops
@@ -480,6 +510,12 @@ class FineTuneExecutor:
         self._charge_segment(ar, t - ar.seg_start, final=False)
         self.ledger.note_preemption(ar.stream)
         ar.preemptions += 1
+        if self.tracer:
+            self.tracer.instant("preempt", f"preempt/{self.model_name}", t,
+                                stream=preempting_stream,
+                                device=self.device_name,
+                                slot=self.model_name,
+                                preempted_stream=ar.stream)
         remaining = scheduler.preempt(t, self.device_name)
         resume = self.preempt_resume_cost_s
         if resume > 0.0:
@@ -489,9 +525,14 @@ class FineTuneExecutor:
                 "resume", resume, resume * self.cost.overhead_power_w,
                 stream=payer, model=self.model_name,
                 device=self.device_name)
-            scheduler.occupy(t, resume, stream=payer,
-                             priority=ar.reservation.priority,
-                             device=self.device_name)
+            r = scheduler.occupy(t, resume, stream=payer,
+                                 priority=ar.reservation.priority,
+                                 device=self.device_name)
+            if self.tracer:
+                self.tracer.span("resume", f"resume/{self.model_name}",
+                                 r.start, resume, stream=payer,
+                                 device=self.device_name,
+                                 slot=self.model_name)
         ar.reservation = scheduler.occupy(
             t, remaining, stream=ar.stream,
             priority=ar.reservation.priority, preemptible=True,

@@ -30,9 +30,9 @@ occupancy lane — driven off ONE shared event timeline and ONE shared
 fleet of one device. The reference can also shrink an injected JAX mesh
 on eviction and re-shard the survivors' params (`mesh`, `param_specs`,
 `distributed/elastic.py`); that is JAX sharding, and passing a mesh here
-raises `NotImplementedError` naming ROADMAP A.9. The port has no live
-telemetry (ROADMAP A.8's telemetry item), so the reference's metric
-counters and trace spans have no counterpart; its log lines do.
+raises `NotImplementedError` naming ROADMAP A.9. With a live
+`Telemetry` on the host, the fleet records the reference's sync spans,
+straggler instants, counters and gauges, and writes the sinks at run end.
 """
 from __future__ import annotations
 
@@ -192,6 +192,10 @@ class DeviceFleet:
         # for every device whose DeviceConfig carries an active EnvSpec;
         # empty (the default) keeps every env branch untaken.
         self.envs: Dict[str, DeviceEnv] = {}
+        # observability (DESIGN.md §14): run() swaps in the host's live
+        # Telemetry bundle when one is configured; the falsy NULL_TRACER
+        # default keeps every instrumented path allocation-free.
+        self.telemetry = None
         self.tracer = NULL_TRACER
 
     # ---- lookups (fleet-level policy state, see device.py docstring) -----
@@ -213,6 +217,16 @@ class DeviceFleet:
         rng = np.random.default_rng(host.seed)
         ledger = CostLedger()
         self.ledger = ledger
+        # observability: reset the host's Telemetry for this run (fresh
+        # tracer + registry), install it as the ledger's observer and
+        # expose its tracer to every subsystem built below. A host
+        # without telemetry keeps the falsy NULL_TRACER everywhere.
+        tel = getattr(host, "telemetry", None)
+        self.telemetry = tel
+        if tel is not None:
+            tel.reset()
+            self.tracer = tel.tracer
+            ledger.telemetry = tel
         slots0 = host._build_slots(ledger, rng, device=self.specs[0])
         primary_slot = next(iter(slots0.values()))
         primary_ctrl = host.controller if host.controller is not None \
@@ -260,6 +274,9 @@ class DeviceFleet:
         self.scheduler = scheduler
         # live handles: controller callbacks / tests may push events onto
         # the running timeline (mid-drain push is supported)
+        scheduler.tracer = self.tracer
+        scheduler.trace_dispatch = tel.spec.dispatch_events \
+            if tel is not None else True
         host.scheduler = scheduler
         host.fleet = self
 
@@ -291,10 +308,11 @@ class DeviceFleet:
                 dev_rng))
 
         # --- physical environments (DESIGN.md §15): one DeviceEnv per
-        # device with an active EnvSpec; the env observer takes the
-        # ledger's observer slot, so every charge's energy drains the
-        # owning device's battery / heats its RC node. No active env -> no
-        # observer: the default path is untouched.
+        # device with an active EnvSpec; the env observer wraps whatever
+        # telemetry observer the ledger already has, so every charge's
+        # energy drains the owning device's battery / heats its RC node.
+        # No active env -> no observer swap: the default path is
+        # untouched.
         self.envs = {}
         for dev in self.devices:
             env_spec = getattr(dev.spec, "env", None)
@@ -434,6 +452,13 @@ class DeviceFleet:
                 log.warning("sync at t=%.3f: device %s flagged as "
                             "straggler — re-routing its streams",
                             ts, self.devices[h].name)
+                if self.telemetry is not None:
+                    self.telemetry.metrics.counter(
+                        "straggler_flags",
+                        device=self.devices[h].name).inc()
+                if self.tracer:
+                    self.tracer.instant("straggler", "flag", ts,
+                                        device=self.devices[h].name)
                 self._reroute_streams(h, ts)
             self._flagged = current
         self._merge(ts)
@@ -449,15 +474,19 @@ class DeviceFleet:
                       if d.index not in self._evicted
                       and d.index not in self._flagged
                       and not (d.env is not None and d.env.battery_dead)]
+        tel = self.telemetry
         for name in self.devices[0].slots:
             group = [d for d in candidates
                      if d.slots[name].executor.active_round is None]
             for d in candidates:
                 if d not in group:
                     # never a silent drop: a mid-round device sitting a
-                    # merge out is expected, but observable
+                    # merge out is expected, but observable (log + counter)
                     log.info("sync at t=%.3f: device %s sits out slot %r "
                              "merge (round in flight)", ts, d.name, name)
+                    if tel is not None:
+                        tel.metrics.counter("sync_skips",
+                                            device=d.name).inc()
             if len(group) < 2:
                 log.info("sync at t=%.3f: slot %r merge skipped "
                          "(%d eligible device(s), need >= 2)",
@@ -480,8 +509,13 @@ class DeviceFleet:
                 self.ledger.charge_sync(
                     time_s=t_sync, energy_j=t_sync * c.overhead_power_w,
                     device=d.name, stream=FLEET_STREAM, model=name)
-                self.scheduler.occupy(ts, t_sync, stream=FLEET_STREAM,
-                                      device=d.name)
+                r = self.scheduler.occupy(ts, t_sync, stream=FLEET_STREAM,
+                                          device=d.name)
+                if self.tracer:
+                    self.tracer.span("sync", f"sync/{name}", r.start,
+                                     t_sync, stream=FLEET_STREAM,
+                                     device=d.name, slot=name,
+                                     participants=len(group))
                 d.rounds_since_sync[name] = 0
 
     def _reroute_streams(self, from_idx: int, ts: float) -> None:
@@ -518,6 +552,13 @@ class DeviceFleet:
         log.warning("t=%.3f: evicting device %s (%s); "
                     "its streams re-route and its deltas leave the merge",
                     ts, self.devices[index].name, reason)
+        if self.telemetry is not None:
+            self.telemetry.metrics.counter(
+                "evictions", device=self.devices[index].name).inc()
+        if self.tracer:
+            self.tracer.instant("straggler", "evict", ts,
+                                device=self.devices[index].name,
+                                reason=reason)
         if self.tracker is not None:
             self.tracker.evict(index)
         self._evicted.add(index)
@@ -588,6 +629,24 @@ class DeviceFleet:
             cell["throttle_s"] = dev.env.throttle_s \
                 if dev.env is not None else 0.0
             per_device[dev.name] = cell
+        tel = self.telemetry
+        if tel is not None:
+            for dev in self.devices:
+                tel.metrics.gauge("utilization", device=dev.name).set(
+                    per_device[dev.name]["utilization"])
+                env = dev.env
+                if env is not None:
+                    st = env.state()
+                    tel.metrics.gauge("temperature_c",
+                                      device=dev.name).set(st.temperature_c)
+                    if st.soc is not None:
+                        tel.metrics.gauge("soc",
+                                          device=dev.name).set(st.soc)
+            tel.metrics.gauge("recompiles").set(float(
+                sum(st.steps.recompiles for st in slots0.values())
+                if host.pool is not None else host.steps.recompiles))
+            tel.metrics.gauge("makespan_s").set(makespan)
+            tel.flush_sinks()
         return RunResult(
             avg_inference_acc=float(np.mean(all_accs)) if all_accs else 0.0,
             total_time_s=ledger.total_time_s,

@@ -10,9 +10,10 @@ tests, and makes "where did the joules go" auditable instead of being
 smeared across the event loop. Counterpart of `repro.runtime.ledger`.
 Its observer slot (`telemetry`) takes any object with the reference's
 ``on_charge`` / ``on_round`` / ``on_preemption`` / ``on_swap`` /
-``on_sync`` hooks: the fleet installs `repro_torch.env.EnvLedgerObserver`
-there when a device carries an active environment (the port has no live
-metrics registry yet, ROADMAP A.8's telemetry item).
+``on_sync`` hooks: the fleet installs the session's
+`repro_torch.obs.Telemetry` there when telemetry is on, and wraps it in a
+`repro_torch.env.EnvLedgerObserver` when a device carries an active
+environment.
 
 Attribution is three-dimensional: every charge lands in the global totals,
 in ``per_stream[stream]`` (which arrival stream caused it), in

@@ -9,9 +9,9 @@ eager.
 Equal in the port: an inactive spec and a null throttle leave a fleet
 session bit for bit as it was; a battery's drain equals its device's
 ledger energy; a finite battery throttles or evicts within its budget,
-compiled exactly as eager. The reference's version of that last session
-also checks its Chrome trace, which waits for the port's telemetry
-(ROADMAP A.8).
+compiled exactly as eager, and, as in the reference's version of that
+session, its Chrome trace loads with the temperature and state-of-charge
+counters of both devices, gauge events and throttle marks.
 
 Across the packages the throttle and eviction decisions are held equal
 with a policy stack without SimFreeze: every plan is then all-active,
@@ -36,6 +36,7 @@ from repro.core import policies as jax_policies
 from repro.models import build_model as jax_build_model
 from repro.runtime import RuntimeConfig as JaxRuntimeConfig
 from repro.runtime import SlotConfig as JaxSlotConfig
+from repro.runtime import TelemetrySpec as JaxTelemetrySpec
 from repro.runtime import edgeol_session as jax_edgeol_session
 from repro.runtime.config import DeviceConfig as JaxDeviceConfig
 from repro.runtime.costmodel import EdgeCostModel as JaxEdgeCostModel
@@ -45,7 +46,9 @@ from repro_torch.bridge import params_from_jax
 from repro_torch.configs import get_reduced
 from repro_torch.core import policies
 from repro_torch.models import build_model
-from repro_torch.runtime import RuntimeConfig, SlotConfig, edgeol_session
+from repro_torch.obs import events_from_chrome, load_chrome_trace
+from repro_torch.runtime import (RuntimeConfig, SlotConfig, TelemetrySpec,
+                                 edgeol_session)
 from repro_torch.runtime.config import DeviceConfig
 from repro_torch.runtime.costmodel import EdgeCostModel, scale_cost
 from repro_torch.runtime.ledger import CostLedger
@@ -85,6 +88,7 @@ class _Jax:
     RuntimeConfig = JaxRuntimeConfig
     SlotConfig = JaxSlotConfig
     DeviceConfig = JaxDeviceConfig
+    TelemetrySpec = JaxTelemetrySpec
 
     @staticmethod
     def session(cfg):
@@ -97,6 +101,7 @@ class _Port:
     RuntimeConfig = RuntimeConfig
     SlotConfig = SlotConfig
     DeviceConfig = DeviceConfig
+    TelemetrySpec = TelemetrySpec
 
     @staticmethod
     def session(cfg):
@@ -226,6 +231,10 @@ def _devices(api, name):
     return (D("dev0", env=e), D("dev1", env=e))
 
 
+#: the session that runs traced when compiled (its Chrome trace is
+#: checked); its eager run is untraced, and the two are held equal
+TRACED = "finite"
+
 SESSIONS = {"plain": ("plain", None), "inert": ("inert", None),
             "null-throttle": ("plain", "null"), "huge": ("huge", None),
             "finite": ("finite", "battery"),
@@ -246,7 +255,9 @@ def _run(api, name, compiled=True):
                             workload_scale=dict(SCALE), seed=0,
                             pretrain_epochs=1, compiled=compiled,
                             devices=_devices(api, devices),
-                            aggregate_every=50.0)
+                            aggregate_every=50.0,
+                            telemetry=api.TelemetrySpec(
+                                enabled=name == TRACED and compiled))
     rt = api.session(cfg)
     with warnings.catch_warnings():
         warnings.simplefilter("ignore", UserWarning)
@@ -291,7 +302,7 @@ def test_battery_drain_equals_per_device_ledger_energy():
 
 
 @pytest.mark.parametrize("name", ["finite", "finite-no-freeze"])
-def test_finite_battery_fleet_throttles_within_budget(name):
+def test_finite_battery_fleet_throttles_within_budget(name, tmp_path):
     res, rt = _run(_Port, name)
     engaged = any(cell["throttle_s"] > 0 or cell["battery_dead"] > 0
                   or cell["evicted"] > 0
@@ -306,6 +317,20 @@ def test_finite_battery_fleet_throttles_within_budget(name):
     assert res.controller_stats == eager.controller_stats
     assert [d.env.state() for d in rt.fleet.devices] == \
         [d.env.state() for d in ert.fleet.devices]
+    if name != TRACED:
+        return
+    # the Chrome trace validates and carries gauges + throttle marks
+    trace = str(tmp_path / "env_trace.json")
+    rt.telemetry.spec = TelemetrySpec(chrome_trace=trace)
+    rt.telemetry.flush_sinks()
+    doc = load_chrome_trace(trace)
+    counters = {r["name"] for r in doc["traceEvents"]
+                if r.get("ph") == "C"}
+    assert {"temperature_c/dev0", "soc/dev0",
+            "temperature_c/dev1", "soc/dev1"} <= counters
+    evs = events_from_chrome(doc)
+    assert any(e.cat == "gauge" for e in evs)      # "C" records invert
+    assert any(e.cat == "throttle" for e in evs)   # spans or defer marks
 
 
 def test_throttle_and_eviction_decisions_match_reference():

@@ -18,7 +18,8 @@ from repro_torch.bridge import params_from_jax
 from repro_torch.configs import get_reduced
 from repro_torch.core.controller import ETunerController
 from repro_torch.models import build_model
-from repro_torch.runtime import RuntimeConfig, SlotConfig, edgeol_session
+from repro_torch.runtime import (RuntimeConfig, SlotConfig, TelemetrySpec,
+                                 edgeol_session)
 
 ROOT = Path(__file__).resolve().parents[1]
 PACKAGE = ROOT / "src" / "repro_torch"
@@ -117,9 +118,23 @@ def test_baseline_modules_are_ported(name):
                            / "__init__.py").exists()
 
 
+# the live telemetry: copies of the JAX package's jax-free `obs/`
+OBS = ["obs", "obs.trace", "obs.metrics", "obs.export", "obs.log",
+       "obs.telemetry"]
+
+
+@pytest.mark.parametrize("name", OBS)
+def test_obs_modules_are_ported(name):
+    assert f"repro_torch.{name}" in _modules()
+    assert (ROOT / "src" / "repro" / (name.replace(".", "/") + ".py")
+            ).exists() or (ROOT / "src" / "repro" / name.replace(".", "/")
+                           / "__init__.py").exists()
+
+
 def test_runtime_root_loads_neither_jax_nor_repro():
     names = ['repro_torch.' + n
-             for n in RUNTIME_ROOT + CNN_AND_HOOKS + WORKLOADS + BASELINES]
+             for n in RUNTIME_ROOT + CNN_AND_HOOKS + WORKLOADS + BASELINES
+             + OBS]
     code = ("import importlib, sys\n"
             f"for m in {names!r}:\n"
             "    importlib.import_module(m)\n"
@@ -182,10 +197,15 @@ def _compiled_workload_session():
                                  workload="single-poisson", compiled=True))
 
 
+def _traced_session():
+    edgeol_session(RuntimeConfig(slots={"cv": SlotConfig()},
+                                 telemetry=TelemetrySpec(enabled=True)))
+
+
 @pytest.mark.parametrize("entry", [resolve_device, _build, _bridge, _etuner,
                                    _session, _cnn, _default_session,
                                    _compiled_workload_session, _bert,
-                                   _mixed_session])
+                                   _mixed_session, _traced_session])
 def test_entry_points_raise_without_gpu(monkeypatch, entry):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):

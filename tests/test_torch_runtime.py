@@ -3,8 +3,9 @@
 at the reduced DeiT-tiny with the ETuner policy stack (LazyTune,
 SimFreeze, energy-score detection), on the same numpy benchmark and
 timeline; `RuntimeConfig`'s dict form across the two packages; the
-`ModelPool` on the same acquire sequence; and what the port cannot run
-yet, each raising `NotImplementedError` with its ROADMAP label.
+`ModelPool` on the same acquire sequence; a session with live
+telemetry; and what the port cannot run yet (an elastic mesh), raising
+`NotImplementedError` with its ROADMAP label.
 
 The port's model is injected with an `init` that returns the JAX
 package's `init(PRNGKey(seed))` carried across by `bridge.params_from_jax`
@@ -411,21 +412,25 @@ def _tiny_bench():
                         batch_size=4, image_size=32, seed=0)
 
 
-UNPORTED = {
-    "telemetry": (dict(telemetry=TelemetrySpec(enabled=True)),
-                  r"ROADMAP A\.8, telemetry"),
-}
+def test_telemetry_session_runs_with_a_live_tracer():
+    """An active `TelemetrySpec` builds a live `Telemetry`: the session
+    runs, and its tracer holds the run's events."""
+    from repro_torch.obs import Telemetry, Tracer
 
-
-@pytest.mark.parametrize("name", sorted(UNPORTED))
-def test_unported_paths_raise_naming_their_roadmap_item(name):
-    kw, label = UNPORTED[name]
-    kw = {"slots": {"default": config.SlotConfig(arch="deit-tiny")}, **kw}
-    with pytest.raises(NotImplementedError, match=label):
-        rt = continual.ContinualRuntime.from_config(
-            config.RuntimeConfig(pretrain_epochs=0, **kw), device=CPU,
-            benchmark=_tiny_bench())
-        rt.run(events=[])
+    rt = continual.ContinualRuntime.from_config(
+        config.RuntimeConfig(pretrain_epochs=0, telemetry=TelemetrySpec(
+            enabled=True), slots={
+                "default": config.SlotConfig(arch="deit-tiny")}),
+        device=CPU, benchmark=_tiny_bench())
+    assert isinstance(rt.telemetry, Telemetry)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)
+        res = rt.run(inferences_total=4)
+    assert isinstance(rt.telemetry.tracer, Tracer)
+    cats = {e.cat for e in rt.telemetry.tracer.events}
+    assert {"dispatch", "request", "round"} <= cats
+    assert rt.telemetry.metrics.counter_value("rounds", device="dev0") \
+        == res.rounds > 0
 
 
 def test_elastic_mesh_raises_naming_its_roadmap_item():

@@ -19,6 +19,7 @@ import pytest
 import torch
 from torch.utils.flop_counter import FlopCounterMode
 
+from repro.configs import get_config as jax_get_config
 from repro.configs import get_reduced as jax_get_reduced
 from repro.core import controller as jax_controller
 from repro.core import curvefit as jax_curvefit
@@ -39,7 +40,7 @@ from repro.runtime.ledger import CostLedger as JaxCostLedger
 from repro.runtime.scheduler import EventScheduler as JaxEventScheduler
 from repro_torch import tree_leaves, tree_map
 from repro_torch.bridge import params_from_jax
-from repro_torch.configs import get_reduced
+from repro_torch.configs import get_config, get_reduced
 from repro_torch.core import curvefit, lazytune, ood, policies
 from repro_torch.core.controller import ETunerConfig, ETunerController
 from repro_torch.core.freeze_plan import LayerFreezePlan
@@ -572,6 +573,18 @@ def test_cnn_flop_ratios_between_plans_match_xla(arch):
     ResNet 2.81% and 0.20%."""
     gaps = _flop_ratio_gaps(jax_get_reduced(arch), get_reduced(arch))
     assert max(gaps) < 0.07
+
+
+def test_full_width_flop_ratios_match_xla():
+    """The ratio test at full width: DeiT-tiny (12 layers, d = 192),
+    batch 16 at 224x224, with the 7% limit. The reference's step is only
+    compiled for XLA's count, never run; the port's count runs on `meta`
+    tensors. Measured: XLA 1.265e11 FLOPs all-active, ratios 0.646 and
+    0.322; FlopCounterMode 1.194e11, ratios 0.664 and 0.336 (gaps 2.80%
+    and 4.21%)."""
+    jcfg, cfg = jax_get_config("deit-tiny"), get_config("deit-tiny")
+    assert (cfg.num_layers, cfg.d_model, cfg.image_size) == (12, 192, 224)
+    assert max(_flop_ratio_gaps(jcfg, cfg)) < 0.07
 
 
 @pytest.mark.parametrize("size,k,stride", [(2, 3, 1), (5, 3, 2), (16, 3, 2),
