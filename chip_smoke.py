@@ -28,7 +28,10 @@ It imports nothing of JAX and nothing of the JAX package, and fails
    logw = -exp(U(-8, 2)) (where a factorization exp(c_t) exp(-c_s) from
    a chunk's start overflows), at the main shape, at T = 1, ragged T, T
    at and one past a boundary of the kernel's 8-token tiles, with s0, and
-   at head sizes 16, 32 and 64; flash attention at bert-base's shapes
+   at head sizes 16, 32 and 64; flash attention at head dims 16-256,
+   at gemma2-2b's heads (8 query and 4 kv heads of 256, causal, softcap
+   50, with and without a window of 96) and granite's MQA (48 query heads
+   over one kv head of 128), and at bert-base's shapes
    (the mixed loop's [16, 32, 12, 64], serving's [8, 512, 12, 64] and a
    ragged [4, 77, 12, 64]) and CKA's example route at its probe shape
    (n = 512, d = 768) and a ragged n = 500, also held to float64; and two
@@ -168,6 +171,16 @@ It imports nothing of JAX and nothing of the JAX package, and fails
    a prefill of 511 tokens plus a decode of the 512th must match the
    512-token prefill within 1e-3. The bf16 differences are printed, not
    held: they exceed the 3e-2 limit (`rwkv_phase` says why);
+   then gemma2-2b serving at full width and depth (`lm_phase`:
+   `get_config("gemma2-2b")`, 26 layers, d=2304, 8 query and 4 kv heads
+   of 256, bf16, 2.61e9 params from a seeded CUDA generator) on the same
+   4 prompts of 512 tokens for 16 greedy steps, with the flash kernel on
+   its prefill (`use_pallas`: 26 launches, causal, window 4096 on the
+   local layers, softcap 50, GQA; no CKA or WKV6 launch), timed, and
+   plain (no launch); the same pair in fp32 (10.5 GB), held as rwkv6's
+   is, and one fp32 prompt of 8192 tokens, past attn_chunk (the plain
+   path is the blockwise one) and past the local layers' window, kernel
+   against plain within 1e-3 (26 launches);
 4. timing: each kernel, its plain version and (attention) PyTorch's
    `scaled_dot_product_attention` at the main-path shapes, with CUDA
    events around eager calls after a warm-up (`ms`) and from CUDA graphs
@@ -187,9 +200,15 @@ It imports nothing of JAX and nothing of the JAX package, and fails
    form at chunk 32 and, under torch.profiler, the card's time in each of
    its two passes (the decay pass and the scan); flash attention at
    bert-base's two shapes beside SDPA and CKA's example route at its
-   probe shape (`bert_timing`); the DeiT-tiny
-   slice's requests per second and rwkv6-3b's prefill and decode tokens
-   per second;
+   probe shape (`bert_timing`); flash attention at gemma2-2b's prefill
+   shapes (`gemma_timing`: [4, 512, 8/4, 256] causal with softcap 50,
+   and one 8192-token prompt with and without the 4096 window) on bf16
+   inputs, as the main path passes them, beside the bound of the
+   unmasked pairs' work in bf16 and SDPA's causal time without the
+   softcap, a different function (no PyTorch call has the softcap), and
+   the fp32 function (fp32 inputs) beside its 3xTF32 bound;
+   the DeiT-tiny slice's requests per second and rwkv6-3b's and
+   gemma2-2b's prefill and decode tokens per second;
 5. only with --profile: one more kernel run of each slice under
    torch.profiler (the DeiT-tiny slice, the ETuner loops on DeiT-tiny and
    MobileNetV2, the DeiT-tiny `single-poisson` session and the `mixed`
@@ -207,7 +226,9 @@ The last two lines are the kernels' JSON record and
 count of its newest path (CKA: the MobileNetV2 loop; flash attention: the
 eager mixed loop, whose shape [16, 32, 12, 64] its times there are, with
 serving's shape under `bert_serving` and DeiT-tiny's under `deit_tiny`;
-WKV6: rwkv6-3b serving), and `launches_by_path` has every path's count. CKA's times there are those of that path, a launch's mean
+WKV6: rwkv6-3b serving), and `launches_by_path` has every path's count
+(gemma2-2b's serving and 8192-token prefills under `gemma2_serving` and
+`gemma2_long`, its shapes' times under `gemma2`). CKA's times there are those of that path, a launch's mean
 over a MobileNetV2 probe pass (with the pass, the stem launch and
 ResNet50's pass in full); its DeiT-tiny feature-route numbers are under
 `feature_route`, its bert-base probe shape's under `bert_probe`.
@@ -296,9 +317,10 @@ PORT_KERNELS = ("flash_fwd_kernel", "cka_gram_kernel", "cka_fold_kernel",
 EXAMPLE_PASSES = ("cka_example_gram_kernel", "cka_example_fold_kernel",
                   "cka_sum_kernel")
 # published peaks of one H100 SXM (NVIDIA data sheet): fp32 on the CUDA
-# cores, dense TF32 on the tensor cores and HBM3 bandwidth
+# cores, dense TF32 and bf16 on the tensor cores and HBM3 bandwidth
 PEAK_FP32_FLOPS = 67e12
 PEAK_TF32_FLOPS = 495e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
 # main-path shapes: DeiT-tiny at 224x224 (197 tokens, 3 heads of 64) on a
 # 16-image batch; the CKA probe flattens [16, 197, 192] to 3152 x 192
@@ -307,6 +329,14 @@ MAIN_CKA = (16 * 197, 192)
 # rwkv6-3b prefill: 4 prompts of 512 tokens, 40 heads of 64
 MAIN_WKV = (4, 512, 40, 64)
 DECODE_STEPS = 16
+# gemma2-2b prefill: 4 prompts of 512 tokens, 8 query heads of 256 over 4
+# kv heads, causal, softcap 50 (B, S, Hq, Hkv, hd); one prompt of 8192
+# tokens, past attn_chunk (2048: the plain path is the blockwise one) and
+# past the 4096 window of the 13 local layers
+GEMMA_ATT = (4, 512, 8, 4, 256)
+GEMMA_LONG = 8192
+GEMMA_SOFTCAP = 50.0
+GEMMA_WINDOW = 4096
 # the rwkv6-3b kernel/plain pair and prefill/decode check, run in fp32
 # (rwkv_phase says why)
 PAIR_TOL = 1e-3
@@ -560,8 +590,16 @@ def kernel_phase():
                     softcap=30.0)
     check_attention(gen, 2, 200, 4, 4, 32, causal=False, window=48)
     check_attention(gen, 2, 192, 8, 2, 64, causal=True)  # GQA
-    for hd in (16, 32, 64, 128):
+    for hd in att_ops.HEAD_DIMS:
         check_attention(gen, 2, 130, 4, 4, hd)
+    # the LMs: gemma2-2b's heads (8 q / 4 kv of 256, causal, softcap 50),
+    # with a window; granite's MQA (48 q heads over one kv head of 128)
+    lm_att_err = max(
+        check_attention(gen, 2, 256, 8, 4, 256, causal=True,
+                        softcap=GEMMA_SOFTCAP),
+        check_attention(gen, 2, 256, 8, 4, 256, causal=True, window=96,
+                        softcap=GEMMA_SOFTCAP),
+        check_attention(gen, 2, 256, 48, 1, 128, causal=True))
     q, k, v = (torch.randn(MAIN_ATT, generator=gen).cuda() for _ in range(3))
     first = att_ops.flash_attention(q, k, v, causal=False)
     second = att_ops.flash_attention(q, k, v, causal=False)
@@ -636,7 +674,8 @@ def kernel_phase():
             raise AssertionError(f"two WKV6 launches differ at {shape}")
     print("  wkv6: two launches agree bit for bit (o and final state), at 4 "
           "prompts and at one")
-    return att_err, cka_err, cnn_err, wkv_err, bert_att_err, bert_cka_err
+    return (att_err, cka_err, cnn_err, wkv_err, bert_att_err, bert_cka_err,
+            lm_att_err)
 
 
 # ---------------------------------------------------------------------------
@@ -2650,7 +2689,7 @@ def lm_close(name, got, want, tol) -> None:
     np.testing.assert_allclose(got, want, rtol=tol, atol=tol, err_msg=name)
 
 
-def rwkv_model(cfg, **kw):
+def lm_model(cfg, **kw):
     """The model of `cfg` (with `kw` replaced) and its params, drawn on the
     card from seed 0."""
     torch.cuda.synchronize()
@@ -2668,9 +2707,11 @@ def rwkv_model(cfg, **kw):
 def consistency(model, params, prompts):
     """Logits of a decode of the last prompt token after a prefill of the
     others: they must be those of the full prefill (the final state the
-    WKV route hands over is the decode cache)."""
+    WKV route hands over is the decode cache; attention caches are
+    extended by one row first, as `ServeEngine` extends them)."""
     tokens = torch.as_tensor(prompts, device=model.device)
     _, cache = model.prefill(params, {"tokens": tokens[:, :-1]})
+    cache = ServeEngine(model)._extend_cache(cache, tokens.shape[1])
     dec, _ = model.decode(params, tokens[:, -1:], cache, tokens.shape[1] - 1)
     return dec.float().cpu().numpy()
 
@@ -2689,7 +2730,7 @@ def rwkv_phase(cfg):
     prompts = np.random.default_rng(0).integers(
         0, cfg.vocab_size, (B, S)).astype(np.int32)
 
-    kmodel, params = rwkv_model(cfg, use_pallas=True)
+    kmodel, params = lm_model(cfg, use_pallas=True)
     kern_tok, kern_logits, launches = serve(kmodel, params, prompts)
     print(f"  kernel run: {launches}")
     if launches != {"flash_attention": 0, "cka_terms": 0, "cka_feature": 0,
@@ -2724,7 +2765,7 @@ def rwkv_phase(cfg):
     del params
     torch.cuda.empty_cache()
 
-    kmodel, params = rwkv_model(cfg, use_pallas=True, dtype="float32",
+    kmodel, params = lm_model(cfg, use_pallas=True, dtype="float32",
                                 param_dtype="float32")
     kern_tok, kern_logits, _ = serve(kmodel, params, prompts)
     pmodel = build_model(kmodel.cfg.replace(use_pallas=False, ssm_chunk=32))
@@ -2744,6 +2785,112 @@ def rwkv_phase(cfg):
     del params
     torch.cuda.empty_cache()
     return launches["wkv6"]
+
+
+def lm_phase(cfg):
+    """gemma2-2b serving at full width and depth through
+    `ServeEngine.generate`, the flash kernel on its prefill.
+
+    As in `rwkv_phase`, the bf16 kernel run is the main path (its launches
+    and timings are the ones reported), and the checks against the plain
+    run run in fp32 within 1e-3: the kernel attends in fp32 where the
+    plain path rounds scores' inputs and probabilities to bf16, so the
+    bf16 gap is printed beside the 3e-2 limit, not held. Then one prompt
+    of 8192 tokens in fp32, kernel against plain (`_attend_blockwise`,
+    since it is past attn_chunk), which the 4096 window of the local
+    layers masks in part."""
+    L = cfg.num_layers
+    B, S = GEMMA_ATT[:2]
+    prompts = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (B, S)).astype(np.int32)
+    want = {"flash_attention": L, "cka_terms": 0, "cka_feature": 0,
+            "cka_example": 0, "wkv6": 0}
+
+    kmodel, params = lm_model(cfg, use_pallas=True)
+    kern_tok, kern_logits, launches = serve(kmodel, params, prompts)
+    print(f"  kernel run: {launches}")
+    if launches != want:
+        raise AssertionError(f"expected {L} flash launches, one per layer of "
+                             f"the prefill, and no other; got {launches}")
+    spans = {"prefill": [], "decode": []}
+    tmodel = dataclasses.replace(
+        kmodel, prefill=timed(kmodel.prefill, spans["prefill"]),
+        decode=timed(kmodel.decode, spans["decode"]))
+    again, _, _ = serve(tmodel, params, prompts)
+    if not np.array_equal(again, kern_tok):
+        raise AssertionError("a repeat of the kernel run chose other tokens")
+    prefill_s = sum(a.elapsed_time(b) for a, b in spans["prefill"]) / 1e3
+    decode_s = sum(a.elapsed_time(b) for a, b in spans["decode"]) / 1e3
+    timing = {"prefill_ms": prefill_s * 1e3,
+              "prefill_tokens_per_s": B * S / prefill_s,
+              "decode_ms_per_step": decode_s * 1e3 / DECODE_STEPS,
+              "decode_tokens_per_s": B * DECODE_STEPS / decode_s}
+    print(f"  kernel run timed (CUDA events around each call): prefill "
+          f"{timing['prefill_ms']:.2f} ms "
+          f"({timing['prefill_tokens_per_s']:.0f} tokens/s), decode "
+          f"{timing['decode_ms_per_step']:.2f} ms per step "
+          f"({timing['decode_tokens_per_s']:.1f} tokens/s)")
+    pmodel = build_model(kmodel.cfg.replace(use_pallas=False))
+    plain_tok, plain_logits, plain_launches = serve(pmodel, params, prompts)
+    if any(plain_launches.values()):
+        raise AssertionError(f"the plain run launched {plain_launches}")
+    bf16_pair = float(np.abs(kern_logits[:, 0] - plain_logits[:, 0]).max())
+    bf16_dec = float(np.abs(consistency(kmodel, params, prompts)
+                            - kern_logits[:, 0]).max())
+    print(f"  bf16, not held: prefill logits kernel against plain max_abs_err "
+          f"{bf16_pair:.4g}, decode after prefill against prefill "
+          f"{bf16_dec:.4g} (limit {LM_TOL:g}); "
+          f"{int((kern_tok == plain_tok).sum())} of {kern_tok.size} tokens "
+          f"equal")
+    del params
+    torch.cuda.empty_cache()
+
+    kmodel, params = lm_model(cfg, use_pallas=True, dtype="float32",
+                              param_dtype="float32")
+    kern_tok, kern_logits, _ = serve(kmodel, params, prompts)
+    pmodel = build_model(kmodel.cfg.replace(use_pallas=False))
+    plain_tok, plain_logits, plain_launches = serve(pmodel, params, prompts)
+    if any(plain_launches.values()):
+        raise AssertionError(f"the plain run launched {plain_launches}")
+    lm_close("fp32 prefill logits, kernel against plain",
+             kern_logits[:, 0], plain_logits[:, 0], PAIR_TOL)
+    compared, close = agree_on_tokens(kern_tok, plain_tok, plain_logits)
+    print(f"  fp32 tokens: the runs agree at all {compared} steps whose "
+          f"margin exceeds {MARGIN:g} ({close} steps closer; "
+          f"{int((kern_tok == plain_tok).sum())} of {kern_tok.size} equal)")
+    lm_close(f"fp32 decode of token {S} after a {S - 1}-token prefill, "
+             f"against the {S}-token prefill",
+             consistency(kmodel, params, prompts),
+             kern_logits[:, 0], PAIR_TOL)
+
+    long = {"tokens": torch.as_tensor(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (1, GEMMA_LONG)), device="cuda")}
+    zero_launches()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    got, _ = kmodel.prefill(params, long)
+    end.record()
+    torch.cuda.synchronize()
+    long_launches = read_launches()
+    if long_launches != want:
+        raise AssertionError(f"the {GEMMA_LONG}-token prefill launched "
+                             f"{long_launches}")
+    timing["long_prefill_ms"] = start.elapsed_time(end)
+    ref, _ = pmodel.prefill(params, long)
+    if not torch.isfinite(got).all() or got.shape != (1, cfg.vocab_size):
+        raise AssertionError(f"bad logits: shape {tuple(got.shape)}")
+    lm_close(f"fp32 prefill logits of one {GEMMA_LONG}-token prompt, kernel "
+             f"against plain (blockwise; window {cfg.sliding_window} on the "
+             f"local layers)", got.cpu().numpy(), ref.cpu().numpy(),
+             PAIR_TOL)
+    print(f"  the {GEMMA_LONG}-token fp32 kernel prefill: "
+          f"{timing['long_prefill_ms']:.1f} ms (CUDA events, one call), "
+          f"{long_launches['flash_attention']} flash launches")
+    del params
+    torch.cuda.empty_cache()
+    return {"serving": launches["flash_attention"],
+            "long": long_launches["flash_attention"], **timing}
 
 
 # ---------------------------------------------------------------------------
@@ -2861,6 +3008,88 @@ def bert_timing(gen) -> dict:
     return {"attention": att, "cka": cka}
 
 
+def attended_pairs(S: int, window: int = 0) -> int:
+    """(query, key) pairs a causal mask with this window keeps over S
+    positions: row i sees min(i + 1, window) keys."""
+    if not window or window >= S:
+        return S * (S + 1) // 2
+    return window * (window + 1) // 2 + (S - window) * window
+
+
+def gemma_timing(gen) -> dict:
+    """Flash attention at gemma2-2b's prefill shapes, causal with softcap
+    50: the serving shape [4, 512, 8/4, 256], and one 8192-token prompt
+    with the local layers' 4096 window and without it (a global layer).
+    As the main path calls it: q, k, v in bf16, which the wrapper copies
+    to fp32 for the kernel (the copies are in the times). Kernel and
+    plain version, eager (`ms`) and on the card (`device_ms`), beside the
+    bound of the unmasked pairs' work in that type (`bf16_bound`: 4 hd
+    operations a pair and head on bf16 inputs, q, k, v read as bf16 and
+    the fp32 o written once). The fp32 function, the kernel on fp32
+    inputs, is timed beside it (`fp32_device_ms`) against its own bound
+    (3xTF32, 4-byte inputs; `fp32_bound_ms`). No single PyTorch call
+    computes this function: SDPA has no logit softcap. Its causal time
+    on the same bf16 inputs without the softcap (`enable_gqa`) stands
+    beside it as a different function."""
+    out = {}
+    _, _, Hq, Hkv, hd = GEMMA_ATT
+    for name, (B, S, window) in (("serving_shape", (*GEMMA_ATT[:2], 0)),
+                                 ("long_local", (1, GEMMA_LONG,
+                                                 GEMMA_WINDOW)),
+                                 ("long_global", (1, GEMMA_LONG, 0))):
+        q = torch.randn((B, S, Hq, hd), generator=gen).cuda()
+        k, v = (torch.randn((B, S, Hkv, hd), generator=gen).cuda()
+                for _ in range(2))
+        qb, kb, vb = (t.bfloat16() for t in (q, k, v))
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (qb, kb, vb))
+        kw = dict(causal=True, window=window, softcap=GEMMA_SOFTCAP)
+        kernel = lambda: att_ops.flash_attention(  # noqa: E731
+            qb, kb, vb, **kw)
+        fp32 = lambda: att_ops.flash_attention(q, k, v, **kw)  # noqa: E731
+        plain = lambda: att_ops.attention_plain(  # noqa: E731
+            qb, kb, vb, **kw)
+        sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            qt, kt, vt, is_causal=True, enable_gqa=True)
+        long = S > 1024
+        t = {"shape": [B, S, Hq, Hkv, hd], "dtype": "bfloat16",
+             "window": window, "softcap": GEMMA_SOFTCAP,
+             "ms": time_ms(kernel, iters=5 if long else 50),
+             "device_ms": device_ms(kernel, calls=5 if long else 20),
+             "fp32_device_ms": device_ms(fp32, calls=5 if long else 20),
+             "plain_ms": time_ms(plain, iters=2 if long else 10,
+                                 warmup=1 if long else 5),
+             "library_ms": None, "library": "none (softcap)",
+             "sdpa_causal_no_softcap_ms": time_ms(sdpa,
+                                                  iters=5 if long else 50)}
+        pairs = attended_pairs(S, window)
+        t["flops"] = 4.0 * B * Hq * pairs * hd
+        in_elems = B * S * hd * (Hq + 2 * Hkv)
+        out_bytes = 4.0 * B * S * Hq * hd
+        t.update(bf16_bound(t["flops"], 2.0 * in_elems + out_bytes))
+        fp32_bound = bound(t["flops"], 4.0 * in_elems + out_bytes,
+                           tensor_cores=True)
+        t["fp32_bound_ms"] = fp32_bound["bound_ms"]
+        t["fp32_bound_by"] = fp32_bound["bound_by"]
+        print(f"  flash_attention at gemma2-2b's {name} "
+              f"[{B}, {S}, {Hq}/{Hkv}, {hd}] (causal, window {window}, "
+              f"softcap {GEMMA_SOFTCAP:g}; {t['flops'] / 1e9:.1f} GFLOP "
+              f"over {pairs} pairs a head), bf16 inputs as the main path "
+              f"passes them: kernel {t['ms']:.4f} ms (device "
+              f"{t['device_ms']:.4f}), plain {t['plain_ms']:.4f}, library "
+              f"none (softcap; SDPA causal without it, bf16, "
+              f"{t['sdpa_causal_no_softcap_ms']:.4f}), bound "
+              f"{t['bound_ms']:.4f} ms ({t['bound_by']}, {t['bound_kind']}); "
+              f"the kernel's device time is "
+              f"{t['device_ms'] / t['bound_ms']:.2f}x the bound. The fp32 "
+              f"function: device {t['fp32_device_ms']:.4f} ms, bound "
+              f"{t['fp32_bound_ms']:.4f} ({t['fp32_bound_by']}, 3xTF32), "
+              f"{t['fp32_device_ms'] / t['fp32_bound_ms']:.2f}x")
+        out[name] = t
+        del q, k, v, qb, kb, vb, qt, kt, vt
+    torch.cuda.empty_cache()
+    return out
+
+
 def timing_phase():
     gen = torch.Generator().manual_seed(99)
     att = attention_timing(gen, MAIN_ATT)
@@ -2936,7 +3165,7 @@ def timing_phase():
     print("  wkv6 device ms by pass (torch.profiler, 5 calls): " + (
         ", ".join(f"{k} {t:.4f}" for k, t in wkv["device_ms_by_pass"].items())
         or "not measured (the profiler saw no device time)"))
-    return att, cka, wkv, bert_timing(gen)
+    return att, cka, wkv, bert_timing(gen), gemma_timing(gen)
 
 
 def cnn_cka_timing(gen) -> dict:
@@ -3144,7 +3373,7 @@ def profile_phase(deit, rwkv) -> None:
     steps(2)  # warm-up outside the profiled window
     report_profile(f"{deit.name} 5 all-active train steps (batch on the "
                    f"card)", lambda: steps(5))
-    kmodel, params = rwkv_model(rwkv, use_pallas=True)
+    kmodel, params = lm_model(rwkv, use_pallas=True)
     prompts = np.random.default_rng(0).integers(
         0, rwkv.vocab_size, MAIN_WKV[:2]).astype(np.int32)
     serve(kmodel, params, prompts)  # warm-up outside the profiled window
@@ -3239,6 +3468,17 @@ def bound(flops: float, nbytes: float, tensor_cores: bool = False) -> dict:
             "bound_3xtf32_ms": max(t_tc, t_bytes) * 1e3}
 
 
+def bf16_bound(flops: float, nbytes: float) -> dict:
+    """The least time for `flops` operations on bf16 inputs and `nbytes`
+    bytes: one bf16 product with fp32 accumulation for each, at the dense
+    bf16 tensor-core peak (a bf16 x bf16 product is exact in fp32)."""
+    t_bytes = nbytes / PEAK_BYTES
+    t_ops = flops / PEAK_BF16_FLOPS
+    return {"bound_ms": max(t_ops, t_bytes) * 1e3,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "bound_kind": "bf16 tensor cores"}
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile", action="store_true",
@@ -3269,8 +3509,8 @@ def main() -> None:
     print(f"  CUDA runtime mapped: {mapped_cudart()}")
 
     phase("phase 2: kernels against their plain versions")
-    att_err, cka_err, cnn_err, wkv_err, bert_att_err, bert_cka_err = \
-        kernel_phase()
+    (att_err, cka_err, cnn_err, wkv_err, bert_att_err, bert_cka_err,
+     lm_att_err) = kernel_phase()
     phase("phase 3: DeiT-tiny serving and SimFreeze probes at full width")
     launches = slice_phase(get_config("deit-tiny"))
     phase("phase 3: the ETuner loop on DeiT-tiny at full width")
@@ -3303,8 +3543,11 @@ def main() -> None:
     phase("phase 3: rwkv6-3b serving at full width and depth")
     rwkv = get_config("rwkv6-3b")
     wkv_launches = rwkv_phase(rwkv)
+    phase("phase 3: gemma2-2b serving at full width and depth, the flash "
+          "kernel on its prefill")
+    gemma = lm_phase(get_config("gemma2-2b"))
     phase("phase 4: timing at the main-path shapes (CUDA events)")
-    att, cka, wkv, bert = timing_phase()
+    att, cka, wkv, bert, gemma_att = timing_phase()
     cka_feature = {k: v for k, v in cka.items() if k != "cnn"}
     if args.profile:
         phase("phase 5: where the slices' time goes (torch.profiler)")
@@ -3323,10 +3566,14 @@ def main() -> None:
              "serving_and_probes": launches["flash_attention"],
              **{f"compiled {name}": n["flash_attention"]
                 for name, n in compiled_launches.items()
-                if n["flash_attention"]}},
+                if n["flash_attention"]},
+             "gemma2_serving": gemma["serving"],
+             "gemma2_long": gemma["long"]},
          "max_abs_err": bert_att_err, **bert["attention"]["loop"],
          "bert_serving": bert["attention"]["serving"],
-         "deit_tiny": {"max_abs_err": att_err, **att}},
+         "deit_tiny": {"max_abs_err": att_err, **att},
+         "gemma2": {"max_abs_err": lm_att_err, "serving_run": gemma,
+                    **gemma_att}},
         {"name": "cka_terms", "route": "cuda",
          "source": "src/repro_torch/csrc/cka_terms.cu",
          "replaces": "src/repro/kernels/cka/kernel.py:56",

@@ -1,12 +1,32 @@
-"""Config registry for the paper models and the ported LMs:
-``get_config(name)`` (full size) and ``get_reduced(name)``
-(CPU-runnable)."""
+"""Config registry for the paper models and the JAX package's ten LM
+architectures (`ARCHS`): ``get_config(name)`` (full size) and
+``get_reduced(name)`` (CPU-runnable). Jamba, qwen3-moe and kimi-k2 are
+described but not built: their mamba and MoE blocks raise (ROADMAP A.9)."""
 from __future__ import annotations
 
 from typing import Dict
 
-from repro_torch.configs import paper_models, rwkv6_3b
+from repro_torch.configs import (gemma2_2b, gemma2_27b, granite_20b,
+                                 jamba_1_5_large_398b, kimi_k2_1t_a32b,
+                                 musicgen_medium, paper_models, qwen1_5_32b,
+                                 qwen2_vl_72b, qwen3_moe_30b_a3b, rwkv6_3b)
 from repro_torch.configs.base import ModelConfig
+
+# the JAX package's ten LM architectures, in its order
+# (`repro.configs.ARCHS`)
+_LM_MODULES = {
+    "qwen2-vl-72b": qwen2_vl_72b,
+    "jamba-1.5-large-398b": jamba_1_5_large_398b,
+    "gemma2-2b": gemma2_2b,
+    "granite-20b": granite_20b,
+    "gemma2-27b": gemma2_27b,
+    "qwen1.5-32b": qwen1_5_32b,
+    "rwkv6-3b": rwkv6_3b,
+    "qwen3-moe-30b-a3b": qwen3_moe_30b_a3b,
+    "kimi-k2-1t-a32b": kimi_k2_1t_a32b,
+    "musicgen-medium": musicgen_medium,
+}
+ARCHS = tuple(_LM_MODULES)
 
 PAPER_MODELS: Dict[str, ModelConfig] = {
     "resnet50": paper_models.RESNET50,
@@ -15,17 +35,15 @@ PAPER_MODELS: Dict[str, ModelConfig] = {
     "bert-base": paper_models.BERT_BASE,
 }
 
-# the LM architectures ported so far (of the JAX package's ten)
 LM_MODELS: Dict[str, ModelConfig] = {
-    "rwkv6-3b": rwkv6_3b.CONFIG,
-}
+    name: mod.CONFIG for name, mod in _LM_MODULES.items()}
 
 _REDUCED = {
     "resnet50": paper_models.resnet_reduced,
     "mobilenetv2": paper_models.mobilenet_reduced,
     "deit-tiny": paper_models.deit_reduced,
     "bert-base": paper_models.bert_reduced,
-    "rwkv6-3b": rwkv6_3b.reduced,
+    **{name: mod.reduced for name, mod in _LM_MODULES.items()},
 }
 
 
@@ -42,4 +60,5 @@ def get_reduced(name: str) -> ModelConfig:
     raise KeyError(f"unknown model {name!r}; known: {sorted(_REDUCED)}")
 
 
-__all__ = ["LM_MODELS", "ModelConfig", "PAPER_MODELS", "get_config", "get_reduced"]
+__all__ = ["ARCHS", "LM_MODELS", "ModelConfig", "PAPER_MODELS", "get_config",
+           "get_reduced"]

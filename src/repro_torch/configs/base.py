@@ -1,22 +1,27 @@
 """Model configuration record for the port (counterpart of
 `repro.configs.base`).
 
-Only the fields the ported models read are carried: those of the paper's
-own models (ETuner §V-A) and those of the rwkv6 LM path. The fields of
-the attention, mamba and MoE LM blocks arrive with those blocks."""
+Carries the fields of the paper's own models (ETuner §V-A) and of the
+decoder LMs: the attention, RoPE/M-RoPE, frontend-stub and block-layout
+fields of the attention LMs, the rwkv6 fields, and the MoE and hybrid
+fields, which describe jamba, qwen3-moe and kimi-k2 although their mamba
+and MoE blocks are not ported yet (ROADMAP A.9). The JAX config's
+sharding and dry-run fields have no counterpart: the port runs on one
+card."""
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
+from typing import Tuple
 
 
 @dataclass(frozen=True)
 class ModelConfig:
     """Architecture description of one paper model (CNN, ViT or encoder)
-    or decoder LM (so far only the rwkv6 family)."""
+    or decoder LM (dense, MoE, hybrid, ssm, vlm or audio)."""
 
     name: str
-    family: str  # cnn | vit | encoder | ssm
+    family: str  # cnn | vit | encoder | dense | moe | hybrid | ssm | vlm | audio
     num_layers: int = 0
     d_model: int = 0
     num_heads: int = 0
@@ -29,25 +34,62 @@ class ModelConfig:
     num_classes: int = 0
     width_mult: float = 1.0
 
-    # --- decoder LMs ---
+    # --- MoE (described; the blocks are not ported yet) ---
+    num_experts: int = 0
+    experts_per_token: int = 0
+    moe_period: int = 1          # MoE layer every `moe_period` layers
+    capacity_factor: float = 1.25
+    moe_d_ff: int = 0            # expert hidden size (defaults to d_ff)
+    router_aux_coef: float = 0.01
+
+    # --- attention flavour ---
+    sliding_window: int = 0          # >0: local attention window
+    local_global_period: int = 0     # gemma2: local/global every k layers
+    attn_logit_softcap: float = 0.0  # gemma2: 50.0
+    final_logit_softcap: float = 0.0 # gemma2: 30.0
+    qkv_bias: bool = False           # qwen1.5 / qwen2
+    rope_theta: float = 10000.0
+    mrope_sections: Tuple[int, ...] = ()  # qwen2-vl M-RoPE (t, h, w)
+
+    # --- hybrid / ssm ---
+    attn_period: int = 0         # jamba: 1 attention layer every attn_period
+    mamba_state: int = 16
+    mamba_conv: int = 4
+    mamba_expand: int = 2
     rwkv_head_size: int = 64
+
+    # --- misc ---
+    post_norms: bool = False     # gemma2: post-attn / post-ffn norms
     norm_eps: float = 1e-6
     tie_embeddings: bool = False
     # the activations follow the params' dtype, as in the JAX model, where
     # the embedding table sets it; `dtype` is carried for parity
     dtype: str = "bfloat16"
     param_dtype: str = "bfloat16"
+
+    # --- modality frontend stub ---
     frontend: str = "none"       # none | vision_stub | audio_stub
-    final_logit_softcap: float = 0.0
+    frontend_dim: int = 0        # raw patch / frame embedding dim
+    frontend_tokens: int = 0     # prefix tokens supplied by the stub
+
+    # --- execution ---
     # the JAX model stacks the layers and scans over them; the port always
     # runs them as a Python loop over per-layer params (the bridge unstacks)
     scan_layers: bool = True
+    remat: str = "full"          # carried for parity: the port trains no LM
+    attn_chunk: int = 2048       # blockwise attention above this length
+    attn_q_block: int = 2048     # blockwise attention q block
+    attn_k_block: int = 2048     # blockwise attention kv block
     ssm_chunk: int = 128         # rwkv chunk length of `wkv_chunked`
+    subquadratic: bool = False
     # route attention forwards through the hand-written flash-attention
     # kernel (repro_torch.kernels.attention); the name follows the JAX
     # config, where it selects the Pallas kernel. Forward only: the loss
-    # path keeps the plain attention. In the rwkv6 time-mix it routes the
-    # WKV recurrence through the hand-written WKV6 kernel
+    # path keeps the plain attention. The JAX ViT/BERT route there; the
+    # port's decoder LMs route their prefill and feature forwards there
+    # too, where the JAX LM always takes `_attend_dense` /
+    # `_attend_blockwise`. In the rwkv6 time-mix it routes the WKV
+    # recurrence through the hand-written WKV6 kernel
     # (repro_torch.kernels.rwkv), where the JAX model always takes its
     # chunked closed form.
     use_pallas: bool = False
@@ -55,11 +97,37 @@ class ModelConfig:
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
 
+    # ----- derived -----
+    @property
+    def q_dim(self) -> int:
+        return self.num_heads * self.head_dim
+
+    @property
+    def kv_dim(self) -> int:
+        return self.num_kv_heads * self.head_dim
+
     @property
     def is_lm(self) -> bool:
         return self.family in ("dense", "moe", "hybrid", "ssm", "vlm", "audio")
 
     def layer_kind(self, i: int) -> str:
-        """Kind of block at layer index i: 'rwkv' for the ssm family,
-        else 'attn' (the port's config carries no mamba interleave yet)."""
-        return "rwkv" if self.family == "ssm" else "attn"
+        """Kind of block at layer index i: 'attn' | 'mamba' | 'rwkv'."""
+        if self.family == "ssm":
+            return "rwkv"
+        if self.attn_period:
+            # jamba: one attention layer per attn_period, at attn_period // 2
+            return "attn" if (i % self.attn_period) == self.attn_period // 2 \
+                else "mamba"
+        return "attn"
+
+    def layer_is_moe(self, i: int) -> bool:
+        if not self.num_experts:
+            return False
+        return (i % self.moe_period) == (self.moe_period - 1)
+
+    def layer_window(self, i: int) -> int:
+        """Sliding window size for layer i (0 = global)."""
+        if self.local_global_period and self.sliding_window:
+            return self.sliding_window if i % self.local_global_period == 0 \
+                else 0
+        return self.sliding_window

@@ -2,8 +2,7 @@
 [arXiv:2404.05892; hf] The same values as `repro.configs.rwkv6_3b`.
 
 32L d_model=2560 (attention-free) d_ff=8960 vocab=65536; head size 64
-(40 heads). The JAX config's `subquadratic` and `remat` fields have no
-counterpart here: the port runs no dry-run cells and no training yet.
+(40 heads). Recurrent state is O(1) in sequence length.
 """
 from repro_torch.configs.base import ModelConfig
 
@@ -19,6 +18,7 @@ CONFIG = ModelConfig(
     vocab_size=65536,
     rwkv_head_size=64,
     act="silu",
+    subquadratic=True,
 )
 
 
@@ -26,5 +26,5 @@ def reduced() -> ModelConfig:
     return CONFIG.replace(
         name="rwkv6-3b-reduced", num_layers=3, d_model=64, num_heads=4,
         num_kv_heads=4, head_dim=16, rwkv_head_size=16, d_ff=128,
-        vocab_size=256,
+        vocab_size=256, remat="none",
     )

@@ -2,7 +2,8 @@
 reads (counterpart of `repro.core.freeze_plan`).
 
 - `LayerFreezePlan` — unrolled paper models: one flag per layer.
-- `FreezePlan` — scanned LMs: one flag per layer group, plus embed/head.
+- `FreezePlan` — scanned LMs: one flag per layer group, plus embed/head;
+  `lm_segments` cuts it into contiguous runs of equal flags.
 
 Plans are frozen dataclasses, so they compare and hash by value. In the
 forward pass a frozen layer's params are detached (`maybe_stop`), the
@@ -13,7 +14,7 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Tuple
+from typing import List, Tuple
 
 from repro_torch import tree_map
 
@@ -49,6 +50,17 @@ class FreezePlan:
 
 def all_active(num_groups: int) -> FreezePlan:
     return FreezePlan(groups=(False,) * num_groups)
+
+
+def lm_segments(plan: FreezePlan) -> List[Tuple[int, int, bool]]:
+    """Contiguous (lo, hi, frozen) runs over the group axis."""
+    segs: List[Tuple[int, int, bool]] = []
+    lo = 0
+    for i in range(1, len(plan.groups) + 1):
+        if i == len(plan.groups) or plan.groups[i] != plan.groups[lo]:
+            segs.append((lo, i, plan.groups[lo]))
+            lo = i
+    return segs
 
 
 @dataclass(frozen=True)

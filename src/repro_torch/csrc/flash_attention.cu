@@ -4,7 +4,11 @@
 // (kernel body _flash_kernel), the Pallas TPU kernel that the JAX ViT/BERT
 // run under `use_pallas`. Same function: online-softmax attention with
 // fp32 accumulation, causal mask, sliding window, logit softcap and GQA,
-// skipping kv tiles that are masked whole.
+// skipping kv tiles that are masked whole. In the port it runs the
+// ViT/BERT forwards (non-causal, hd 64) and the decoder LMs' prefill and
+// feature forwards under `use_pallas` (causal, the layer's window, the
+// logit softcap, GQA; gemma2-2b at hd 256), where the JAX LMs take their
+// plain dense or blockwise attention, which computes the same function.
 //
 // What bounds it on this card: operations and bytes about equally. At the
 // DeiT-tiny main-path shape q,k,v [16,197,3,64] one launch does
@@ -13,7 +17,8 @@
 // one TF32 product (10 mantissa bits) does not give; three do (3xTF32,
 // tf32x3.cuh). At the published 495 TFLOP/s of TF32 tensor cores the
 // three products take 2.9 us, the bytes 2.9 us at 3.35 TB/s; the fp32
-// CUDA cores (67 TFLOP/s) alone would need 7.1 us.
+// CUDA cores (67 TFLOP/s) alone would need 7.1 us. At gemma2-2b's
+// prefill, causal over 512 keys with hd 256, operations bound it.
 //
 // Design: both products run on the tensor cores as 3xTF32 mma.sync
 // m16n8k8. One block per (batch*q-head, 64-row q tile); each warp owns
@@ -37,6 +42,18 @@
 // needs no padding: its missing rows are zero-filled by cp.async. A block
 // is 4 warps (64 query rows), which beat 2 warps (32 rows, 336 blocks) at
 // the main-path shape (PERF.md). wgmma and TMA are for a later version.
+//
+// hd 256 (gemma2): the split Q fragments would take 2 * hd/8 * 4 = 256
+// registers a thread beside O's 128 accumulators, past the 255 a thread
+// may have, so ptxas would spill. At hd 256 only, Q's 64 x hd tile stays
+// in shared memory (pitch hd+4, conflict-free for A's fragments: a warp
+// reads rows g, g+8 at columns t, t+4, banks 4g + t), copied by cp.async
+// with the first K/V tile, and each warp loads and splits its fragments
+// for one 8-column step at a time, reused over the tile's 4 key steps.
+// Shared memory: Q 64 x 260 x 4 = 66.6 KB beside K and V's 133.1 KB,
+// 199.7 KB of the 227 KB a block may have: one block an SM. The sums
+// run in the same order as from registers; the other head dims are
+// built from the code as it was.
 
 #include <cuda_runtime.h>
 
@@ -48,13 +65,20 @@ constexpr float NEG_INF = -1e30f;  // the reference's mask value
 // keys per kv tile: at 197 keys, 32 wastes 27 padded keys where 64 would
 // waste 59, and keeps the score registers and shared memory small
 constexpr int BK = 32;
+constexpr int NW = 4;  // warps per block, 16 query rows each
+
+// hd 256 keeps Q in shared memory, the others in registers (header)
+template <int HD>
+__host__ __device__ constexpr bool q_in_smem() {
+  return HD >= 256;
+}
 
 template <int HD>
 constexpr size_t smem_bytes() {
-  return sizeof(float) * 2 * 2 * BK * (HD + 4);  // [buf][K, V][BK][HD + 4]
+  // [buf][K, V][BK][HD + 4], then Q's [16 NW][HD + 4] where it is kept
+  return sizeof(float) * (2 * 2 * BK + (q_in_smem<HD>() ? 16 * NW : 0)) *
+         (HD + 4);
 }
-
-constexpr int NW = 4;  // warps per block, 16 query rows each
 
 template <int HD>
 __global__ void __launch_bounds__(NW * 32)
@@ -71,7 +95,9 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   constexpr int KD = HD / 8;         // 8-wide steps over hd
   constexpr int KN = BK / 8;         // 8-key steps over a tile
   constexpr int THREADS = NW * 32;
-  extern __shared__ float smem[];    // [2 buffers][K, V][BK][LD]
+  constexpr bool QS = q_in_smem<HD>();
+  extern __shared__ float smem[];    // [2 buffers][K, V][BK][LD], [Q]
+  float* Qs = smem + 2 * 2 * BK * LD;  // [BQ][LD], used where QS
 
   const int warp = threadIdx.x / 32;
   const int b = blockIdx.x / Hq, h = blockIdx.x % Hq;
@@ -83,15 +109,18 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const float* vb = v + b * vsb + (h / group) * vsh;
 
   // this warp's Q fragments, split once: A[m][d] = q[q_lo + 16 warp + m][d]
-  uint32_t qbig[KD][4], qsmall[KD][4];
+  // (in shared memory instead where QS)
+  uint32_t qbig[QS ? 1 : KD][4], qsmall[QS ? 1 : KD][4];
+  if constexpr (!QS) {
 #pragma unroll
-  for (int kd = 0; kd < KD; ++kd)
+    for (int kd = 0; kd < KD; ++kd)
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int s = q_lo + 16 * warp + a_row(i);
-      const float x = s < Sq ? qb[s * qss + 8 * kd + a_col(i)] : 0.f;
-      split(x, qbig[kd][i], qsmall[kd][i]);
-    }
+      for (int i = 0; i < 4; ++i) {
+        const int s = q_lo + 16 * warp + a_row(i);
+        const float x = s < Sq ? qb[s * qss + 8 * kd + a_col(i)] : 0.f;
+        split(x, qbig[kd][i], qsmall[kd][i]);
+      }
+  }
 
   // kv tiles this block needs: the same skip tests as the TPU kernel,
   // taken on the block's indices, so every thread runs the same loop
@@ -113,6 +142,16 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     }
     cp_async_commit();
   };
+  // Q's tile, rows past Sq zero-filled; committed with the first K/V tile
+  auto stage_q = [&]() {
+    for (int c = threadIdx.x; c < BQ * HD / 4; c += THREADS) {
+      const int r = c / (HD / 4), col = 4 * (c % (HD / 4));
+      const int s = q_lo + r;
+      const bool in = s < Sq;
+      const long long sr = in ? s : 0;
+      cp_async<16>(Qs + r * LD + col, qb + sr * qss + col, in);
+    }
+  };
 
   float m[2] = {NEG_INF, NEG_INF};  // running max of rows row0, row0+8
   float l[2] = {0.f, 0.f};          // this lane's share of the row sums
@@ -122,7 +161,10 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
     for (int i = 0; i < 4; ++i) acc[kd][i] = 0.f;
 
-  if (t_begin < t_end) stage(t_begin, 0);
+  if (t_begin < t_end) {
+    if constexpr (QS) stage_q();
+    stage(t_begin, 0);
+  }
   for (int tile = t_begin; tile < t_end; ++tile) {
     const int buf = (tile - t_begin) & 1;
     if (tile + 1 < t_end) {
@@ -137,18 +179,44 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
     // S = Q K^T: B[d][key] = K[key][d], n-tile kn covers keys 8kn..8kn+7
     float s[KN][4];
+    if constexpr (QS) {
+      // one 8-column step of Q at a time, over the tile's 4 key steps;
+      // each s[kn] still sums over kd in ascending order
 #pragma unroll
-    for (int kn = 0; kn < KN; ++kn) {
+      for (int kn = 0; kn < KN; ++kn)
 #pragma unroll
-      for (int i = 0; i < 4; ++i) s[kn][i] = 0.f;
-#pragma unroll
+        for (int i = 0; i < 4; ++i) s[kn][i] = 0.f;
+      const float* Qw = Qs + 16 * warp * LD;
+#pragma unroll 2
       for (int kd = 0; kd < KD; ++kd) {
-        uint32_t bbig[2], bsmall[2];
+        uint32_t abig[4], asmall[4];
 #pragma unroll
-        for (int i = 0; i < 2; ++i)
-          split(Ks[(8 * kn + b_col()) * LD + 8 * kd + b_row(i)], bbig[i],
-                bsmall[i]);
-        mma3(s[kn], qbig[kd], qsmall[kd], bbig, bsmall);
+        for (int i = 0; i < 4; ++i)
+          split(Qw[a_row(i) * LD + 8 * kd + a_col(i)], abig[i], asmall[i]);
+#pragma unroll
+        for (int kn = 0; kn < KN; ++kn) {
+          uint32_t bbig[2], bsmall[2];
+#pragma unroll
+          for (int i = 0; i < 2; ++i)
+            split(Ks[(8 * kn + b_col()) * LD + 8 * kd + b_row(i)], bbig[i],
+                  bsmall[i]);
+          mma3(s[kn], abig, asmall, bbig, bsmall);
+        }
+      }
+    } else {
+#pragma unroll
+      for (int kn = 0; kn < KN; ++kn) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) s[kn][i] = 0.f;
+#pragma unroll
+        for (int kd = 0; kd < KD; ++kd) {
+          uint32_t bbig[2], bsmall[2];
+#pragma unroll
+          for (int i = 0; i < 2; ++i)
+            split(Ks[(8 * kn + b_col()) * LD + 8 * kd + b_row(i)], bbig[i],
+                  bsmall[i]);
+          mma3(s[kn], qbig[kd], qsmall[kd], bbig, bsmall);
+        }
       }
     }
 
@@ -241,7 +309,7 @@ cudaError_t launch(const float* q, const float* k, const float* v, float* o,
                    int causal, int window, float softcap, float scale,
                    cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<HD>();
-  if constexpr (smem > 48 * 1024) {  // past the default limit: hd 128
+  if constexpr (smem > 48 * 1024) {  // past the default limit: hd 128, 256
     const cudaError_t err = cudaFuncSetAttribute(
         flash_fwd_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
@@ -258,8 +326,8 @@ cudaError_t launch(const float* q, const float* k, const float* v, float* o,
 }  // namespace
 
 // q [B,Sq,Hq,hd], k/v [B,Sk,Hkv,hd] fp32 with unit stride on hd and the
-// given element strides on batch, sequence and head; k and v 16-byte
-// aligned with strides that are multiples of 4; o [B,Sq,Hq,hd] fp32
+// given element strides on batch, sequence and head; k and v (and q at
+// hd 256) 16-byte aligned with strides that are multiples of 4; o [B,Sq,Hq,hd] fp32
 // contiguous. Returns a cudaError_t (0 = launched).
 extern "C" int flash_attention_fwd(
     const float* q, const float* k, const float* v, float* o,
@@ -279,6 +347,7 @@ extern "C" int flash_attention_fwd(
     FLASH_CASE(32)
     FLASH_CASE(64)
     FLASH_CASE(128)
+    FLASH_CASE(256)
     default:
       return cudaErrorInvalidValue;
   }

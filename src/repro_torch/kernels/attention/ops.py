@@ -25,7 +25,7 @@ import torch
 from repro_torch.kernels import build, forward_only
 
 NEG_INF = -1e30
-HEAD_DIMS = (16, 32, 64, 128)  # the kernel's template instances
+HEAD_DIMS = (16, 32, 64, 128, 256)  # the kernel's template instances
 
 _ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
              + [ctypes.c_longlong] * 9

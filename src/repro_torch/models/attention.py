@@ -1,0 +1,254 @@
+"""GQA/MQA attention with sliding-window masks, logit softcaps and
+RoPE / M-RoPE; the reference's dense and blockwise (flash-style) plain
+attention; a KV cache for prefill / decode serving. Ported from
+`repro.models.attention`.
+
+Shapes follow [B, S, H, hd]; GQA groups Hq query heads onto Hkv KV heads
+(query head h reads KV head h // (Hq / Hkv)). Dense weights keep the JAX
+layout: wq/wk/wv [d, H, hd], wo [H, hd, d].
+
+bf16 follows the reference: the projections and the score product run
+in the activations' dtype, the scores are cast to fp32 for the softcap,
+mask and softmax, and the probabilities are cast to v's dtype before the
+second product.
+
+Under `cfg.use_pallas` the prefill and feature forwards (`attention_train`,
+`attention_prefill`) take the hand-written flash-attention kernel
+(`kernels/attention`) in place of both `_attend_dense` and
+`_attend_blockwise`, which compute the same function: causal, with the
+layer's window and `cfg.attn_logit_softcap`, keys at positions 0..S-1 as
+those forwards' positions are. Where grad is enabled and an input
+requires it (the loss path), the plain attention runs, as the ViT's loss
+path does; decode stays plain, one query row against the cache.
+"""
+from __future__ import annotations
+
+from typing import Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.attention import ops as att_ops
+from repro_torch.models import common
+
+NEG_INF = -1e30
+
+
+def init_attention(gen: torch.Generator, cfg: ModelConfig) -> dict:
+    dt = common.dtype_of(cfg)
+    d, H, Hkv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    p = {"wq": common.dense_init(gen, d, (d, H, hd), dt),
+         "wk": common.dense_init(gen, d, (d, Hkv, hd), dt),
+         "wv": common.dense_init(gen, d, (d, Hkv, hd), dt),
+         "wo": common.dense_init(gen, cfg.q_dim, (H, hd, d), dt)}
+    if cfg.qkv_bias:
+        z = dict(dtype=dt, device=gen.device)
+        p["bq"] = torch.zeros((H, hd), **z)
+        p["bk"] = torch.zeros((Hkv, hd), **z)
+        p["bv"] = torch.zeros((Hkv, hd), **z)
+    return p
+
+
+def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """einsum("bsd,dhk->bshk") as one matmul."""
+    return (x @ w.reshape(w.shape[0], -1)).reshape(*x.shape[:-1],
+                                                    *w.shape[1:])
+
+
+def _out_proj(out: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
+    """einsum("bshk,hkd->bsd") as one matmul."""
+    return out.reshape(*out.shape[:2], -1) @ wo.reshape(-1, wo.shape[-1])
+
+
+def _project_qkv(p: dict, cfg: ModelConfig, x: torch.Tensor,
+                 positions: torch.Tensor):
+    q, k, v = _proj(x, p["wq"]), _proj(x, p["wk"]), _proj(x, p["wv"])
+    if cfg.qkv_bias:
+        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    if cfg.mrope_sections:
+        if positions.dim() == 2:  # [B, S] -> text-only 3-axis positions
+            positions = torch.stack([positions] * 3, dim=0)
+        q = common.apply_mrope(q, positions, cfg.rope_theta,
+                               cfg.mrope_sections)
+        k = common.apply_mrope(k, positions, cfg.rope_theta,
+                               cfg.mrope_sections)
+    else:
+        q = common.apply_rope(q, positions, cfg.rope_theta)
+        k = common.apply_rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def _inv_sqrt(hd: int) -> Tuple[float, float]:
+    """sqrt(hd) and 1 / sqrt(hd), each rounded in fp32 as the reference
+    computes them (`jnp.sqrt(jnp.float32(hd))`)."""
+    root = np.sqrt(np.float32(hd))
+    return float(root), float(np.float32(1.0) / root)
+
+
+def _mask(q_pos: torch.Tensor, k_pos: torch.Tensor, window: int):
+    """Causal (+ optional sliding-window) mask. True = attend."""
+    m = k_pos[None, :] <= q_pos[:, None]
+    if window:
+        m &= (q_pos[:, None] - k_pos[None, :]) < window
+    return m
+
+
+def _attend_dense(cfg: ModelConfig, q, k, v, q_pos, k_pos,
+                  window: int) -> torch.Tensor:
+    """Plain attention; q: [B, Sq, Hq, hd], k/v: [B, Sk, Hkv, hd]."""
+    B, Sq, Hq, hd = q.shape
+    Hkv = k.shape[2]
+    qg = q.reshape(B, Sq, Hkv, Hq // Hkv, hd)
+    scores = torch.einsum("bqkgh,bskh->bkgqs", qg, k).float()
+    scores = scores / _inv_sqrt(hd)[0]
+    scores = common.softcap(scores, cfg.attn_logit_softcap)
+    mask = _mask(q_pos, k_pos, window)
+    scores = torch.where(mask, scores, NEG_INF)
+    probs = torch.softmax(scores, dim=-1).to(v.dtype)
+    out = torch.einsum("bkgqs,bskh->bqkgh", probs, v)
+    return out.reshape(B, Sq, Hq, hd)
+
+
+def _attend_blockwise(cfg: ModelConfig, q, k, v, q_pos, k_pos,
+                      window: int) -> torch.Tensor:
+    """Blockwise online-softmax attention, the reference's blocking: q
+    blocks of about `attn_q_block` rows, kv blocks of about
+    `attn_k_block`, skipping the (q, kv) block pairs that the causal
+    test or the sliding window masks whole.
+
+    The blocks are Sq // (Sq // attn_q_block) long, and must split Sq
+    (Sk likewise): where they do not, the reshape raises, as the
+    reference's does (ROADMAP C.10)."""
+    B, Sq, Hq, hd = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    g = Hq // Hkv
+    bq = min(cfg.attn_q_block, Sq)
+    bk = min(cfg.attn_k_block, Sk)
+    nq = max(Sq // bq, 1)
+    nk = max(Sk // bk, 1)
+    bq, bk = Sq // nq, Sk // nk
+    qs = q.reshape(B, nq, bq, Hkv, g, hd)
+    ks = k.reshape(B, nk, bk, Hkv, hd)
+    vs = v.reshape(B, nk, bk, Hkv, hd)
+    qpos = q_pos.reshape(nq, bq)
+    kpos = k_pos.reshape(nk, bk)
+    scale = _inv_sqrt(hd)[1]
+    f32 = dict(dtype=torch.float32, device=q.device)
+    outs = []
+    for qi in range(nq):
+        qb = qs[:, qi]
+        q_lo, q_hi = qi * bq, (qi + 1) * bq - 1
+        acc = torch.zeros((B, Hkv, g, bq, hd), **f32)
+        m = torch.full((B, Hkv, g, bq), NEG_INF, **f32)
+        l = torch.zeros((B, Hkv, g, bq), **f32)
+        for ki in range(nk):
+            k_lo, k_hi = ki * bk, (ki + 1) * bk - 1
+            if k_lo > q_hi:
+                continue  # causal skip
+            if window and k_hi < q_lo - window + 1 - bq:
+                continue  # sliding-window skip
+            kb, vb = ks[:, ki], vs[:, ki]
+            s = torch.einsum("bqkgh,bskh->bkgqs", qb, kb).float() * scale
+            s = common.softcap(s, cfg.attn_logit_softcap)
+            s = torch.where(_mask(qpos[qi], kpos[ki], window), s, NEG_INF)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            p = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(dim=-1)
+            pv = torch.einsum("bkgqs,bskh->bkgqh", p.to(vb.dtype), vb)
+            acc = acc * corr[..., None] + pv.float()
+            m = m_new
+        out = acc / torch.clamp(l, min=1e-30)[..., None]
+        outs.append(out.permute(0, 3, 1, 2, 4))  # [B, bq, Hkv, g, hd]
+    return torch.cat(outs, dim=1).reshape(B, Sq, Hq, hd).to(q.dtype)
+
+
+def _kernel_route(cfg: ModelConfig, *tensors) -> bool:
+    """The flash kernel takes this forward: `use_pallas`, and no input
+    that autograd would need a backward for."""
+    return cfg.use_pallas and not (torch.is_grad_enabled() and any(
+        t.requires_grad for t in tensors))
+
+
+def _index_positions(q_pos: torch.Tensor) -> bool:
+    """Whether `q_pos` is q_pos[0] + 0..S-1. The kernel masks by index;
+    its causal and window masks depend only on differences of positions,
+    so these are the positions on which it computes the plain path's
+    function."""
+    step = torch.arange(q_pos.shape[0], device=q_pos.device,
+                        dtype=q_pos.dtype)
+    return torch.equal(q_pos - q_pos[0], step)
+
+
+def _attend(cfg: ModelConfig, q, k, v, q_pos, window: int) -> torch.Tensor:
+    """Causal self-attention over the whole sequence, q_pos = k_pos. The
+    kernel takes it only where the positions are consecutive."""
+    if _kernel_route(cfg, q, k, v) and _index_positions(q_pos):
+        return att_ops.flash_attention(
+            q, k, v, causal=True, window=window,
+            softcap=cfg.attn_logit_softcap).to(q.dtype)
+    if q.shape[1] > cfg.attn_chunk:
+        return _attend_blockwise(cfg, q, k, v, q_pos, q_pos, window)
+    return _attend_dense(cfg, q, k, v, q_pos, q_pos, window)
+
+
+def _self_attention(p: dict, cfg: ModelConfig, x, positions, window: int):
+    pos1d = positions[0] if positions.dim() == 3 else positions
+    q, k, v = _project_qkv(p, cfg, x, positions)
+    q_pos = pos1d[0] if pos1d.dim() == 2 else pos1d  # per-row positions
+    return _out_proj(_attend(cfg, q, k, v, q_pos, window), p["wo"]), k, v
+
+
+def attention_train(p: dict, cfg: ModelConfig, x: torch.Tensor,
+                    positions: torch.Tensor, window: int) -> torch.Tensor:
+    """Full-sequence causal self-attention for training and features."""
+    return _self_attention(p, cfg, x, positions, window)[0]
+
+
+# ---------------------------------------------------------------------------
+# serving: prefill fills a cache; decode attends one token against it
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
+               device) -> dict:
+    shape = (batch, max_len, cfg.num_kv_heads, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def attention_prefill(p: dict, cfg: ModelConfig, x: torch.Tensor,
+                      positions: torch.Tensor, window: int):
+    """Returns the output and the cache {k, v} [B, S, Hkv, hd]."""
+    y, k, v = _self_attention(p, cfg, x, positions, window)
+    return y, {"k": k, "v": v}
+
+
+def attention_decode(p: dict, cfg: ModelConfig, x: torch.Tensor,
+                     cache: dict, pos: int, window: int):
+    """x: [B, 1, D]; cache k/v: [B, L, Hkv, hd]; pos: the current index.
+    Returns the output [B, 1, D] and a new cache holding this token's k
+    and v at `pos` (the given cache is left as it is). As the reference's
+    `dynamic_update_slice`, a `pos` past the cache writes at its last
+    row."""
+    B = x.shape[0]
+    L = cache["k"].shape[1]
+    positions = torch.full((B, 1), pos, dtype=torch.long, device=x.device)
+    q, k_new, v_new = _project_qkv(p, cfg, x, positions)
+    row = min(max(pos, 0), L - 1)
+    k, v = cache["k"].clone(), cache["v"].clone()
+    k[:, row] = k_new[:, 0].to(k.dtype)
+    v[:, row] = v_new[:, 0].to(v.dtype)
+    Hq, hd, Hkv = cfg.num_heads, cfg.head_dim, cfg.num_kv_heads
+    qg = q.reshape(B, Hkv, Hq // Hkv, hd)
+    scores = torch.einsum("bkgh,bskh->bkgs", qg, k).float()
+    scores = scores / _inv_sqrt(hd)[0]
+    scores = common.softcap(scores, cfg.attn_logit_softcap)
+    k_pos = torch.arange(L, device=x.device)
+    mask = k_pos <= pos
+    if window:
+        mask &= (pos - k_pos) < window
+    scores = torch.where(mask, scores, NEG_INF)
+    probs = torch.softmax(scores, dim=-1).to(v.dtype)
+    out = torch.einsum("bkgs,bskh->bkgh", probs, v).reshape(B, 1, Hq, hd)
+    return _out_proj(out, p["wo"]), {"k": k, "v": v}

@@ -1,6 +1,6 @@
 """Shared building blocks of the ported models: initializers, norms,
-activations, token embeddings, LM logits and cross-entropy (counterpart of
-`repro.models.common`).
+activations, RoPE and M-RoPE, token embeddings with the modality frontend
+stub, LM logits and cross-entropy (counterpart of `repro.models.common`).
 
 Params are plain dicts of tensors. Initializers draw from a
 `torch.Generator` on the generator's own device: the paper models draw on
@@ -10,8 +10,9 @@ device, which spares a 3B-param model a trip through host memory.
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -79,34 +80,87 @@ def activation(x: torch.Tensor, kind: str) -> torch.Tensor:
     raise ValueError(kind)
 
 
-def _no_frontend(cfg: ModelConfig) -> None:
-    if cfg.frontend != "none":
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.frontend!r} modality frontend stub is not "
-            "ported yet (ROADMAP A.9)")
+# ---------------------------------------------------------------------------
+# RoPE (+ M-RoPE for qwen2-vl). The JAX order of rounding: angles and the
+# rotation in fp32, then a cast back to the input's dtype.
+
+
+def rope_freqs(head_dim: int, theta: float) -> np.ndarray:
+    return 1.0 / (theta ** (np.arange(0, head_dim, 2, dtype=np.float32)
+                            / head_dim))
+
+
+def _rotate(x: torch.Tensor, angles: torch.Tensor) -> torch.Tensor:
+    """x [..., S, H, hd] rotated by fp32 angles [..., S, hd/2] (the same
+    angle for every head): the halves of hd are the pairs."""
+    angles = angles[..., None, :]
+    sin, cos = torch.sin(angles), torch.cos(angles)
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x: [..., S, H, hd]; positions: broadcastable to [..., S]."""
+    freqs = torch.from_numpy(rope_freqs(x.shape[-1], theta)).to(x.device)
+    return _rotate(x, positions.float()[..., None] * freqs)
+
+
+def apply_mrope(x: torch.Tensor, positions3: torch.Tensor, theta: float,
+                sections: Tuple[int, ...]) -> torch.Tensor:
+    """Qwen2-VL multimodal RoPE. x: [B, S, H, hd]; positions3: [3, B, S]
+    (t, h, w position ids); `sections` gives the number of hd/2 frequency
+    slots taken from each of the three axes (sum(sections) == hd // 2)."""
+    hd = x.shape[-1]
+    assert sum(sections) == hd // 2, (sections, hd)
+    freqs = torch.from_numpy(rope_freqs(hd, theta)).to(x.device)
+    sec_id = torch.from_numpy(np.concatenate(
+        [np.full(s, i) for i, s in enumerate(sections)])).to(x.device)
+    pos_per_slot = positions3.float()[sec_id]  # [hd/2, B, S]
+    return _rotate(x, pos_per_slot.movedim(0, -1) * freqs)
+
+
+def default_mrope_positions(batch: int, seq: int,
+                            device=None) -> torch.Tensor:
+    """Text-only M-RoPE: the same position on all 3 axes, [3, B, S]."""
+    p = torch.arange(seq, device=device)[None, :].expand(batch, seq)
+    return torch.stack([p, p, p], dim=0)
+
+
+# ---------------------------------------------------------------------------
+# embedding
 
 
 def init_embedding(generator: torch.Generator, cfg: ModelConfig) -> dict:
-    """Token table [V, d] and, untied, the LM head [d, V] in the params'
+    """Token table [V, d], untied the LM head [d, V], and with a modality
+    frontend the stub's projection [frontend_dim, d], in the params'
     dtype."""
-    _no_frontend(cfg)
     dt = dtype_of(cfg)
     p = {"tok": normal_init(generator, (cfg.vocab_size, cfg.d_model), 0.02,
                             dt)}
     if not cfg.tie_embeddings:
         p["head"] = dense_init(generator, cfg.d_model,
                                (cfg.d_model, cfg.vocab_size), dt)
+    if cfg.frontend != "none":
+        p["frontend_proj"] = dense_init(generator, cfg.frontend_dim,
+                                        (cfg.frontend_dim, cfg.d_model), dt)
     return p
 
 
-def embed_tokens(p: dict, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
+def embed_tokens(p: dict, cfg: ModelConfig, tokens: torch.Tensor,
+                 frontend_embeds: Optional[torch.Tensor] = None
+                 ) -> torch.Tensor:
     """tokens [B, S] -> [B, S, d] in the table's dtype (tied tables scale
-    by sqrt(d), rounded to that dtype first, as in JAX). No frontend
-    prefix: the frontend stub is not ported."""
-    _no_frontend(cfg)
+    by sqrt(d), rounded to that dtype first, as in JAX). With a frontend,
+    the stub's precomputed patch / frame embeddings [B, F, frontend_dim]
+    are projected and prepended: [B, F + S, d]."""
     x = F.embedding(tokens.long(), p["tok"])
     if cfg.is_lm and cfg.tie_embeddings:
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype)
+    if frontend_embeds is not None and cfg.frontend != "none":
+        pre = frontend_embeds.to(x.dtype) @ p["frontend_proj"]
+        x = torch.cat([pre, x], dim=1)
     return x
 
 

@@ -1,0 +1,21 @@
+"""Gated (SwiGLU / GeGLU) feed-forward block, ported from
+`repro.models.mlp`: ``act(x Wg) * (x Wu) Wd``, dense weights [in, out]."""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import common
+
+
+def init_mlp(gen: torch.Generator, cfg: ModelConfig) -> dict:
+    dt = common.dtype_of(cfg)
+    d, ff = cfg.d_model, cfg.d_ff
+    return {"wg": common.dense_init(gen, d, (d, ff), dt),
+            "wu": common.dense_init(gen, d, (d, ff), dt),
+            "wd": common.dense_init(gen, ff, (ff, d), dt)}
+
+
+def mlp(p: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    g = common.activation(x @ p["wg"], cfg.act)
+    return (g * (x @ p["wu"])) @ p["wd"]

@@ -1,78 +1,126 @@
-"""Decoder-LM assembler, ported from `repro.models.transformer` for the
-rwkv6 blocks.
+"""Decoder-LM assembler, ported from `repro.models.transformer`: the
+attention LMs (gemma2, granite, qwen1.5, qwen2-vl, musicgen) and rwkv6.
 
-The JAX model stacks each group's params along a leading [G] axis and
-scans over it; the port runs the layers as an unrolled Python loop over a
-list of per-layer param dicts (`bridge.params_from_jax` unstacks a JAX
-tree), and its decode caches are a list of per-layer dicts
-``{s, x_tm, x_cm}``. Attention, mamba and MoE blocks are not ported yet
-and raise (ROADMAP A.9).
+Layers form *groups* of g = the architecture's block period (1 for
+uniform stacks, 2 for gemma2's local/global alternation; the reference
+also has jamba's mamba:attention interleave and MoE periods). A layer's
+kind and window are those of its offset within its group, as in the
+reference. The JAX model stacks each offset's params along a leading
+[G] axis and scans over the groups; the port runs the layers as an
+unrolled Python loop over a list of per-layer param dicts in layer order
+(`bridge.params_from_jax` unstacks a JAX tree in (group, offset) order).
+Its decode caches are a list of per-layer dicts: ``{"attn": {"k", "v"}}``
+for attention, ``{s, x_tm, x_cm}`` for rwkv. Mamba and MoE blocks are not
+ported yet and raise (ROADMAP A.9).
 
-Params: ``{"embed": {"tok", "head"}, "final_norm", "blocks": [...]}``;
-dense weights are [in, out] and applied as ``x @ W``, the JAX layout.
+Params: ``{"embed": {"tok", "head", "frontend_proj"}, "final_norm",
+"blocks": [...]}``; dense weights are [in, out], the JAX layout.
+
+A modality frontend (qwen2-vl's vision stub, musicgen's audio stub)
+prepends its projected embeddings (`batch["frontend_embeds"]`) to the
+tokens; the loss drops their positions before the head.
 """
 from __future__ import annotations
 
+import math
 from typing import List, Optional, Tuple
 
 import torch
 
-from repro_torch import tree_map
+from repro_torch import resolve_device, tree_map
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core.freeze_plan import FreezePlan, maybe_stop
-from repro_torch.models import common, rwkv6
+from repro_torch.core.freeze_plan import FreezePlan, lm_segments, maybe_stop
+from repro_torch.models import attention, common, mlp, rwkv6
 
 
 def group_size(cfg: ModelConfig) -> int:
-    """Layers per group: 1. The JAX model's larger groups come from the
-    attention/mamba interleave, local/global alternation and MoE periods,
-    none of which the port's blocks have yet."""
-    return 1
+    g = 1
+    if cfg.attn_period:
+        g = cfg.attn_period
+    if cfg.local_global_period:
+        g = max(g, cfg.local_global_period)
+    if cfg.num_experts and cfg.moe_period > 1:
+        g = math.lcm(g, cfg.moe_period)
+    assert cfg.num_layers % g == 0, (cfg.name, cfg.num_layers, g)
+    return g
 
 
 def num_groups(cfg: ModelConfig) -> int:
     return cfg.num_layers // group_size(cfg)
 
 
-def _require_rwkv(cfg: ModelConfig, i: int) -> None:
-    kind = cfg.layer_kind(i)
-    if kind != "rwkv":
+def _require_ported(cfg: ModelConfig, offset: int) -> str:
+    """The kind of the block at `offset`; raises for the blocks the port
+    does not have yet."""
+    kind = cfg.layer_kind(offset)
+    if kind == "mamba" or cfg.layer_is_moe(offset):
         raise NotImplementedError(
-            f"{cfg.name}: {kind!r} blocks are not ported yet (ROADMAP A.9)")
+            f"{cfg.name}: {'mamba' if kind == 'mamba' else 'MoE'} blocks are "
+            "not ported yet (ROADMAP A.9)")
+    return kind
 
 
 # ---------------------------------------------------------------------------
 # per-layer blocks
 
 
-def _init_block(gen: torch.Generator, cfg: ModelConfig, i: int) -> dict:
-    _require_rwkv(cfg, i)
+def _init_block(gen: torch.Generator, cfg: ModelConfig, offset: int) -> dict:
+    kind = _require_ported(cfg, offset)
     z = dict(dtype=torch.float32, device=gen.device)
-    return {"ln1": torch.zeros(cfg.d_model, **z),
-            "ln2": torch.zeros(cfg.d_model, **z),
-            "mix": rwkv6.init_rwkv_time_mix(gen, cfg),
-            "ffn": rwkv6.init_rwkv_channel_mix(gen, cfg)}
+    p = {"ln1": torch.zeros(cfg.d_model, **z),
+         "ln2": torch.zeros(cfg.d_model, **z)}
+    if cfg.post_norms:
+        p["ln1_post"] = torch.zeros(cfg.d_model, **z)
+        p["ln2_post"] = torch.zeros(cfg.d_model, **z)
+    if kind == "attn":
+        p["mix"] = attention.init_attention(gen, cfg)
+        p["ffn"] = mlp.init_mlp(gen, cfg)
+    else:
+        p["mix"] = rwkv6.init_rwkv_time_mix(gen, cfg)
+        p["ffn"] = rwkv6.init_rwkv_channel_mix(gen, cfg)
+    return p
 
 
-def _apply_block(p: dict, cfg: ModelConfig, x: torch.Tensor, i: int,
-                 mode: str, cache: Optional[dict]
+def _apply_block(p: dict, cfg: ModelConfig, x: torch.Tensor, offset: int,
+                 mode: str, cache: Optional[dict], positions=None, pos=None
                  ) -> Tuple[torch.Tensor, Optional[dict]]:
-    """One rwkv block in `mode` train | prefill | decode. Returns
-    (x, cache_out); cache_out is None in train mode."""
-    _require_rwkv(cfg, i)
+    """The block at `offset` within its group, in `mode` train | prefill
+    | decode. Attention blocks take `positions` [B, S] (train, prefill)
+    or the index `pos` (decode). Returns (x, cache_out); cache_out is None
+    in train mode."""
+    kind = _require_ported(cfg, offset)
+    window = cfg.layer_window(offset)
     h = common.rms_norm(x, p["ln1"], cfg.norm_eps)
-    if mode == "decode":
+    c = None
+    if kind == "attn":
+        if mode == "train":
+            a = attention.attention_train(p["mix"], cfg, h, positions, window)
+        elif mode == "prefill":
+            a, kv = attention.attention_prefill(p["mix"], cfg, h, positions,
+                                                window)
+            c = {"attn": kv}
+        else:
+            a, kv = attention.attention_decode(p["mix"], cfg, h,
+                                               cache["attn"], pos, window)
+            c = {"attn": kv}
+    elif mode == "decode":
         a, c = rwkv6.time_mix_decode(p["mix"], cfg, h, cache)
     else:
         a, c = rwkv6.time_mix_train(p["mix"], cfg, h,
                                     return_state=(mode == "prefill"))
+    if cfg.post_norms:
+        a = common.rms_norm(a, p["ln1_post"], cfg.norm_eps)
     x = x + a
     h = common.rms_norm(x, p["ln2"], cfg.norm_eps)
-    if mode == "decode":
+    if kind == "attn":
+        f = mlp.mlp(p["ffn"], cfg, h)
+    elif mode == "decode":
         f, c = rwkv6.channel_mix_decode(p["ffn"], cfg, h, c)
     else:
         f, c = rwkv6.channel_mix_train(p["ffn"], cfg, h, state=c,
                                        return_state=(mode == "prefill"))
+    if cfg.post_norms:
+        f = common.rms_norm(f, p["ln2_post"], cfg.norm_eps)
     return x + f, c
 
 
@@ -82,10 +130,11 @@ def _apply_block(p: dict, cfg: ModelConfig, x: torch.Tensor, i: int,
 
 def init_lm(gen: torch.Generator, cfg: ModelConfig) -> dict:
     """Random params, drawn on the generator's device."""
+    g = group_size(cfg)
     return {"embed": common.init_embedding(gen, cfg),
             "final_norm": torch.zeros(cfg.d_model, dtype=torch.float32,
                                       device=gen.device),
-            "blocks": [_init_block(gen, cfg, i)
+            "blocks": [_init_block(gen, cfg, i % g)
                        for i in range(cfg.num_layers)]}
 
 
@@ -93,38 +142,62 @@ def init_lm(gen: torch.Generator, cfg: ModelConfig) -> dict:
 # forward
 
 
+def _positions(x: torch.Tensor) -> torch.Tensor:
+    B, S = x.shape[:2]
+    return torch.arange(S, device=x.device).expand(B, S)
+
+
 def _run(blocks, cfg: ModelConfig, x, mode: str, caches=None,
-         collect_feats: bool = False):
-    """All layers in order. Returns (x, caches_out, feats)."""
+         positions=None, pos=None, collect_feats: bool = False):
+    """Layers in order, from a group boundary. Returns (x, caches_out,
+    feats): one feature a group, its last layer's output."""
+    g = group_size(cfg)
     caches_out: List = []
     feats: List = []
     for i, blk in enumerate(blocks):
-        x, c = _apply_block(blk, cfg, x, i, mode,
-                            caches[i] if caches is not None else None)
+        x, c = _apply_block(blk, cfg, x, i % g, mode,
+                            caches[i] if caches is not None else None,
+                            positions, pos)
         caches_out.append(c)
-        if collect_feats:
+        if collect_feats and (i + 1) % g == 0:
             feats.append(x)
     return x, caches_out, feats
+
+
+def _embed(params, cfg: ModelConfig, batch: dict, frozen: bool = False):
+    emb = maybe_stop(params["embed"], frozen)
+    return common.embed_tokens(emb, cfg, batch["tokens"],
+                               batch.get("frontend_embeds")), emb
 
 
 def lm_loss(params, cfg: ModelConfig, batch: dict,
             plan: Optional[FreezePlan] = None) -> Tuple[torch.Tensor, dict]:
     """The value of the JAX loss. batch: tokens [B, S], targets [B, S],
-    optional mask [B, S]. A frozen group's params are detached, and so is
-    the activation after a frozen prefix that starts at a frozen embedding
-    (JAX's stop_gradient); gradients of this loss are not held against
-    JAX yet."""
-    emb = maybe_stop(params["embed"], bool(plan and plan.embed))
-    x = common.embed_tokens(emb, cfg, batch["tokens"])
-    prefix_stops_grad = bool(plan and plan.embed)
-    for i, blk in enumerate(params["blocks"]):
-        frozen = bool(plan and plan.groups and plan.groups[i])
-        x, _ = _apply_block(maybe_stop(blk, frozen), cfg, x, i, "train", None)
-        if frozen and prefix_stops_grad:
-            x = x.detach()
-        else:
-            prefix_stops_grad = False
+    optional frontend_embeds [B, F, frontend_dim], optional mask [B, S].
+    The plan's groups split the layers into segments (`lm_segments`); a
+    frozen segment's params are detached, and so is the activation after
+    a frozen prefix that starts at a frozen embedding (JAX's
+    stop_gradient); gradients of this loss are not held against JAX
+    yet."""
+    x, emb = _embed(params, cfg, batch, bool(plan and plan.embed))
+    positions = _positions(x)
+    blocks = params["blocks"]
+    if plan is None or not any(plan.groups):
+        x = _run(blocks, cfg, x, "train", positions=positions)[0]
+    else:
+        g = group_size(cfg)
+        prefix_stops_grad = plan.embed
+        for lo, hi, frozen in lm_segments(plan):
+            seg = maybe_stop(blocks[lo * g:hi * g], frozen)
+            x = _run(seg, cfg, x, "train", positions=positions)[0]
+            if frozen and prefix_stops_grad:
+                x = x.detach()
+            else:
+                prefix_stops_grad = False
     x = common.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    F = x.shape[1] - batch["tokens"].shape[1]
+    if F > 0:
+        x = x[:, F:]
     head = emb if cfg.tie_embeddings else params["embed"]
     head = maybe_stop(head, bool(plan and plan.head))
     logits = common.lm_logits(head, cfg, x)
@@ -134,9 +207,11 @@ def lm_loss(params, cfg: ModelConfig, batch: dict,
 
 
 def lm_features(params, cfg: ModelConfig, batch: dict) -> List[torch.Tensor]:
-    """Per-group hidden states for CKA probes: a list of [B, S, D]."""
-    x = common.embed_tokens(params["embed"], cfg, batch["tokens"])
-    return _run(params["blocks"], cfg, x, "train", collect_feats=True)[2]
+    """Per-group hidden states for CKA probes: a list of [B, S, D], one a
+    group (frontend prefix included)."""
+    x, _ = _embed(params, cfg, batch)
+    return _run(params["blocks"], cfg, x, "train", positions=_positions(x),
+                collect_feats=True)[2]
 
 
 # ---------------------------------------------------------------------------
@@ -146,29 +221,38 @@ def lm_features(params, cfg: ModelConfig, batch: dict) -> List[torch.Tensor]:
 def init_lm_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
                   device=None) -> List[dict]:
     """Empty decode caches, one dict per layer, on `device` (CUDA unless
-    given: `rwkv6.init_rwkv_state`). rwkv states are O(1) in sequence
-    length, so `max_len` and `dtype` (attention caches' size and type in
-    JAX) do not enter them."""
+    given: `resolve_device`): attention k/v [batch, max_len, Hkv, hd] in
+    `dtype`; rwkv states, O(1) in sequence length and fp32."""
+    device = resolve_device(device)
+    g = group_size(cfg)
+    caches = []
     for i in range(cfg.num_layers):
-        _require_rwkv(cfg, i)
-    return [rwkv6.init_rwkv_state(cfg, batch, device)
-            for _ in range(cfg.num_layers)]
+        if _require_ported(cfg, i % g) == "attn":
+            caches.append({"attn": attention.init_cache(cfg, batch, max_len,
+                                                        dtype, device)})
+        else:
+            caches.append(rwkv6.init_rwkv_state(cfg, batch, device))
+    return caches
 
 
 def lm_prefill(params, cfg: ModelConfig, batch: dict):
-    """Returns (last-position logits [B, V] fp32, caches)."""
-    x = common.embed_tokens(params["embed"], cfg, batch["tokens"])
-    x, caches, _ = _run(params["blocks"], cfg, x, "prefill")
+    """Returns (last-position logits [B, V] fp32, caches); attention
+    caches span the frontend prefix and the prompt."""
+    x, _ = _embed(params, cfg, batch)
+    x, caches, _ = _run(params["blocks"], cfg, x, "prefill",
+                        positions=_positions(x))
     x = common.rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = common.lm_logits(params["embed"], cfg, x[:, -1:])
     return logits[:, 0], caches
 
 
 def lm_decode(params, cfg: ModelConfig, tokens: torch.Tensor, caches, pos):
-    """tokens: [B, 1]; `pos` (the position, which attention caches need)
-    does not enter rwkv blocks. Returns (logits [B, V], caches)."""
+    """tokens: [B, 1]; pos: the token's position (an int), which the
+    attention blocks write and attend at; rwkv blocks do not read it.
+    Returns (logits [B, V], caches)."""
     x = common.embed_tokens(params["embed"], cfg, tokens)
-    x, caches_out, _ = _run(params["blocks"], cfg, x, "decode", caches)
+    x, caches_out, _ = _run(params["blocks"], cfg, x, "decode", caches,
+                            pos=pos)
     x = common.rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = common.lm_logits(params["embed"], cfg, x)
     return logits[:, 0], caches_out

@@ -31,13 +31,19 @@ class ServeEngine:
         """tokens: [B, S] prompt. Returns [B, steps] greedy (argmax) ids
         as int32, and with `return_logits` also the fp32 logits
         [B, steps, V] that chose them (those of the prefill, then of each
-        decode step but the last)."""
+        decode step but the last). A frontend config gets zero
+        `frontend_embeds` [B, frontend_tokens, frontend_dim] in bf16, as
+        in the reference, and decodes from S + frontend_tokens."""
         cfg = self.model.cfg
-        if cfg.frontend != "none":
-            raise NotImplementedError("frontend stubs are not ported yet")
         B, S = tokens.shape
         batch = {"tokens": torch.as_tensor(np.asarray(tokens),
                                            device=self.model.device)}
+        prefix = 0
+        if cfg.frontend != "none":
+            prefix = cfg.frontend_tokens
+            batch["frontend_embeds"] = torch.zeros(
+                (B, prefix, cfg.frontend_dim), dtype=torch.bfloat16,
+                device=self.model.device)
         logits, cache = self.model.prefill(params, batch)
         self.stats.prefill_tokens += B * S
         # decode caches are sized by the prefill; attention caches are
@@ -48,7 +54,8 @@ class ServeEngine:
         for t in range(steps):
             out.append(cur[:, 0])
             chose.append(logits)
-            logits, cache = self.model.decode(params, cur, cache, S + t)
+            logits, cache = self.model.decode(params, cur, cache,
+                                              S + prefix + t)
             self.stats.decode_steps += 1
             cur = logits.argmax(-1)[:, None]
         ids = (torch.stack(out, dim=1).to(torch.int32).cpu().numpy() if out

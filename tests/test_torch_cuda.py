@@ -45,6 +45,12 @@ def _randn(gen, shape):
     (2, 192, 8, 2, 64, True, 0, 0.0),     # GQA
     (1, 130, 2, 2, 16, False, 0, 50.0),
     (1, 130, 2, 2, 128, True, 0, 0.0),
+    # the LMs: gemma2-2b (8 q / 4 kv heads of 256, softcap 50, causal,
+    # window on its local layers), granite's MQA, a ragged hd 256
+    (2, 256, 8, 4, 256, True, 0, 50.0),
+    (2, 256, 8, 4, 256, True, 96, 50.0),
+    (1, 130, 2, 2, 256, False, 0, 0.0),
+    (2, 130, 48, 1, 128, True, 0, 0.0),
 ])
 def test_flash_kernel_matches_plain(gen, B, S, Hq, Hkv, hd, causal, window,
                                     softcap):

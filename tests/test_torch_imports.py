@@ -15,8 +15,9 @@ import torch
 import repro_torch
 from repro_torch import resolve_device
 from repro_torch.bridge import params_from_jax
-from repro_torch.configs import get_reduced
+from repro_torch.configs import get_config, get_reduced
 from repro_torch.core.controller import ETunerController
+from repro_torch.examples import serve_lm
 from repro_torch.models import build_model
 from repro_torch.runtime import (RuntimeConfig, SlotConfig, TelemetrySpec,
                                  edgeol_session)
@@ -131,10 +132,31 @@ def test_obs_modules_are_ported(name):
                            / "__init__.py").exists()
 
 
+# the attention LMs: their blocks, configs and the serving example
+ATTENTION_LMS = ["models.attention", "models.mlp", "configs.gemma2_2b",
+                 "configs.gemma2_27b", "configs.granite_20b",
+                 "configs.qwen1_5_32b", "configs.qwen2_vl_72b",
+                 "configs.musicgen_medium", "configs.jamba_1_5_large_398b",
+                 "configs.qwen3_moe_30b_a3b", "configs.kimi_k2_1t_a32b"]
+
+
+@pytest.mark.parametrize("name", ATTENTION_LMS)
+def test_attention_lm_modules_are_ported(name):
+    assert f"repro_torch.{name}" in _modules()
+    assert (ROOT / "src" / "repro" / (name.replace(".", "/") + ".py")).exists()
+
+
+def test_serve_lm_example_is_ported():
+    assert "repro_torch.examples.serve_lm" in _modules()
+    assert (ROOT / "examples" / "serve_lm.py").exists()
+
+
 def test_runtime_root_loads_neither_jax_nor_repro():
     names = ['repro_torch.' + n
              for n in RUNTIME_ROOT + CNN_AND_HOOKS + WORKLOADS + BASELINES
-             + OBS]
+             + OBS + ATTENTION_LMS
+             + ["models.common", "models.transformer", "runtime.serve",
+                "core.freeze_plan", "examples.serve_lm"]]
     code = ("import importlib, sys\n"
             f"for m in {names!r}:\n"
             "    importlib.import_module(m)\n"
@@ -202,10 +224,19 @@ def _traced_session():
                                  telemetry=TelemetrySpec(enabled=True)))
 
 
+def _gemma2():
+    build_model(get_config("gemma2-2b"))
+
+
+def _serve_lm():
+    serve_lm.main([])
+
+
 @pytest.mark.parametrize("entry", [resolve_device, _build, _bridge, _etuner,
                                    _session, _cnn, _default_session,
                                    _compiled_workload_session, _bert,
-                                   _mixed_session, _traced_session])
+                                   _mixed_session, _traced_session, _gemma2,
+                                   _serve_lm])
 def test_entry_points_raise_without_gpu(monkeypatch, entry):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
