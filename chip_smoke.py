@@ -38,7 +38,29 @@ It imports nothing of JAX and nothing of the JAX package, and fails
    launches that agree bit for bit
    for flash attention, both CKA routes (the example route also at
    n = 16, d = 131072 and 262144) and WKV6 (at 4 prompts and at one);
-3. slice phase at full width: DeiT-tiny (`get_config("deit-tiny")`,
+3. the MoE and mamba LMs, first, since the later phases keep ~20 GiB on
+   the card: qwen3-moe-30b-a3b serving at full width and depth
+   (`moe_phase`: 48 layers, d=2048, 32 query and 4 kv heads of 128, a
+   128-expert top-8 MoE FFN of 768 on every layer, bf16, 3.0532e10
+   params drawn on the card from seed 0, count held) on 4 prompts of 512
+   tokens for 16 greedy steps, with the flash kernel on its prefill (48
+   launches, causal, GQA; no CKA or WKV6 launch), timed, with its peak
+   memory, a repeat choosing the same tokens, and plain (no launch); each
+   run records its MoE routing and prints the (token, expert) pairs
+   dropped over capacity and whether kernel and plain dropped the same;
+   the bf16 pair is not held, as its runs route differently; then the
+   pair in fp32 at full width with depth cut to 8 layers, held within
+   1e-3 on the rows both runs routed alike and on every row with the
+   kernel run on the plain run's routing; then jamba
+   (`mamba_phase`): its Mamba-1 block alone at full width (d 8192,
+   d_inner 16384, state 16) in fp32 on 4 x 512 tokens (4 chunks),
+   timed, its first 256 positions against a 256-token prefill and the
+   decode of token 256 after a 255-token prefill against that prefill's
+   last position, within 1e-3 (the bf16 gaps printed), and the reduced
+   jamba (8 layers: 7 mamba, one attention, MoE every other layer)
+   served, one flash launch a prefill, its fp32 kernel/plain pair within
+   1e-3;
+   then the slice phase at full width: DeiT-tiny (`get_config("deit-tiny")`,
    224x224, 12 layers, d=192) with params from a seeded
    `torch.Generator`, serving every inference event of a
    `build_timeline` through `InferenceServer` and running SimFreeze's CKA
@@ -206,7 +228,11 @@ It imports nothing of JAX and nothing of the JAX package, and fails
    inputs, as the main path passes them, beside the bound of the
    unmasked pairs' work in bf16 and SDPA's causal time without the
    softcap, a different function (no PyTorch call has the softcap), and
-   the fp32 function (fp32 inputs) beside its 3xTF32 bound;
+   the fp32 function (fp32 inputs) beside its 3xTF32 bound; flash at
+   qwen3-moe-30b-a3b's prefill shape (`qwen3_timing`: [4, 512, 32/4, 128]
+   causal) on bf16 inputs against `bf16_bound`, beside SDPA
+   (`is_causal`, `enable_gqa`), which computes the same function there
+   and is held to the plain version within 3e-2;
    the DeiT-tiny slice's requests per second and rwkv6-3b's and
    gemma2-2b's prefill and decode tokens per second;
 5. only with --profile: one more kernel run of each slice under
@@ -228,7 +254,10 @@ eager mixed loop, whose shape [16, 32, 12, 64] its times there are, with
 serving's shape under `bert_serving` and DeiT-tiny's under `deit_tiny`;
 WKV6: rwkv6-3b serving), and `launches_by_path` has every path's count
 (gemma2-2b's serving and 8192-token prefills under `gemma2_serving` and
-`gemma2_long`, its shapes' times under `gemma2`). CKA's times there are those of that path, a launch's mean
+`gemma2_long`, its shapes' times under `gemma2`; qwen3-moe's bf16 and
+fp32 prefills and the reduced jamba's under `qwen3_moe_serving`,
+`qwen3_moe_fp32` and `jamba_reduced`, qwen3's shape's times, its serving
+run and the jamba runs under `qwen3_moe`). CKA's times there are those of that path, a launch's mean
 over a MobileNetV2 probe pass (with the pass, the stem launch and
 ResNet50's pass in full); its DeiT-tiny feature-route numbers are under
 `feature_route`, its bert-base probe shape's under `bert_probe`.
@@ -254,7 +283,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 from repro_torch import tree_leaves, tree_map  # noqa: E402
 from repro_torch.baselines import (  # noqa: E402
     make_controller, profiling_charge)
-from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.configs import get_config, get_reduced  # noqa: E402
 from repro_torch.core.cka import cka as core_cka  # noqa: E402
 from repro_torch.core.cka import cka_feature_form  # noqa: E402
 from repro_torch.core.freeze_plan import LayerFreezePlan  # noqa: E402
@@ -270,6 +299,8 @@ from repro_torch.kernels.attention import ops as att_ops  # noqa: E402
 from repro_torch.kernels.cka import ops as cka_ops  # noqa: E402
 from repro_torch.kernels.rwkv import ops as wkv_ops  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
+from repro_torch.models import mamba as mamba_mod  # noqa: E402
+from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models.rwkv6 import wkv_chunked  # noqa: E402
 from repro_torch import obs  # noqa: E402
 from repro_torch.obs import TelemetrySpec  # noqa: E402
@@ -337,6 +368,18 @@ GEMMA_ATT = (4, 512, 8, 4, 256)
 GEMMA_LONG = 8192
 GEMMA_SOFTCAP = 50.0
 GEMMA_WINDOW = 4096
+# qwen3-moe-30b-a3b prefill: 4 prompts of 512 tokens, 32 query heads of 128
+# over 4 kv heads, causal (B, S, Hq, Hkv, hd); its 48 layers' params in
+# bf16 (the count of the reference's init); the fp32 kernel/plain pair at
+# full width with its depth cut to 8 layers (48 would take 122 GB)
+QWEN3_ATT = (4, 512, 32, 4, 128)
+QWEN3_PARAMS = 3.0532e10
+QWEN3_FP32_LAYERS = 8
+# jamba's mamba block alone at full width: a prefill of 4 x 512 tokens (4
+# chunks of 128); the decode check's lengths, 255 + 1 against 256, the
+# nearest to 512 that the chunks split (ROADMAP C.11)
+JAMBA_BLOCK = (4, 512)
+JAMBA_DECODE_AT = 256
 # the rwkv6-3b kernel/plain pair and prefill/decode check, run in fp32
 # (rwkv_phase says why)
 PAIR_TOL = 1e-3
@@ -600,6 +643,8 @@ def kernel_phase():
         check_attention(gen, 2, 256, 8, 4, 256, causal=True, window=96,
                         softcap=GEMMA_SOFTCAP),
         check_attention(gen, 2, 256, 48, 1, 128, causal=True))
+    # qwen3-moe-30b-a3b's prefill: 32 q / 4 kv heads of 128, causal
+    qwen3_att_err = check_attention(gen, *QWEN3_ATT, causal=True)
     q, k, v = (torch.randn(MAIN_ATT, generator=gen).cuda() for _ in range(3))
     first = att_ops.flash_attention(q, k, v, causal=False)
     second = att_ops.flash_attention(q, k, v, causal=False)
@@ -675,7 +720,7 @@ def kernel_phase():
     print("  wkv6: two launches agree bit for bit (o and final state), at 4 "
           "prompts and at one")
     return (att_err, cka_err, cnn_err, wkv_err, bert_att_err, bert_cka_err,
-            lm_att_err)
+            lm_att_err, qwen3_att_err)
 
 
 # ---------------------------------------------------------------------------
@@ -2893,6 +2938,298 @@ def lm_phase(cfg):
             "long": long_launches["flash_attention"], **timing}
 
 
+class _Routes:
+    """While active, records every MoE layer's routing (`moe.route`): its
+    outputs, the (token, expert) pairs it kept (`moe.kept_pairs`, a
+    [T, E] bool) and the number of pairs it routed (T x K), all kept on
+    the card until read, so it adds no sync to the run. Given the record
+    of another run (`replay`), it returns that run's routing call by call
+    instead of routing: the MoE dispatch and gates are then the other
+    run's, and only what comes before the router differs."""
+
+    def __init__(self, replay: "_Routes | None" = None):
+        self.replay = replay
+
+    def __enter__(self):
+        self.outs, self.calls = [], []
+        self._route = moe_mod.route
+        moe_mod.route = self._record
+        return self
+
+    def __exit__(self, *exc):
+        moe_mod.route = self._route
+
+    def _record(self, p, cfg, xt, capacity):
+        if self.replay is None:
+            out = self._route(p, cfg, xt, capacity)
+        else:
+            out = self.replay.outs[len(self.outs)]
+            if out[0].shape[0] != xt.shape[0] or \
+                    out[2].shape != (cfg.num_experts, capacity):
+                raise AssertionError(
+                    f"replayed routing of {out[0].shape[0]} tokens and "
+                    f"{tuple(out[2].shape)} slots at a call of "
+                    f"{xt.shape[0]} tokens and capacity {capacity}")
+        self.outs.append(out)
+        self.calls.append((moe_mod.kept_pairs(out[2], out[3], xt.shape[0]),
+                           xt.shape[0] * cfg.experts_per_token))
+        return out
+
+    def dropped(self, min_tokens: int) -> int:
+        """Routed pairs past an expert's capacity, over the calls of at
+        least `min_tokens` tokens (the prefills' layers)."""
+        return sum(routed - int(kept.sum()) for kept, routed in self.calls
+                   if kept.shape[0] >= min_tokens)
+
+
+def route_rows(kern: _Routes, plain: _Routes, B: int):
+    """Rows of the batch whose tokens the two runs routed alike at every
+    layer (kept the same (token, expert) pairs), and whether all did."""
+    if len(kern.calls) != len(plain.calls):
+        raise AssertionError(f"{len(kern.calls)} MoE calls against "
+                             f"{len(plain.calls)}")
+    same = torch.ones(B, dtype=torch.bool)
+    for (a, _), (b, _) in zip(kern.calls, plain.calls):
+        same &= (a == b).reshape(B, -1).all(dim=1).cpu()
+    rows = [b for b in range(B) if bool(same[b])]
+    return rows, len(rows) == B
+
+
+def report_routes(name, kern: _Routes, plain: _Routes, B: int, S: int):
+    rows, alike = route_rows(kern, plain, B)
+    print(f"  {name}: (token, expert) pairs dropped over capacity in the "
+          f"prefill, kernel run {kern.dropped(B * S)}, plain run "
+          f"{plain.dropped(B * S)}; the runs kept "
+          f"{'the same pairs' if alike else 'other pairs in some rows'} "
+          f"(rows routed alike: {rows}); decode routes every pair (C = T)")
+    return rows
+
+
+def hold_moe_pair(name, kmodel, params, prompts, want) -> dict:
+    """The fp32 kernel/plain pair of an MoE LM, held within PAIR_TOL.
+
+    The kernel run and the plain run route freely; a gate at an expert's
+    capacity boundary may flip between them, and then that row's logits
+    part by more than rounding, so the pair is held on the rows both runs
+    routed alike. Then the kernel run again on the plain run's routing
+    (`_Routes(replay=...)`), so that flash is the only difference: that
+    pair is held on every row, and a kernel fault cannot leave the gate
+    by flipping the routes of the rows it spoils."""
+    B, S = prompts.shape
+    with _Routes() as kroutes:
+        kern_tok, kern_logits, launches = serve(kmodel, params, prompts)
+    if launches != want:
+        raise AssertionError(f"{name}: the fp32 kernel run launched "
+                             f"{launches}, not {want}")
+    pmodel = build_model(kmodel.cfg.replace(use_pallas=False))
+    with _Routes() as proutes:
+        plain_tok, plain_logits, plain_launches = serve(pmodel, params,
+                                                        prompts)
+    if any(plain_launches.values()):
+        raise AssertionError(f"{name}: the plain run launched "
+                             f"{plain_launches}")
+    rows = report_routes(f"{name}, fp32", kroutes, proutes, B, S)
+    if rows:
+        lm_close(f"{name}, fp32 prefill logits, kernel against plain, "
+                 f"rows routed alike {rows}", kern_logits[rows, 0],
+                 plain_logits[rows, 0], PAIR_TOL)
+        compared, close = agree_on_tokens(kern_tok[rows], plain_tok[rows],
+                                          plain_logits[rows])
+        print(f"  {name}, fp32 tokens: the runs agree at all {compared} "
+              f"steps whose margin exceeds {MARGIN:g} ({close} steps "
+              f"closer; {int((kern_tok == plain_tok).sum())} of "
+              f"{kern_tok.size} equal)")
+    with _Routes(replay=proutes) as rroutes:
+        rep_tok, rep_logits, rep_launches = serve(kmodel, params, prompts)
+    if rep_launches != want or len(rroutes.outs) != len(proutes.outs):
+        raise AssertionError(f"{name}: the replayed kernel run launched "
+                             f"{rep_launches} over {len(rroutes.outs)} MoE "
+                             f"calls, not {want} over {len(proutes.outs)}")
+    lm_close(f"{name}, fp32 prefill logits, kernel on the plain run's "
+             f"routing against plain, all {B} rows", rep_logits[:, 0],
+             plain_logits[:, 0], PAIR_TOL)
+    compared, close = agree_on_tokens(rep_tok, plain_tok, plain_logits)
+    print(f"  {name}, fp32 tokens on the plain run's routing: the runs "
+          f"agree at all {compared} steps whose margin exceeds {MARGIN:g} "
+          f"({close} steps closer)")
+    return {"launches": launches["flash_attention"],
+            "dropped": [kroutes.dropped(B * S), proutes.dropped(B * S)],
+            "rows_routed_alike": rows}
+
+
+def moe_phase(cfg):
+    """qwen3-moe-30b-a3b serving at full width and depth through
+    `ServeEngine.generate`: 48 layers, each a GQA attention and a
+    128-expert top-8 MoE FFN, the flash kernel on the prefill.
+
+    As in `lm_phase`, the bf16 kernel run is the main path (launches,
+    timings, peak memory), and the kernel/plain pair is held in fp32
+    within 1e-3, here at full width with depth cut to
+    `QWEN3_FP32_LAYERS` (fp32 at 48 layers would take 122 GB), by
+    `hold_moe_pair`: on the rows both runs routed alike, and on every row
+    with the kernel run on the plain run's routing. The bf16 runs route
+    differently in every row, so their gap is printed, with and without
+    the plain run's routing, and not held."""
+    L = cfg.num_layers
+    B, S = QWEN3_ATT[:2]
+    prompts = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (B, S)).astype(np.int32)
+    want = {"flash_attention": L, "cka_terms": 0, "cka_feature": 0,
+            "cka_example": 0, "wkv6": 0}
+    torch.cuda.reset_peak_memory_stats()
+    kmodel, params = lm_model(cfg, use_pallas=True)
+    count = sum(t.numel() for t in tree_leaves(params))
+    if abs(count / QWEN3_PARAMS - 1) > 5e-5:
+        raise AssertionError(f"{count} params, not {QWEN3_PARAMS:g}")
+    with _Routes() as kroutes:
+        kern_tok, kern_logits, launches = serve(kmodel, params, prompts)
+    print(f"  kernel run: {launches}")
+    if launches != want:
+        raise AssertionError(f"expected {L} flash launches, one per layer of "
+                             f"the prefill, and no other; got {launches}")
+    spans = {"prefill": [], "decode": []}
+    tmodel = dataclasses.replace(
+        kmodel, prefill=timed(kmodel.prefill, spans["prefill"]),
+        decode=timed(kmodel.decode, spans["decode"]))
+    again, _, _ = serve(tmodel, params, prompts)
+    if not np.array_equal(again, kern_tok):
+        raise AssertionError("a repeat of the kernel run chose other tokens")
+    prefill_s = sum(a.elapsed_time(b) for a, b in spans["prefill"]) / 1e3
+    decode_s = sum(a.elapsed_time(b) for a, b in spans["decode"]) / 1e3
+    timing = {"params": count,
+              "prefill_ms": prefill_s * 1e3,
+              "prefill_tokens_per_s": B * S / prefill_s,
+              "decode_ms_per_step": decode_s * 1e3 / DECODE_STEPS,
+              "decode_tokens_per_s": B * DECODE_STEPS / decode_s,
+              "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+    print(f"  kernel run timed (CUDA events around each call): prefill "
+          f"{timing['prefill_ms']:.2f} ms "
+          f"({timing['prefill_tokens_per_s']:.0f} tokens/s), decode "
+          f"{timing['decode_ms_per_step']:.2f} ms per step "
+          f"({timing['decode_tokens_per_s']:.1f} tokens/s); the repeat "
+          f"chose the same tokens; peak memory "
+          f"{timing['peak_memory_gb']:.2f} GB")
+    pmodel = build_model(kmodel.cfg.replace(use_pallas=False))
+    with _Routes() as proutes:
+        plain_tok, plain_logits, plain_launches = serve(pmodel, params,
+                                                        prompts)
+    if any(plain_launches.values()):
+        raise AssertionError(f"the plain run launched {plain_launches}")
+    report_routes("bf16", kroutes, proutes, B, S)
+    timing["dropped_bf16"] = [kroutes.dropped(B * S), proutes.dropped(B * S)]
+    bf16_pair = float(np.abs(kern_logits[:, 0] - plain_logits[:, 0]).max())
+    with _Routes(replay=proutes):
+        _, rep_logits, _ = serve(kmodel, params, prompts)
+    bf16_replay = float(np.abs(rep_logits[:, 0] - plain_logits[:, 0]).max())
+    timing["bf16_pair"] = [bf16_pair, bf16_replay]
+    print(f"  bf16, not held (the two runs route differently, so the held "
+          f"pair is the fp32 one below): prefill logits kernel against "
+          f"plain max_abs_err {bf16_pair:.4g}, and {bf16_replay:.4g} with "
+          f"the kernel run on the plain run's routing (limit {LM_TOL:g}); "
+          f"{int((kern_tok == plain_tok).sum())} of {kern_tok.size} tokens "
+          f"equal")
+    del params, kroutes, proutes
+    torch.cuda.empty_cache()
+
+    fp32 = cfg.replace(num_layers=QWEN3_FP32_LAYERS)
+    kmodel, params = lm_model(fp32, use_pallas=True, dtype="float32",
+                              param_dtype="float32")
+    pair = hold_moe_pair(f"qwen3-moe, {QWEN3_FP32_LAYERS} layers", kmodel,
+                         params, prompts,
+                         {**want, "flash_attention": QWEN3_FP32_LAYERS})
+    timing["dropped_fp32"] = pair["dropped"]
+    timing["fp32_rows_routed_alike"] = pair["rows_routed_alike"]
+    del params
+    torch.cuda.empty_cache()
+    return {"serving": launches["flash_attention"],
+            "fp32": pair["launches"], **timing}
+
+
+def mamba_phase():
+    """jamba's Mamba-1 block alone at full width, then the reduced jamba
+    served whole.
+
+    (a) `get_config("jamba-1.5-large-398b")`'s block (d 8192, d_inner
+    16384, state 16, dt_rank 512) in fp32 from a seeded CUDA generator:
+    a prefill of 4 x 512 tokens (4 chunks of 128, timed), whose first 256
+    positions must be those of a 256-token prefill (2 chunks) within
+    1e-3, and the decode of token 256 after a 255-token prefill (one
+    chunk of 255), which must give the 256-token prefill's last position
+    within 1e-3; the same gap in bf16 is printed beside it, not held.
+    (b) the reduced jamba (8 layers, one group: 7 mamba layers and the
+    attention layer at offset 4, MoE every other layer) through
+    `ServeEngine.generate` on 4 prompts of 512 tokens: the bf16 kernel run
+    launches flash once a prefill (hd 16) and nothing else, the plain run
+    nothing; the same pair in fp32 within 1e-3, by `hold_moe_pair`."""
+    cfg = get_config("jamba-1.5-large-398b").replace(dtype="float32",
+                                                     param_dtype="float32")
+    B, S = JAMBA_BLOCK
+    n = JAMBA_DECODE_AT
+    out = {}
+    for dtype in ("float32", "bfloat16"):
+        c = cfg.replace(dtype=dtype, param_dtype=dtype)
+        p = mamba_mod.init_mamba(
+            torch.Generator(device="cuda").manual_seed(0), c)
+        x = torch.randn((B, S, c.d_model), generator=torch.Generator(
+            device="cuda").manual_seed(1), device="cuda").to(
+            getattr(torch, dtype))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        full, _ = mamba_mod.mamba_train(p, c, x)
+        end.record()
+        torch.cuda.synchronize()
+        head, _ = mamba_mod.mamba_train(p, c, x[:, :n])
+        _, state = mamba_mod.mamba_train(p, c, x[:, :n - 1],
+                                         return_state=True)
+        dec, _ = mamba_mod.mamba_decode(p, c, x[:, n - 1:n], state)
+        if not torch.isfinite(full).all() or full.shape != x.shape:
+            raise AssertionError(f"bad block output {tuple(full.shape)}")
+        params = sum(t.numel() * t.element_size() for t in p.values())
+        print(f"  jamba's mamba block, {dtype}: {params / 1e9:.3f} GB of "
+              f"params; prefill of {B} x {S} tokens "
+              f"{start.elapsed_time(end):.2f} ms (CUDA events, one call), "
+              f"peak memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+        got = {"chunks": (full[:, :n].float().cpu().numpy(),
+                          head.float().cpu().numpy()),
+               "decode": (dec[:, 0].float().cpu().numpy(),
+                          head[:, -1].float().cpu().numpy())}
+        if dtype == "float32":
+            out["block_prefill_ms"] = start.elapsed_time(end)
+            lm_close(f"fp32 block: the first {n} positions of the {S}-token "
+                     f"prefill against a {n}-token prefill", *got["chunks"],
+                     PAIR_TOL)
+            lm_close(f"fp32 block: decode of token {n} after a "
+                     f"{n - 1}-token prefill against the {n}-token "
+                     f"prefill's last position", *got["decode"], PAIR_TOL)
+        else:
+            gaps = [float(np.abs(a - b).max()) for a, b in got.values()]
+            print(f"  bf16 block, not held: {n} positions {gaps[0]:.4g}, "
+                  f"decode after prefill {gaps[1]:.4g} (limit {LM_TOL:g})")
+        del p, x, full, head, dec, state
+        torch.cuda.empty_cache()
+
+    cfg = get_reduced("jamba-1.5-large-398b")
+    prompts = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (B, S)).astype(np.int32)
+    want = {"flash_attention": 1, "cka_terms": 0, "cka_feature": 0,
+            "cka_example": 0, "wkv6": 0}
+    kmodel, params = lm_model(cfg, use_pallas=True)
+    _, _, launches = serve(kmodel, params, prompts)
+    print(f"  reduced jamba, bf16 kernel run: {launches}")
+    if launches != want:
+        raise AssertionError(f"expected one flash launch a prefill, on the "
+                             f"attention layer; got {launches}")
+    kmodel, params = lm_model(cfg, use_pallas=True, dtype="float32",
+                              param_dtype="float32")
+    hold_moe_pair("reduced jamba", kmodel, params, prompts, want)
+    del params
+    torch.cuda.empty_cache()
+    return {"jamba_reduced": launches["flash_attention"], **out}
+
+
 # ---------------------------------------------------------------------------
 # phase 4: timing
 
@@ -3090,6 +3427,68 @@ def gemma_timing(gen) -> dict:
     return out
 
 
+def qwen3_timing(gen) -> dict:
+    """Flash attention at qwen3-moe-30b-a3b's prefill shape [4, 512,
+    32/4, 128], causal, on bf16 q, k, v as the main path passes them (the
+    wrapper's fp32 copies in the times): kernel, plain version and SDPA
+    (`is_causal`, `enable_gqa`), which computes the same function here
+    (no window, no softcap) in bf16, eager (`ms`) and on the card
+    (`device_ms`), beside `bf16_bound` of the unmasked pairs' work; the
+    fp32 function (fp32 inputs) beside it. SDPA's output is held to the
+    plain version's within the bf16 tolerance."""
+    B, S, Hq, Hkv, hd = QWEN3_ATT
+    q = torch.randn((B, S, Hq, hd), generator=gen).cuda()
+    k, v = (torch.randn((B, S, Hkv, hd), generator=gen).cuda()
+            for _ in range(2))
+    qb, kb, vb = (t.bfloat16() for t in (q, k, v))
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (qb, kb, vb))
+    kernel = lambda: att_ops.flash_attention(  # noqa: E731
+        qb, kb, vb, causal=True)
+    fp32 = lambda: att_ops.flash_attention(q, k, v, causal=True)  # noqa: E731
+    plain = lambda: att_ops.attention_plain(  # noqa: E731
+        qb, kb, vb, causal=True)
+    sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        qt, kt, vt, is_causal=True, enable_gqa=True)
+    want = plain()
+    library_err = float((sdpa().transpose(1, 2).float() - want).abs().max())
+    if library_err > LM_TOL:
+        raise AssertionError(f"SDPA parts from the plain version by "
+                             f"{library_err}")
+    t = {"shape": [B, S, Hq, Hkv, hd], "dtype": "bfloat16",
+         "ms": time_ms(kernel), "device_ms": device_ms(kernel),
+         "fp32_device_ms": device_ms(fp32),
+         "plain_ms": time_ms(plain, iters=10),
+         "plain_device_ms": device_ms(plain, calls=5),
+         "library_ms": time_ms(sdpa), "library_device_ms": device_ms(sdpa),
+         "library": "scaled_dot_product_attention(is_causal, enable_gqa)",
+         "library_max_abs_err": library_err}
+    pairs = attended_pairs(S)
+    t["flops"] = 4.0 * B * Hq * pairs * hd
+    in_elems = B * S * hd * (Hq + 2 * Hkv)
+    out_bytes = 4.0 * B * S * Hq * hd
+    t["bytes"] = 2.0 * in_elems + out_bytes
+    t.update(bf16_bound(t["flops"], t["bytes"]))
+    fp32_bound = bound(t["flops"], 4.0 * in_elems + out_bytes,
+                       tensor_cores=True)
+    t["fp32_bound_ms"] = fp32_bound["bound_ms"]
+    print(f"  flash_attention at qwen3-moe-30b-a3b's prefill shape "
+          f"[{B}, {S}, {Hq}/{Hkv}, {hd}] (causal; {t['flops'] / 1e9:.2f} "
+          f"GFLOP, {t['bytes'] / 1e6:.1f} MB), bf16 inputs as the main path "
+          f"passes them: kernel {t['ms']:.4f} ms (device "
+          f"{t['device_ms']:.4f}), plain {t['plain_ms']:.4f} (device "
+          f"{t['plain_device_ms']:.4f}), SDPA, the same function, "
+          f"{t['library_ms']:.4f} (device {t['library_device_ms']:.4f}; "
+          f"max_abs_err against plain {library_err:.3g}), bound "
+          f"{t['bound_ms']:.4f} ms ({t['bound_by']}, {t['bound_kind']}); "
+          f"the kernel's device time is {t['device_ms'] / t['bound_ms']:.2f}x "
+          f"the bound and {t['device_ms'] / t['library_device_ms']:.2f}x "
+          f"SDPA's. The fp32 function: device {t['fp32_device_ms']:.4f} ms, "
+          f"bound {t['fp32_bound_ms']:.4f} (3xTF32)")
+    del q, k, v, qb, kb, vb, qt, kt, vt, want
+    torch.cuda.empty_cache()
+    return t
+
+
 def timing_phase():
     gen = torch.Generator().manual_seed(99)
     att = attention_timing(gen, MAIN_ATT)
@@ -3165,7 +3564,8 @@ def timing_phase():
     print("  wkv6 device ms by pass (torch.profiler, 5 calls): " + (
         ", ".join(f"{k} {t:.4f}" for k, t in wkv["device_ms_by_pass"].items())
         or "not measured (the profiler saw no device time)"))
-    return att, cka, wkv, bert_timing(gen), gemma_timing(gen)
+    return (att, cka, wkv, bert_timing(gen), gemma_timing(gen),
+            qwen3_timing(gen))
 
 
 def cnn_cka_timing(gen) -> dict:
@@ -3510,7 +3910,16 @@ def main() -> None:
 
     phase("phase 2: kernels against their plain versions")
     (att_err, cka_err, cnn_err, wkv_err, bert_att_err, bert_cka_err,
-     lm_att_err) = kernel_phase()
+     lm_att_err, qwen3_att_err) = kernel_phase()
+    # qwen3-moe's 62 GB go first: the later phases keep ~20 GiB on the
+    # card (the compiled and mixed sessions' graphs among them)
+    phase("phase 3: qwen3-moe-30b-a3b serving at full width and depth, "
+          "128 experts top-8 on every layer, the flash kernel on its "
+          "prefill")
+    qwen3 = moe_phase(get_config("qwen3-moe-30b-a3b"))
+    phase("phase 3: jamba's mamba block at full width; the reduced jamba "
+          "served")
+    jamba = mamba_phase()
     phase("phase 3: DeiT-tiny serving and SimFreeze probes at full width")
     launches = slice_phase(get_config("deit-tiny"))
     phase("phase 3: the ETuner loop on DeiT-tiny at full width")
@@ -3547,7 +3956,7 @@ def main() -> None:
           "kernel on its prefill")
     gemma = lm_phase(get_config("gemma2-2b"))
     phase("phase 4: timing at the main-path shapes (CUDA events)")
-    att, cka, wkv, bert, gemma_att = timing_phase()
+    att, cka, wkv, bert, gemma_att, qwen3_att = timing_phase()
     cka_feature = {k: v for k, v in cka.items() if k != "cnn"}
     if args.profile:
         phase("phase 5: where the slices' time goes (torch.profiler)")
@@ -3568,12 +3977,17 @@ def main() -> None:
                 for name, n in compiled_launches.items()
                 if n["flash_attention"]},
              "gemma2_serving": gemma["serving"],
-             "gemma2_long": gemma["long"]},
+             "gemma2_long": gemma["long"],
+             "qwen3_moe_serving": qwen3["serving"],
+             "qwen3_moe_fp32": qwen3["fp32"],
+             "jamba_reduced": jamba["jamba_reduced"]},
          "max_abs_err": bert_att_err, **bert["attention"]["loop"],
          "bert_serving": bert["attention"]["serving"],
          "deit_tiny": {"max_abs_err": att_err, **att},
          "gemma2": {"max_abs_err": lm_att_err, "serving_run": gemma,
-                    **gemma_att}},
+                    **gemma_att},
+         "qwen3_moe": {"max_abs_err": qwen3_att_err, "serving_run": qwen3,
+                       "jamba": jamba, **qwen3_att}},
         {"name": "cka_terms", "route": "cuda",
          "source": "src/repro_torch/csrc/cka_terms.cu",
          "replaces": "src/repro/kernels/cka/kernel.py:56",

@@ -10,7 +10,7 @@ The repo's three TPU kernels are hand-written CUDA kernels for Hopper
 (`csrc/`), each beside a plain PyTorch version of the same function in
 its wrapper module: flash attention (`kernels/attention/ops.py`) and the
 CKA Gram terms (`kernels/cka/ops.py`) on DeiT-tiny and bert-base serving
-and the SimFreeze probe, flash attention also on the attention LMs'
+and the SimFreeze probe, flash attention also on the decoder LMs'
 prefill (`models/attention.py`), and the WKV6 recurrence
 (`kernels/rwkv/ops.py`) on rwkv6-3b serving (`models/rwkv6.py`,
 `runtime/serve.py`).

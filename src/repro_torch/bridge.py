@@ -15,10 +15,11 @@ as ``x @ W`` — so leaves cross unchanged, except:
   kernels at call time).
 - BERT: every leaf becomes fp32 and crosses unchanged (token and
   position tables, [in, out] dense weights).
-- LMs: each leaf keeps its own dtype (the rwkv init mixes fp32 and
-  `param_dtype` leaves), and the blocks, which JAX stacks along a leading
-  group axis [G, ...] (``scan_layers``) or keeps as per-group lists, become
-  the port's list of per-layer dicts.
+- LMs: each leaf keeps its own dtype (the rwkv, mamba and MoE inits mix
+  fp32 and `param_dtype` leaves), and the blocks, which JAX stacks along a
+  leading group axis [G, ...] (``scan_layers``) or keeps as per-group
+  lists, become the port's list of per-layer dicts (a MoE layer's expert
+  weights [G, E, ...] become [E, ...]).
 """
 from __future__ import annotations
 

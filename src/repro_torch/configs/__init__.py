@@ -1,7 +1,6 @@
 """Config registry for the paper models and the JAX package's ten LM
 architectures (`ARCHS`): ``get_config(name)`` (full size) and
-``get_reduced(name)`` (CPU-runnable). Jamba, qwen3-moe and kimi-k2 are
-described but not built: their mamba and MoE blocks raise (ROADMAP A.9)."""
+``get_reduced(name)`` (CPU-runnable)."""
 from __future__ import annotations
 
 from typing import Dict

@@ -4,10 +4,8 @@
 Carries the fields of the paper's own models (ETuner §V-A) and of the
 decoder LMs: the attention, RoPE/M-RoPE, frontend-stub and block-layout
 fields of the attention LMs, the rwkv6 fields, and the MoE and hybrid
-fields, which describe jamba, qwen3-moe and kimi-k2 although their mamba
-and MoE blocks are not ported yet (ROADMAP A.9). The JAX config's
-sharding and dry-run fields have no counterpart: the port runs on one
-card."""
+fields of jamba, qwen3-moe and kimi-k2. The JAX config's sharding and
+dry-run fields have no counterpart: the port runs on one card."""
 from __future__ import annotations
 
 import dataclasses
@@ -34,7 +32,7 @@ class ModelConfig:
     num_classes: int = 0
     width_mult: float = 1.0
 
-    # --- MoE (described; the blocks are not ported yet) ---
+    # --- MoE ---
     num_experts: int = 0
     experts_per_token: int = 0
     moe_period: int = 1          # MoE layer every `moe_period` layers
@@ -80,7 +78,8 @@ class ModelConfig:
     attn_chunk: int = 2048       # blockwise attention above this length
     attn_q_block: int = 2048     # blockwise attention q block
     attn_k_block: int = 2048     # blockwise attention kv block
-    ssm_chunk: int = 128         # rwkv chunk length of `wkv_chunked`
+    ssm_chunk: int = 128         # mamba / rwkv chunk length (sequence blocking)
+    ssm_dtype: str = "float32"   # mamba state-expansion dtype
     subquadratic: bool = False
     # route attention forwards through the hand-written flash-attention
     # kernel (repro_torch.kernels.attention); the name follows the JAX
@@ -105,6 +104,10 @@ class ModelConfig:
     @property
     def kv_dim(self) -> int:
         return self.num_kv_heads * self.head_dim
+
+    @property
+    def expert_ff(self) -> int:
+        return self.moe_d_ff or self.d_ff
 
     @property
     def is_lm(self) -> bool:

@@ -6,9 +6,7 @@ Block structure: one attention layer per 8 (attn_period=8, at offset 4),
 MoE every other layer (moe_period=2). SSM layers are Mamba-1 selective SSM
 (diagonal A, associative-scan). Sub-quadratic overall => long_500k runs.
 
-The same values as `repro.configs.jamba_1_5_large_398b`. Data only in
-the port: building the model raises `NotImplementedError` at its first
-mamba block (ROADMAP A.9).
+The same values as `repro.configs.jamba_1_5_large_398b`.
 """
 from repro_torch.configs.base import ModelConfig
 

@@ -7,9 +7,7 @@ MoE 384e top-8. Unverified tier: we follow the assigned table verbatim
 fits a 256-chip v5e pod with heavy FSDP + low-precision optimizer state;
 the dry-run memory analysis reports the honest per-chip bytes.
 
-The same values as `repro.configs.kimi_k2_1t_a32b`. Data only in the
-port: building the model raises `NotImplementedError` at its first MoE
-block (ROADMAP A.9).
+The same values as `repro.configs.kimi_k2_1t_a32b`.
 """
 from repro_torch.configs.base import ModelConfig
 

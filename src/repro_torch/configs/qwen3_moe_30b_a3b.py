@@ -3,9 +3,7 @@
 48L d_model=2048 32H (GQA kv=4) d_ff=768 (expert hidden) vocab=151936,
 MoE 128e top-8 on every layer; head_dim=128.
 
-The same values as `repro.configs.qwen3_moe_30b_a3b`. Data only in the
-port: building the model raises `NotImplementedError` at its first MoE
-block (ROADMAP A.9).
+The same values as `repro.configs.qwen3_moe_30b_a3b`.
 """
 from repro_torch.configs.base import ModelConfig
 

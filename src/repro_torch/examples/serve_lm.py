@@ -4,9 +4,9 @@
 
     PYTHONPATH=src python -m repro_torch.examples.serve_lm --arch gemma2-2b --batch 4
 
-It runs on CUDA unless `--device` names another device (`--device cpu`).
-jamba, qwen3-moe and kimi-k2 raise: their mamba and MoE blocks are not
-ported yet (ROADMAP A.9).
+It serves all ten reduced LM architectures (`--arch`, as the
+reference's), and runs on CUDA unless `--device` names another device
+(`--device cpu`).
 """
 import argparse
 import time

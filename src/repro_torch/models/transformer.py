@@ -1,17 +1,21 @@
-"""Decoder-LM assembler, ported from `repro.models.transformer`: the
-attention LMs (gemma2, granite, qwen1.5, qwen2-vl, musicgen) and rwkv6.
+"""Decoder-LM assembler for all ten LM architectures, ported from
+`repro.models.transformer`: the attention LMs (gemma2, granite, qwen1.5,
+qwen2-vl, musicgen), the MoE LMs (qwen3-moe, kimi-k2), jamba's hybrid
+stack and rwkv6.
 
 Layers form *groups* of g = the architecture's block period (1 for
-uniform stacks, 2 for gemma2's local/global alternation; the reference
-also has jamba's mamba:attention interleave and MoE periods). A layer's
-kind and window are those of its offset within its group, as in the
-reference. The JAX model stacks each offset's params along a leading
-[G] axis and scans over the groups; the port runs the layers as an
+uniform stacks, 2 for gemma2's local/global alternation, 8 for jamba's
+mamba:attention interleave with MoE every other layer). A layer's kind
+(attention, mamba or rwkv), its window and whether its FFN is MoE are
+those of its offset within its group, as in the reference. The JAX
+model stacks each offset's params along a leading [G] axis and scans
+over the groups; the port runs the layers as an
 unrolled Python loop over a list of per-layer param dicts in layer order
 (`bridge.params_from_jax` unstacks a JAX tree in (group, offset) order).
 Its decode caches are a list of per-layer dicts: ``{"attn": {"k", "v"}}``
-for attention, ``{s, x_tm, x_cm}`` for rwkv. Mamba and MoE blocks are not
-ported yet and raise (ROADMAP A.9).
+for attention, ``{"mamba": {"h", "conv"}}`` for mamba, ``{s, x_tm, x_cm}``
+for rwkv. The MoE layers' router aux losses sum over the layers into
+the loss, weighted by `router_aux_coef`.
 
 Params: ``{"embed": {"tok", "head", "frontend_proj"}, "final_norm",
 "blocks": [...]}``; dense weights are [in, out], the JAX layout.
@@ -30,7 +34,7 @@ import torch
 from repro_torch import resolve_device, tree_map
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.freeze_plan import FreezePlan, lm_segments, maybe_stop
-from repro_torch.models import attention, common, mlp, rwkv6
+from repro_torch.models import attention, common, mamba, mlp, moe, rwkv6
 
 
 def group_size(cfg: ModelConfig) -> int:
@@ -49,23 +53,12 @@ def num_groups(cfg: ModelConfig) -> int:
     return cfg.num_layers // group_size(cfg)
 
 
-def _require_ported(cfg: ModelConfig, offset: int) -> str:
-    """The kind of the block at `offset`; raises for the blocks the port
-    does not have yet."""
-    kind = cfg.layer_kind(offset)
-    if kind == "mamba" or cfg.layer_is_moe(offset):
-        raise NotImplementedError(
-            f"{cfg.name}: {'mamba' if kind == 'mamba' else 'MoE'} blocks are "
-            "not ported yet (ROADMAP A.9)")
-    return kind
-
-
 # ---------------------------------------------------------------------------
 # per-layer blocks
 
 
 def _init_block(gen: torch.Generator, cfg: ModelConfig, offset: int) -> dict:
-    kind = _require_ported(cfg, offset)
+    kind = cfg.layer_kind(offset)
     z = dict(dtype=torch.float32, device=gen.device)
     p = {"ln1": torch.zeros(cfg.d_model, **z),
          "ln2": torch.zeros(cfg.d_model, **z)}
@@ -74,22 +67,31 @@ def _init_block(gen: torch.Generator, cfg: ModelConfig, offset: int) -> dict:
         p["ln2_post"] = torch.zeros(cfg.d_model, **z)
     if kind == "attn":
         p["mix"] = attention.init_attention(gen, cfg)
-        p["ffn"] = mlp.init_mlp(gen, cfg)
+    elif kind == "mamba":
+        p["mix"] = mamba.init_mamba(gen, cfg)
     else:
         p["mix"] = rwkv6.init_rwkv_time_mix(gen, cfg)
+    if kind == "rwkv":
         p["ffn"] = rwkv6.init_rwkv_channel_mix(gen, cfg)
+    elif cfg.layer_is_moe(offset):
+        p["ffn"] = moe.init_moe(gen, cfg)
+    else:
+        p["ffn"] = mlp.init_mlp(gen, cfg)
     return p
 
 
 def _apply_block(p: dict, cfg: ModelConfig, x: torch.Tensor, offset: int,
                  mode: str, cache: Optional[dict], positions=None, pos=None
-                 ) -> Tuple[torch.Tensor, Optional[dict]]:
+                 ) -> Tuple[torch.Tensor, Optional[dict],
+                            Optional[torch.Tensor]]:
     """The block at `offset` within its group, in `mode` train | prefill
     | decode. Attention blocks take `positions` [B, S] (train, prefill)
-    or the index `pos` (decode). Returns (x, cache_out); cache_out is None
-    in train mode."""
-    kind = _require_ported(cfg, offset)
+    or the index `pos` (decode). Returns (x, cache_out, aux): cache_out
+    is None in train mode, aux the MoE router loss (an fp32 scalar; None
+    for a dense FFN)."""
+    kind = cfg.layer_kind(offset)
     window = cfg.layer_window(offset)
+    aux = None
     h = common.rms_norm(x, p["ln1"], cfg.norm_eps)
     c = None
     if kind == "attn":
@@ -103,6 +105,13 @@ def _apply_block(p: dict, cfg: ModelConfig, x: torch.Tensor, offset: int,
             a, kv = attention.attention_decode(p["mix"], cfg, h,
                                                cache["attn"], pos, window)
             c = {"attn": kv}
+    elif kind == "mamba":
+        if mode == "decode":
+            a, st = mamba.mamba_decode(p["mix"], cfg, h, cache["mamba"])
+        else:
+            a, st = mamba.mamba_train(p["mix"], cfg, h,
+                                      return_state=(mode == "prefill"))
+        c = {"mamba": st} if st is not None else None
     elif mode == "decode":
         a, c = rwkv6.time_mix_decode(p["mix"], cfg, h, cache)
     else:
@@ -112,8 +121,11 @@ def _apply_block(p: dict, cfg: ModelConfig, x: torch.Tensor, offset: int,
         a = common.rms_norm(a, p["ln1_post"], cfg.norm_eps)
     x = x + a
     h = common.rms_norm(x, p["ln2"], cfg.norm_eps)
-    if kind == "attn":
-        f = mlp.mlp(p["ffn"], cfg, h)
+    if kind != "rwkv":
+        if cfg.layer_is_moe(offset):
+            f, aux = moe.moe_ffn(p["ffn"], cfg, h)
+        else:
+            f = mlp.mlp(p["ffn"], cfg, h)
     elif mode == "decode":
         f, c = rwkv6.channel_mix_decode(p["ffn"], cfg, h, c)
     else:
@@ -121,7 +133,7 @@ def _apply_block(p: dict, cfg: ModelConfig, x: torch.Tensor, offset: int,
                                        return_state=(mode == "prefill"))
     if cfg.post_norms:
         f = common.rms_norm(f, p["ln2_post"], cfg.norm_eps)
-    return x + f, c
+    return x + f, c, aux
 
 
 # ---------------------------------------------------------------------------
@@ -150,18 +162,22 @@ def _positions(x: torch.Tensor) -> torch.Tensor:
 def _run(blocks, cfg: ModelConfig, x, mode: str, caches=None,
          positions=None, pos=None, collect_feats: bool = False):
     """Layers in order, from a group boundary. Returns (x, caches_out,
-    feats): one feature a group, its last layer's output."""
+    feats, aux): one feature a group, its last layer's output; aux the
+    sum of the layers' MoE router losses."""
     g = group_size(cfg)
     caches_out: List = []
     feats: List = []
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, blk in enumerate(blocks):
-        x, c = _apply_block(blk, cfg, x, i % g, mode,
-                            caches[i] if caches is not None else None,
-                            positions, pos)
+        x, c, a = _apply_block(blk, cfg, x, i % g, mode,
+                               caches[i] if caches is not None else None,
+                               positions, pos)
+        if a is not None:
+            aux = aux + a
         caches_out.append(c)
         if collect_feats and (i + 1) % g == 0:
             feats.append(x)
-    return x, caches_out, feats
+    return x, caches_out, feats, aux
 
 
 def _embed(params, cfg: ModelConfig, batch: dict, frozen: bool = False):
@@ -178,18 +194,20 @@ def lm_loss(params, cfg: ModelConfig, batch: dict,
     frozen segment's params are detached, and so is the activation after
     a frozen prefix that starts at a frozen embedding (JAX's
     stop_gradient); gradients of this loss are not held against JAX
-    yet."""
+    yet. Returns (loss + router_aux_coef * aux, metrics), as JAX does."""
     x, emb = _embed(params, cfg, batch, bool(plan and plan.embed))
     positions = _positions(x)
     blocks = params["blocks"]
     if plan is None or not any(plan.groups):
-        x = _run(blocks, cfg, x, "train", positions=positions)[0]
+        x, _, _, aux = _run(blocks, cfg, x, "train", positions=positions)
     else:
         g = group_size(cfg)
         prefix_stops_grad = plan.embed
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for lo, hi, frozen in lm_segments(plan):
             seg = maybe_stop(blocks[lo * g:hi * g], frozen)
-            x = _run(seg, cfg, x, "train", positions=positions)[0]
+            x, _, _, a = _run(seg, cfg, x, "train", positions=positions)
+            aux = aux + a
             if frozen and prefix_stops_grad:
                 x = x.detach()
             else:
@@ -202,8 +220,9 @@ def lm_loss(params, cfg: ModelConfig, batch: dict,
     head = maybe_stop(head, bool(plan and plan.head))
     logits = common.lm_logits(head, cfg, x)
     loss = common.cross_entropy(logits, batch["targets"], batch.get("mask"))
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    return loss, {"loss": loss, "aux_loss": aux, "logits_mean": logits.mean()}
+    total = loss + cfg.router_aux_coef * aux
+    return total, {"loss": loss, "aux_loss": aux,
+                   "logits_mean": logits.mean()}
 
 
 def lm_features(params, cfg: ModelConfig, batch: dict) -> List[torch.Tensor]:
@@ -222,14 +241,18 @@ def init_lm_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
                   device=None) -> List[dict]:
     """Empty decode caches, one dict per layer, on `device` (CUDA unless
     given: `resolve_device`): attention k/v [batch, max_len, Hkv, hd] in
-    `dtype`; rwkv states, O(1) in sequence length and fp32."""
+    `dtype`; mamba and rwkv states, O(1) in sequence length and fp32."""
     device = resolve_device(device)
     g = group_size(cfg)
     caches = []
     for i in range(cfg.num_layers):
-        if _require_ported(cfg, i % g) == "attn":
+        kind = cfg.layer_kind(i % g)
+        if kind == "attn":
             caches.append({"attn": attention.init_cache(cfg, batch, max_len,
                                                         dtype, device)})
+        elif kind == "mamba":
+            caches.append({"mamba": mamba.init_mamba_state(cfg, batch,
+                                                           device)})
         else:
             caches.append(rwkv6.init_rwkv_state(cfg, batch, device))
     return caches
@@ -239,8 +262,8 @@ def lm_prefill(params, cfg: ModelConfig, batch: dict):
     """Returns (last-position logits [B, V] fp32, caches); attention
     caches span the frontend prefix and the prompt."""
     x, _ = _embed(params, cfg, batch)
-    x, caches, _ = _run(params["blocks"], cfg, x, "prefill",
-                        positions=_positions(x))
+    x, caches, _, _ = _run(params["blocks"], cfg, x, "prefill",
+                           positions=_positions(x))
     x = common.rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = common.lm_logits(params["embed"], cfg, x[:, -1:])
     return logits[:, 0], caches
@@ -251,8 +274,8 @@ def lm_decode(params, cfg: ModelConfig, tokens: torch.Tensor, caches, pos):
     attention blocks write and attend at; rwkv blocks do not read it.
     Returns (logits [B, V], caches)."""
     x = common.embed_tokens(params["embed"], cfg, tokens)
-    x, caches_out, _ = _run(params["blocks"], cfg, x, "decode", caches,
-                            pos=pos)
+    x, caches_out, _, _ = _run(params["blocks"], cfg, x, "decode", caches,
+                               pos=pos)
     x = common.rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = common.lm_logits(params["embed"], cfg, x)
     return logits[:, 0], caches_out

@@ -19,6 +19,7 @@ from repro_torch.kernels.cka import ops as cka_ops
 from repro_torch.kernels.rwkv import ops as wkv_ops
 from repro_torch.models import build_model
 from repro_torch.optim import AdamWConfig
+from repro_torch.runtime.serve import ServeEngine
 from repro_torch.runtime.train_loop import (TrainStepCache, as_tensor,
                                             grads_of, make_optimizer_state)
 
@@ -524,3 +525,85 @@ def test_bert_train_steps_on_the_card_are_deterministic(gen):
     torch.cuda.synchronize()
     assert all(torch.equal(a, b) for a, b in zip(*runs, strict=True))
     assert not torch.equal(runs[0][0], tree_leaves(params)[0])
+
+
+# ---------------------------------------------------------------------------
+# the MoE and mamba LMs: qwen3-moe-30b-a3b's prefill attention, the MoE
+# combine's determinism, both blocks on the card against the CPU
+
+QWEN3_ATT = (4, 512, 32, 4, 128)  # B, S, Hq, Hkv, hd
+
+
+def test_flash_kernel_at_qwen3_moe_prefill_shape(gen):
+    # bf16 q/k/v as the main path passes them, causal, GQA 32 / 4 heads of
+    # 128: the kernel against its plain version at the kernel tolerance,
+    # and SDPA (is_causal, enable_gqa; the same function here, in bf16)
+    # against the plain version at the bf16 tolerance of
+    # tests/test_models.py
+    B, S, Hq, Hkv, hd = QWEN3_ATT
+    q = _randn(gen, (B, S, Hq, hd)).bfloat16()
+    k, v = (_randn(gen, (B, S, Hkv, hd)).bfloat16() for _ in range(2))
+    got = att_ops.flash_attention(q, k, v, causal=True)
+    want = att_ops.attention_plain(q, k, v, causal=True)
+    sdpa = torch.nn.functional.scaled_dot_product_attention(
+        *(t.transpose(1, 2) for t in (q, k, v)), is_causal=True,
+        enable_gqa=True).transpose(1, 2)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32
+    torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-5)
+    torch.testing.assert_close(sdpa.float(), want, rtol=3e-2, atol=3e-2)
+
+
+def test_moe_layer_on_the_card_is_deterministic(gen):
+    # qwen3-moe-30b-a3b's MoE layer at full width in bf16 (128 experts of
+    # 768, 8 a token) on 4 x 512 tokens, twice: the same bits, the
+    # combine's sums of up to 8 experts a token included
+    from repro_torch.models import moe
+
+    cfg = get_config("qwen3-moe-30b-a3b")
+    p = moe.init_moe(torch.Generator(device="cuda").manual_seed(0), cfg)
+    x = _randn(gen, (4, 512, cfg.d_model)).bfloat16()
+    first, second = moe.moe_ffn(p, cfg, x), moe.moe_ffn(p, cfg, x)
+    torch.cuda.synchronize()
+    assert torch.isfinite(first[0]).all()
+    assert torch.equal(first[0], second[0]) and torch.equal(first[1],
+                                                            second[1])
+
+
+@pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b",
+                                  "jamba-1.5-large-398b"])
+def test_moe_and_mamba_lms_on_the_card_match_the_cpu(gen, arch,
+                                                     monkeypatch):
+    # the reduced LM in fp32 at ssm_chunk 16 (a 48-token prompt is three
+    # chunks): prefill logits, each expert's kept tokens and a decode
+    # step on the card against the CPU, within the fp32 LM tolerance of
+    # tests/test_torch_lm.py
+    from repro_torch.models import moe
+
+    cfg = get_reduced(arch).replace(dtype="float32", param_dtype="float32",
+                                    ssm_chunk=16)
+    params = build_model(cfg, device="cpu").init(
+        torch.Generator().manual_seed(0))
+    tok = torch.randint(0, cfg.vocab_size, (2, 48), generator=gen)
+    route, routes = moe.route, []
+
+    def record(p, cfg, xt, capacity):
+        out = route(p, cfg, xt, capacity)
+        routes.append(moe.kept_pairs(*out[2:], xt.shape[0]).cpu())
+        return out
+
+    monkeypatch.setattr(moe, "route", record)
+    runs = {}
+    for device in ("cpu", "cuda"):
+        model = build_model(cfg, device=device)
+        p = tree_map(lambda t: t.to(device), params)
+        routes.clear()
+        logits, cache = model.prefill(p, {"tokens": tok.to(device)})
+        cache = ServeEngine(model)._extend_cache(cache, 52)
+        dec, _ = model.decode(p, tok[:, :1].to(device), cache, 48)
+        runs[device] = (logits.cpu(), dec.cpu(), list(routes))
+    assert len(runs["cpu"][2]) == len(runs["cuda"][2])
+    for a, b in zip(runs["cpu"][2], runs["cuda"][2]):
+        assert torch.equal(a, b)
+    for a, b in zip(runs["cpu"][:2], runs["cuda"][:2]):
+        torch.testing.assert_close(b, a, rtol=1e-4, atol=1e-4)

@@ -146,6 +146,16 @@ def test_attention_lm_modules_are_ported(name):
     assert (ROOT / "src" / "repro" / (name.replace(".", "/") + ".py")).exists()
 
 
+# the mamba and MoE blocks of jamba, qwen3-moe and kimi-k2
+MAMBA_MOE = ["models.mamba", "models.moe"]
+
+
+@pytest.mark.parametrize("name", MAMBA_MOE)
+def test_mamba_and_moe_modules_are_ported(name):
+    assert f"repro_torch.{name}" in _modules()
+    assert (ROOT / "src" / "repro" / (name.replace(".", "/") + ".py")).exists()
+
+
 def test_serve_lm_example_is_ported():
     assert "repro_torch.examples.serve_lm" in _modules()
     assert (ROOT / "examples" / "serve_lm.py").exists()
@@ -154,7 +164,7 @@ def test_serve_lm_example_is_ported():
 def test_runtime_root_loads_neither_jax_nor_repro():
     names = ['repro_torch.' + n
              for n in RUNTIME_ROOT + CNN_AND_HOOKS + WORKLOADS + BASELINES
-             + OBS + ATTENTION_LMS
+             + OBS + ATTENTION_LMS + MAMBA_MOE
              + ["models.common", "models.transformer", "runtime.serve",
                 "core.freeze_plan", "examples.serve_lm"]]
     code = ("import importlib, sys\n"

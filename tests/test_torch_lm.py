@@ -41,8 +41,10 @@ BF16_TOL = dict(rtol=3e-2, atol=3e-2)
 FP32 = dict(dtype="float32", param_dtype="float32")
 ATTENTION_LMS = ("gemma2-2b", "gemma2-27b", "granite-20b", "qwen1.5-32b",
                  "qwen2-vl-72b", "musicgen-medium")
-# jamba's mamba blocks, qwen3-moe's and kimi-k2's MoE blocks
-UNPORTED = ("jamba-1.5-large-398b", "qwen3-moe-30b-a3b", "kimi-k2-1t-a32b")
+# jamba's mamba blocks, qwen3-moe's and kimi-k2's MoE blocks (held to JAX
+# in tests/test_torch_moe_mamba.py)
+MAMBA_MOE_LMS = ("jamba-1.5-large-398b", "qwen3-moe-30b-a3b",
+                 "kimi-k2-1t-a32b")
 S = 24
 
 
@@ -132,7 +134,8 @@ def test_configs_carry_the_reference_values(arch, size):
     for i in range(cfg.num_layers):
         assert (cfg.layer_kind(i), cfg.layer_is_moe(i), cfg.layer_window(i)) \
             == (jcfg.layer_kind(i), jcfg.layer_is_moe(i), jcfg.layer_window(i))
-    assert (cfg.q_dim, cfg.kv_dim) == (jcfg.q_dim, jcfg.kv_dim)
+    assert (cfg.q_dim, cfg.kv_dim, cfg.expert_ff) == \
+        (jcfg.q_dim, jcfg.kv_dim, jcfg.expert_ff)
 
 
 def test_archs_are_the_references():
@@ -448,7 +451,7 @@ def test_bf16_block_matches_jax(arch, offset):
     positions = jnp.broadcast_to(jnp.arange(S), (2, S))
     want, jcache, _ = jax_transformer._apply_block(
         jblock, jmodel.cfg, x, offset % g, positions, "prefill", None, None)
-    got, cache = transformer._apply_block(
+    got, cache, _ = transformer._apply_block(
         params["blocks"][offset], cfg, xt, offset % g, "prefill", None,
         torch.arange(S).expand(2, S))
     assert got.dtype == torch.bfloat16
@@ -580,16 +583,35 @@ def test_loss_path_stays_plain_under_use_pallas(counted_flash):
 
 
 # ---------------------------------------------------------------------------
-# the unported architectures and the example
+# the mamba and MoE architectures and the example
 
 
-@pytest.mark.parametrize("arch", UNPORTED)
-def test_unported_architectures_raise_naming_a9(arch):
+@pytest.mark.parametrize("arch", MAMBA_MOE_LMS)
+def test_mamba_and_moe_architectures_build_and_cache(arch):
+    """The three archs build, draw their params and their caches: one
+    cache a layer, mamba states fp32 and O(1) in length, attention k/v
+    in the cache dtype; MoE FFNs hold [E, ...] expert weights."""
     cfg = get_reduced(arch)
-    with pytest.raises(NotImplementedError, match="A.9"):
-        build_model(cfg, device="cpu").init(torch.Generator().manual_seed(0))
-    with pytest.raises(NotImplementedError, match="A.9"):
-        transformer.init_lm_cache(cfg, 1, 8, torch.float32, device="cpu")
+    params = build_model(cfg, device="cpu").init(
+        torch.Generator().manual_seed(0))
+    caches = transformer.init_lm_cache(cfg, 1, 8, torch.bfloat16,
+                                       device="cpu")
+    assert len(params["blocks"]) == len(caches) == cfg.num_layers
+    g = transformer.group_size(cfg)
+    for i, (blk, c) in enumerate(zip(params["blocks"], caches)):
+        kind = cfg.layer_kind(i % g)
+        assert set(c) == {"mamba" if kind == "mamba" else "attn"}
+        if kind == "mamba":
+            assert c["mamba"]["h"].dtype == torch.float32
+            assert c["mamba"]["conv"].shape[1] == cfg.mamba_conv - 1
+        else:
+            assert c["attn"]["k"].shape == (1, 8, cfg.num_kv_heads,
+                                            cfg.head_dim)
+        if cfg.layer_is_moe(i % g):
+            assert blk["ffn"]["wg"].shape == (cfg.num_experts, cfg.d_model,
+                                              cfg.expert_ff)
+        else:
+            assert blk["ffn"]["wg"].shape == (cfg.d_model, cfg.d_ff)
 
 
 @pytest.mark.parametrize("arch", ["gemma2-2b", "musicgen-medium"])
@@ -602,6 +624,9 @@ def test_serve_lm_example_runs_on_the_cpu(arch, capsys):
     assert "stats=ServeStats(prefill_tokens=48, decode_steps=4)" in out[2]
 
 
-def test_serve_lm_example_refuses_unported_architectures():
-    with pytest.raises(NotImplementedError, match="A.9"):
-        serve_lm.main(["--arch", "kimi-k2-1t-a32b", "--device", "cpu"])
+def test_serve_lm_example_runs_kimi_k2_on_the_cpu(capsys):
+    serve_lm.main(["--arch", "kimi-k2-1t-a32b", "--device", "cpu",
+                   "--steps", "4"])
+    out = capsys.readouterr().out.splitlines()
+    assert out[0] == "arch=kimi-k2-1t-a32b-reduced batch=4 prefill=12 decode=4"
+    assert "stats=ServeStats(prefill_tokens=48, decode_steps=4)" in out[2]
