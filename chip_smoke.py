@@ -60,6 +60,31 @@ It imports nothing of JAX and nothing of the JAX package, and fails
    jamba (8 layers: 7 mamba, one attention, MoE every other layer)
    served, one flash launch a prefill, its fp32 kernel/plain pair within
    1e-3;
+   then LM training (`train_lm_phase`) through the train_lm example's
+   step builder (`repro_torch.examples.train_lm.make_step`: `grads_of`
+   then AdamW at lr 3e-3 on its cosine schedule) on its synthetic Markov
+   batches: gemma2-2b at full width and depth in bf16 (`remat="full"`,
+   the config's) on 4 x 512 tokens, 3 steps all active (no kernel
+   launch: every forward needs a backward), then 3 under the example's
+   half-prefix plan (6 of 13 groups and the embedding frozen), whose 12
+   frozen layers take flash (exactly 12 launches a step); each step's
+   loss, CUDA-event time and tokens/s, each plan's peak memory, one step
+   split into its gradients and AdamW's update, the peak memory of the
+   forward and backward under remat "full" and "none" and of a whole step
+   without remat; the bf16 gap between the kernel and plain routes,
+   printed; then one async `CheckpointManager.save` of the whole state
+   (15.7 GB, into a temporary directory, the free space printed first)
+   while the uninterrupted run takes its next step, `restore_latest`
+   into fresh tensors, every leaf bitwise the saved one, and the same
+   step from the restored state, whose loss must be bitwise the
+   uninterrupted one's (the caller's blocked seconds, the background
+   write and the restore printed); then the pair in fp32 at full width
+   with 8 of the 26 layers (2 of 4 groups frozen, 4 flash launches a
+   step), loss and every gradient leaf within 1e-3; then rwkv6-3b at full
+   width with 4 of its 32 layers on 4 x 32 tokens (one chunk, where
+   ROADMAP C.4's clamp does not bite): an all-active step that launches
+   nothing and does not raise, a half-prefix step with 2 WKV6 launches,
+   and its fp32 pair within 1e-3;
    then the slice phase at full width: DeiT-tiny (`get_config("deit-tiny")`,
    224x224, 12 layers, d=192) with params from a seeded
    `torch.Generator`, serving every inference event of a
@@ -257,7 +282,11 @@ WKV6: rwkv6-3b serving), and `launches_by_path` has every path's count
 `gemma2_long`, its shapes' times under `gemma2`; qwen3-moe's bf16 and
 fp32 prefills and the reduced jamba's under `qwen3_moe_serving`,
 `qwen3_moe_fp32` and `jamba_reduced`, qwen3's shape's times, its serving
-run and the jamba runs under `qwen3_moe`). CKA's times there are those of that path, a launch's mean
+run and the jamba runs under `qwen3_moe`; gemma2-2b's bf16 training run's
+launches, all in its half-prefix steps, under `gemma2_train`, its fp32
+pair's under `gemma2_train_fp32` and the training run's numbers under
+`gemma2`'s `training_run`; WKV6's in rwkv6-3b's half-prefix step under
+`rwkv6_train`). CKA's times there are those of that path, a launch's mean
 over a MobileNetV2 probe pass (with the pass, the stem launch and
 ResNet50's pass in full); its DeiT-tiny feature-route numbers are under
 `feature_route`, its bert-base probe shape's under `bert_probe`.
@@ -268,6 +297,7 @@ import argparse
 import dataclasses
 import json
 import math
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -286,6 +316,7 @@ from repro_torch.baselines import (  # noqa: E402
 from repro_torch.configs import get_config, get_reduced  # noqa: E402
 from repro_torch.core.cka import cka as core_cka  # noqa: E402
 from repro_torch.core.cka import cka_feature_form  # noqa: E402
+from repro_torch.checkpoint import CheckpointManager  # noqa: E402
 from repro_torch.core.freeze_plan import LayerFreezePlan  # noqa: E402
 from repro_torch.core.policies import (  # noqa: E402
     PolicySpec, etuner_stack_spec)
@@ -304,7 +335,9 @@ from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models.rwkv6 import wkv_chunked  # noqa: E402
 from repro_torch import obs  # noqa: E402
 from repro_torch.obs import TelemetrySpec  # noqa: E402
-from repro_torch.optim import AdamWConfig  # noqa: E402
+from repro_torch.examples import train_lm  # noqa: E402
+from repro_torch.optim import (  # noqa: E402
+    AdamWConfig, adamw_init, adamw_update, cosine_schedule)
 from repro_torch.runtime import config as config_mod  # noqa: E402
 from repro_torch.runtime import fleet as fleet_mod  # noqa: E402
 from repro_torch.runtime.config import (  # noqa: E402
@@ -321,7 +354,8 @@ from repro_torch.runtime.modelpool import ModelPool, ModelSlot  # noqa: E402
 from repro_torch.runtime.scheduler import EventScheduler  # noqa: E402
 from repro_torch.runtime.serve import ServeEngine  # noqa: E402
 from repro_torch.runtime.train_loop import (  # noqa: E402
-    TrainStepCache, as_tensor, compiled_model, make_optimizer_state)
+    TrainStepCache, as_tensor, compiled_model, grads_of,
+    make_optimizer_state)
 from repro_torch.workloads import presets  # noqa: E402
 
 # kernel tolerances, as tests/test_kernels.py holds the Pallas kernels
@@ -380,6 +414,18 @@ QWEN3_FP32_LAYERS = 8
 # nearest to 512 that the chunks split (ROADMAP C.11)
 JAMBA_BLOCK = (4, 512)
 JAMBA_DECODE_AT = 256
+# LM training (`train_lm_phase`): gemma2-2b at full width and depth in bf16
+# on the train_lm example's synthetic batches of 4 x 512 tokens, steps all
+# active, then under the half-prefix plan (6 of 13 groups, 12 layers, and
+# the embedding), whose forwards take flash; its fp32 kernel/plain pair at
+# full width with depth cut to 8 layers (4 groups, 2 frozen); rwkv6-3b at
+# full width with 4 of its 32 layers on 32 tokens, one chunk of the
+# chunked form, where ROADMAP C.4's clamp does not bite
+TRAIN_BATCH = (4, 512)
+TRAIN_STEPS = (3, 3)
+TRAIN_FP32_LAYERS = 8
+RWKV_TRAIN = (4, 32)
+OPT = AdamWConfig(lr=3e-3)  # the train_lm example's optimizer
 # the rwkv6-3b kernel/plain pair and prefill/decode check, run in fp32
 # (rwkv_phase says why)
 PAIR_TOL = 1e-3
@@ -3230,6 +3276,301 @@ def mamba_phase():
     return {"jamba_reduced": launches["flash_attention"], **out}
 
 
+def flash_only(n: int) -> dict:
+    return {"flash_attention": n, "cka_terms": 0, "cka_feature": 0,
+            "cka_example": 0, "wkv6": 0}
+
+
+def wkv_only(n: int) -> dict:
+    return {**flash_only(0), "wkv6": n}
+
+
+def train_steps(model, held: list, plan, batches, first, total, want):
+    """Steps `first`, `first` + 1, ... of the train_lm example's step
+    builder under `plan`, one a batch, from and into `held` = [params,
+    state] (held here alone, so that a step's peak memory is its own: the
+    state it reads and the one it writes), each timed with CUDA events
+    and its launches held to `want`. Returns (losses, ms)."""
+    step = train_lm.make_step(model, OPT, plan)
+    params, state = held
+    held.clear()
+    losses, ms = [], []
+    for i, batch in enumerate(batches, start=first):
+        zero_launches()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        params, state, loss = step(params, state, batch,
+                                   cosine_schedule(i, warmup=20, total=total))
+        end.record()
+        torch.cuda.synchronize()
+        if read_launches() != want:
+            raise AssertionError(f"step {i} under {plan}: expected "
+                                 f"{want}, got {read_launches()}")
+        if not torch.isfinite(loss):
+            raise AssertionError(f"step {i}: loss {float(loss)}")
+        losses.append(float(loss))
+        ms.append(start.elapsed_time(end))
+    held.extend([params, state])
+    return losses, ms
+
+
+def step_split(model, params, state, plan, batch) -> dict:
+    """One step under `plan` split in two, each timed with CUDA events:
+    the loss and its gradients (`grads_of`), then AdamW's update."""
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    events[0].record()
+    _, _, grads = grads_of(model.loss, params, batch, plan)
+    events[1].record()
+    res = adamw_update(grads, state, params, OPT, lr_scale=1.0)
+    events[2].record()
+    torch.cuda.synchronize()
+    del grads, res
+    split = {"grads_ms": events[0].elapsed_time(events[1]),
+             "adamw_ms": events[1].elapsed_time(events[2])}
+    print(f"  one half-prefix step split: loss and gradients "
+          f"{split['grads_ms']:.2f} ms, AdamW's update {split['adamw_ms']:.2f} "
+          f"ms (CUDA events)")
+    return split
+
+
+def hold_grads(name, kern, plain, tol) -> float:
+    """A kernel run's (loss, metrics, grads) against a plain run's: the
+    loss and every gradient leaf within rtol = atol = `tol`."""
+    loss_err = abs(float(kern[0]) - float(plain[0]))
+    if loss_err > tol * (1 + abs(float(plain[0]))):
+        raise AssertionError(f"{name}: loss {float(kern[0])!r} against "
+                             f"{float(plain[0])!r}")
+    err = 0.0
+    for i, (a, b) in enumerate(zip(tree_leaves(kern[2]),
+                                   tree_leaves(plain[2]))):
+        torch.testing.assert_close(a, b, rtol=tol, atol=tol,
+                                   msg=f"{name}: gradient leaf {i}")
+        err = max(err, float((a.float() - b.float()).abs().max()))
+    print(f"  {name}: loss {float(kern[0]):.6f}, max_abs_err {loss_err:.4g}; "
+          f"every gradient leaf within rtol = atol = {tol:g}, max_abs_err "
+          f"{err:.4g} over {len(tree_leaves(kern[2]))} leaves")
+    return max(err, loss_err)
+
+
+def grads_gap(kern, plain) -> tuple:
+    """(|loss gap|, the largest leaf gap relative to the leaf's max |g|)."""
+    rel = max(float((a.float() - b.float()).abs().max())
+              / max(float(b.float().abs().max()), 1e-30)
+              for a, b in zip(tree_leaves(kern[2]), tree_leaves(plain[2])))
+    return abs(float(kern[0]) - float(plain[0])), rel
+
+
+def checkpoint_round_trip(step_fn, holder: list, batch, lr, at) -> dict:
+    """One async `CheckpointManager.save` of (params, state) (`holder`,
+    which this empties, so that the card holds one state at a time) into
+    a fresh temporary directory, the uninterrupted run's next step while
+    it writes, `restore_latest` into fresh tensors (every leaf bitwise the
+    saved one) and the same step from the restored state, whose loss
+    must be bitwise the uninterrupted one's. The directory is removed."""
+    params, state = holder
+    holder.clear()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        nbytes = sum(t.numel() * t.element_size()
+                     for t in tree_leaves((params, state)))
+        free = shutil.disk_usage(tmp).free
+        print(f"  checkpoint of (params, AdamW state): {nbytes / 1e9:.2f} GB "
+              f"into {tmp}, {free / 1e9:.1f} GB free there")
+        mgr = CheckpointManager(tmp, keep=1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mgr.save(at, (params, state))
+        blocked = time.perf_counter() - t0
+        _, _, loss = step_fn(params, state, batch, lr)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        mgr.wait()
+        waited = time.perf_counter() - t1
+        t2 = time.perf_counter()
+        restored, got_step = mgr.restore_latest((params, state),
+                                                device="cuda")
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t2
+        if got_step != at:
+            raise AssertionError(f"restored step {got_step}, not {at}")
+        pairs = list(zip(tree_leaves(restored), tree_leaves((params, state))))
+        bad = [i for i, (a, b) in enumerate(pairs)
+               if a.dtype != b.dtype or not torch.equal(a, b)]
+        if bad:
+            raise AssertionError(f"restored leaves {bad[:8]} differ")
+        count = len(pairs)
+        del pairs, params, state
+        _, _, again = step_fn(*restored, batch, lr)
+        if not torch.equal(again, loss):
+            raise AssertionError(f"the resumed step's loss {float(again)!r} "
+                                 f"is not the uninterrupted {float(loss)!r}")
+        del restored
+        out = {"bytes": nbytes, "free_bytes": free, "blocked_s": blocked,
+               "write_s": mgr.write_seconds, "waited_s": waited,
+               "restore_s": restore_s, "loss": float(loss)}
+        print(f"  checkpoint: the caller blocked {blocked:.2f} s (device to "
+              f"host), the background write took {out['write_s']:.2f} s "
+              f"({waited:.2f} s of it after the next step), restore_latest "
+              f"(validate + restore to the card) {restore_s:.2f} s; "
+              f"{count} leaves bitwise equal, "
+              f"the resumed step's loss {float(loss)!r} bitwise the "
+              f"uninterrupted run's")
+        return out
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def train_lm_phase():
+    """LM training through the train_lm example's step builder
+    (`repro_torch.examples.train_lm.make_step`) on its synthetic batches.
+
+    (a) gemma2-2b at full width and depth in bf16 (`remat="full"`, the
+    config's): `TRAIN_STEPS[0]` steps all active (no kernel launch: every
+    forward needs a backward), then `TRAIN_STEPS[1]` under the half-prefix
+    plan, whose frozen 12 layers take flash (12 launches a step), each
+    step timed with its tokens/s and each plan's peak memory, beside one
+    step with `remat="none"`; the bf16 gap between the kernel and plain
+    routes under the plan, printed; then the checkpoint round trip of the
+    whole state (`checkpoint_round_trip`). (b) the pair in fp32 at full
+    width with depth cut to `TRAIN_FP32_LAYERS`, 4 flash launches a step,
+    loss and every gradient leaf within 1e-3. (c) rwkv6-3b at full width
+    with `RWKV_TRAIN` layers and tokens: no launch and no error before the
+    switch, 2 WKV6 launches a step under the plan, the fp32 pair within
+    1e-3."""
+    cfg = get_config("gemma2-2b")
+    B, S = TRAIN_BATCH
+    n_active, n_frozen = TRAIN_STEPS
+    total = n_active + n_frozen + 1
+    rng = np.random.default_rng(0)
+    batches = [train_lm.synthetic_batch(rng, cfg.vocab_size, B, S, "cuda")
+               for _ in range(total)]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    kmodel, params = lm_model(cfg, use_pallas=True)
+    if kmodel.cfg.remat != "full":
+        raise AssertionError(f"gemma2-2b's remat is {kmodel.cfg.remat}")
+    G = kmodel.num_freeze_units
+    plan = train_lm.half_prefix_plan(G)
+    frozen = sum(plan.groups) * cfg.num_layers // G
+    held = [params, adamw_init(params, OPT)]
+    del params
+    out = {"frozen_layers": frozen, "by_plan": {}}
+    for name, p, first, n, want in (
+            ("all active", None, 0, n_active, flash_only(0)),
+            ("half prefix", plan, n_active, n_frozen, flash_only(frozen))):
+        torch.cuda.reset_peak_memory_stats()
+        losses, ms = train_steps(kmodel, held, p, batches[first:first + n],
+                                 first, total, want)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        warm = ms[1:] or ms
+        mean = sum(warm) / len(warm)
+        out["by_plan"][name] = {"losses": losses, "ms": ms, "ms_mean": mean,
+                                "tokens_per_s": B * S / mean * 1e3,
+                                "peak_memory_gb": peak,
+                                "launches_per_step": want["flash_attention"]}
+        print(f"  bf16, {name} ({want['flash_attention']} flash launches a "
+              f"step): losses {[round(x, 4) for x in losses]}; ms a step "
+              f"(CUDA events) {[round(x, 2) for x in ms]}, "
+              f"{mean:.2f} after the first ({B * S / mean * 1e3:.0f} "
+              f"tokens/s); peak memory {peak:.2f} GB")
+    out["gemma2_train"] = n_frozen * frozen
+    params, state = held
+    out["step_split_ms"] = step_split(kmodel, params, state, plan,
+                                      batches[-1])
+
+    # the forward and backward alone under each remat (an all-active
+    # step's peak is AdamW's where it is larger), then a whole step
+    # without remat
+    peaks = {}
+    for remat in ("full", "none"):
+        model = build_model(kmodel.cfg.replace(remat=remat))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        res = grads_of(model.loss, params, batches[0], None)
+        torch.cuda.synchronize()
+        peaks[f"grads_{remat}"] = torch.cuda.max_memory_allocated() / 1e9
+        del res
+    torch.cuda.reset_peak_memory_stats()
+    res = train_lm.make_step(model, OPT, None)(
+        params, state, batches[0], cosine_schedule(0, warmup=20, total=total))
+    torch.cuda.synchronize()
+    peaks["step_none"] = torch.cuda.max_memory_allocated() / 1e9
+    del res
+    out["peak_memory_gb_remat"] = peaks
+    print(f"  peak memory, all active: forward and backward "
+          f"{peaks['grads_full']:.2f} GB with remat=\"full\", "
+          f"{peaks['grads_none']:.2f} GB with \"none\"; a whole step "
+          f"{out['by_plan']['all active']['peak_memory_gb']:.2f} GB "
+          f"(\"full\"), {peaks['step_none']:.2f} GB (\"none\")")
+
+    pmodel = build_model(kmodel.cfg.replace(use_pallas=False))
+    kern = grads_of(kmodel.loss, params, batches[-1], plan)
+    plain = grads_of(pmodel.loss, params, batches[-1], plan)
+    out["bf16_gap"] = grads_gap(kern, plain)
+    print(f"  bf16 under the plan, not held: loss kernel against plain "
+          f"{out['bf16_gap'][0]:.4g}, largest gradient-leaf gap "
+          f"{out['bf16_gap'][1]:.4g} of the leaf's max |g|")
+    del kern, plain
+    torch.cuda.empty_cache()
+
+    held = [params, state]
+    del params, state
+    out["checkpoint"] = checkpoint_round_trip(
+        train_lm.make_step(kmodel, OPT, plan), held, batches[-1],
+        cosine_schedule(total - 1, warmup=20, total=total), total - 2)
+    torch.cuda.empty_cache()
+
+    fp32 = cfg.replace(num_layers=TRAIN_FP32_LAYERS)
+    kmodel, params = lm_model(fp32, use_pallas=True, dtype="float32",
+                              param_dtype="float32")
+    pmodel = build_model(kmodel.cfg.replace(use_pallas=False))
+    plan = train_lm.half_prefix_plan(kmodel.num_freeze_units)
+    n = sum(plan.groups) * TRAIN_FP32_LAYERS // kmodel.num_freeze_units
+    zero_launches()
+    kern = grads_of(kmodel.loss, params, batches[0], plan)
+    if read_launches() != flash_only(n):
+        raise AssertionError(f"fp32 kernel run: {read_launches()}")
+    zero_launches()
+    plain = grads_of(pmodel.loss, params, batches[0], plan)
+    if any(read_launches().values()):
+        raise AssertionError(f"fp32 plain run: {read_launches()}")
+    out["fp32_max_abs_err"] = hold_grads(
+        f"gemma2-2b fp32, {TRAIN_FP32_LAYERS} layers, {n} flash launches",
+        kern, plain, PAIR_TOL)
+    out["gemma2_train_fp32"] = n
+    del kern, plain, params
+    torch.cuda.empty_cache()
+
+    layers, T = RWKV_TRAIN
+    rcfg = get_config("rwkv6-3b").replace(num_layers=layers)
+    rng = np.random.default_rng(1)
+    rbatches = [train_lm.synthetic_batch(rng, rcfg.vocab_size, B, T, "cuda")
+                for _ in range(2)]
+    kmodel, params = lm_model(rcfg, use_pallas=True, dtype="float32",
+                              param_dtype="float32")
+    pmodel = build_model(kmodel.cfg.replace(use_pallas=False))
+    plan = train_lm.half_prefix_plan(kmodel.num_freeze_units)
+    n = sum(plan.groups)
+    held = [params, adamw_init(params, OPT)]
+    losses, _ = train_steps(kmodel, held, None, rbatches[:1], 0, 2,
+                            wkv_only(0))
+    more, _ = train_steps(kmodel, held, plan, rbatches[1:], 1, 2,
+                          wkv_only(n))
+    print(f"  rwkv6-3b, {layers} layers on {B} x {T} tokens, fp32: an "
+          f"all-active step (no launch) and a half-prefix step ({n} WKV6 "
+          f"launches), losses {losses + more}")
+    kern = grads_of(kmodel.loss, params, rbatches[0], plan)
+    plain = grads_of(pmodel.loss, params, rbatches[0], plan)
+    out["rwkv6_max_abs_err"] = hold_grads(
+        f"rwkv6-3b fp32, {layers} layers, {n} WKV6 launches", kern, plain,
+        PAIR_TOL)
+    out["rwkv6_train"] = n
+    del kern, plain, params, held
+    torch.cuda.empty_cache()
+    return out
+
+
 # ---------------------------------------------------------------------------
 # phase 4: timing
 
@@ -3920,6 +4261,10 @@ def main() -> None:
     phase("phase 3: jamba's mamba block at full width; the reduced jamba "
           "served")
     jamba = mamba_phase()
+    phase("phase 3: LM training: gemma2-2b at full width and depth, flash "
+          "on its frozen prefix, the checkpoint round trip; rwkv6-3b, WKV6 "
+          "on its frozen prefix")
+    train = train_lm_phase()
     phase("phase 3: DeiT-tiny serving and SimFreeze probes at full width")
     launches = slice_phase(get_config("deit-tiny"))
     phase("phase 3: the ETuner loop on DeiT-tiny at full width")
@@ -3980,12 +4325,14 @@ def main() -> None:
              "gemma2_long": gemma["long"],
              "qwen3_moe_serving": qwen3["serving"],
              "qwen3_moe_fp32": qwen3["fp32"],
-             "jamba_reduced": jamba["jamba_reduced"]},
+             "jamba_reduced": jamba["jamba_reduced"],
+             "gemma2_train": train["gemma2_train"],
+             "gemma2_train_fp32": train["gemma2_train_fp32"]},
          "max_abs_err": bert_att_err, **bert["attention"]["loop"],
          "bert_serving": bert["attention"]["serving"],
          "deit_tiny": {"max_abs_err": att_err, **att},
          "gemma2": {"max_abs_err": lm_att_err, "serving_run": gemma,
-                    **gemma_att},
+                    "training_run": train, **gemma_att},
          "qwen3_moe": {"max_abs_err": qwen3_att_err, "serving_run": qwen3,
                        "jamba": jamba, **qwen3_att}},
         {"name": "cka_terms", "route": "cuda",
@@ -4017,7 +4364,8 @@ def main() -> None:
          "source": "src/repro_torch/csrc/wkv6.cu",
          "replaces": "src/repro/kernels/rwkv/kernel.py:58",
          "launches": wkv_launches,
-         "launches_by_path": {"rwkv6_serving": wkv_launches},
+         "launches_by_path": {"rwkv6_serving": wkv_launches,
+                              "rwkv6_train": train["rwkv6_train"]},
          "max_abs_err": wkv_err, **wkv},
     ]}
     print(f"all phases done in {time.perf_counter() - t0:.1f} s since the "

@@ -20,6 +20,10 @@ as ``x @ W`` — so leaves cross unchanged, except:
   leading group axis [G, ...] (``scan_layers``) or keeps as per-group
   lists, become the port's list of per-layer dicts (a MoE layer's expert
   weights [G, E, ...] become [E, ...]).
+
+Trees of the params' structure cross the same way: a gradient tree, as
+`jax.grad` returns it, through `params_from_jax` itself, and an AdamW
+state (`adamw_state_from_jax`: its step count and both moment trees).
 """
 from __future__ import annotations
 
@@ -30,6 +34,7 @@ from repro_torch import resolve_device, tree_leaves, tree_map
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import bert, cnn
 from repro_torch.models.vit import patch_size
+from repro_torch.optim import AdamWState
 
 
 def from_numpy(tree, device):
@@ -60,6 +65,17 @@ def params_from_jax(tree: dict, cfg: ModelConfig, device=None) -> dict:
     if cfg.is_lm:
         return _lm_params(tree, cfg, device)
     raise NotImplementedError(f"no bridge for {cfg.family!r} params yet")
+
+
+def adamw_state_from_jax(state, cfg: ModelConfig, device=None) -> AdamWState:
+    """A JAX `AdamWState` (step, m, v) of numpy arrays as the port's: the
+    0-d int32 step and both moment trees, laid out as params."""
+    step, m, v = state
+    device = resolve_device(device)
+    return AdamWState(
+        step=torch.as_tensor(np.array(step), dtype=torch.int32,
+                             device=device),
+        m=params_from_jax(m, cfg, device), v=params_from_jax(v, cfg, device))
 
 
 def _vit_params(tree: dict, cfg: ModelConfig, device) -> dict:

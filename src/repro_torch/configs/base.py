@@ -74,7 +74,9 @@ class ModelConfig:
     # the JAX model stacks the layers and scans over them; the port always
     # runs them as a Python loop over per-layer params (the bridge unstacks)
     scan_layers: bool = True
-    remat: str = "full"          # carried for parity: the port trains no LM
+    # recompute in the backward each group's forward (`full`), or all of
+    # it but its matmul outputs (`dots`); `none` keeps every activation
+    remat: str = "full"          # 'none' | 'full' | 'dots'
     attn_chunk: int = 2048       # blockwise attention above this length
     attn_q_block: int = 2048     # blockwise attention q block
     attn_k_block: int = 2048     # blockwise attention kv block
@@ -83,8 +85,10 @@ class ModelConfig:
     subquadratic: bool = False
     # route attention forwards through the hand-written flash-attention
     # kernel (repro_torch.kernels.attention); the name follows the JAX
-    # config, where it selects the Pallas kernel. Forward only: the loss
-    # path keeps the plain attention. The JAX ViT/BERT route there; the
+    # config, where it selects the Pallas kernel. Forward only: where a
+    # backward runs through a forward (`kernels.kernel_route`), it keeps
+    # the plain path, so a train step takes the kernels only on a frozen
+    # prefix behind a frozen embedding. The JAX ViT/BERT route there; the
     # port's decoder LMs route their prefill and feature forwards there
     # too, where the JAX LM always takes `_attend_dense` /
     # `_attend_blockwise`. In the rwkv6 time-mix it routes the WKV

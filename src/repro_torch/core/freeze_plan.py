@@ -3,7 +3,8 @@ reads (counterpart of `repro.core.freeze_plan`).
 
 - `LayerFreezePlan` — unrolled paper models: one flag per layer.
 - `FreezePlan` — scanned LMs: one flag per layer group, plus embed/head;
-  `lm_segments` cuts it into contiguous runs of equal flags.
+  `lm_segments` cuts it into contiguous runs of equal flags, and
+  `grad_multiplier_tree` turns it into the optimizers' 0/1 masks.
 
 Plans are frozen dataclasses, so they compare and hash by value. In the
 forward pass a frozen layer's params are detached (`maybe_stop`), the
@@ -15,6 +16,8 @@ from __future__ import annotations
 import dataclasses
 from dataclasses import dataclass
 from typing import List, Tuple
+
+import torch
 
 from repro_torch import tree_map
 
@@ -61,6 +64,33 @@ def lm_segments(plan: FreezePlan) -> List[Tuple[int, int, bool]]:
             segs.append((lo, i, plan.groups[lo]))
             lo = i
     return segs
+
+
+def grad_multiplier_tree(plan: FreezePlan, params) -> dict:
+    """0/1 multipliers matching an LM's params tree, for the optimizers'
+    `masks`: they pin frozen slices exactly (weight decay and momentum
+    must not move them). The port's blocks are a list of per-layer dicts
+    in layer order, g = len(blocks) // len(plan.groups) layers a group,
+    so each block leaf gets its group's multiplier as a scalar where the
+    reference's stacked [G, ...] leaves get a [G] vector. Every leaf under
+    "embed" (the token table, an untied head and a frontend projection)
+    gets 0 under `plan.embed`; every other leaf gets 1, as in the
+    reference, which masks no head under `plan.head`."""
+    blocks = params["blocks"]
+    g = len(blocks) // max(len(plan.groups), 1)
+
+    def const(value):
+        return lambda t: torch.full((), value, dtype=t.dtype, device=t.device)
+
+    out = {}
+    for key, sub in params.items():
+        if key == "blocks":
+            out[key] = [tree_map(const(0.0 if plan.groups[i // g] else 1.0),
+                                 blk) for i, blk in enumerate(blocks)]
+        else:
+            out[key] = tree_map(const(0.0 if key == "embed" and plan.embed
+                                      else 1.0), sub)
+    return out
 
 
 @dataclass(frozen=True)

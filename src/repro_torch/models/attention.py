@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import kernel_route
 from repro_torch.kernels.attention import ops as att_ops
 from repro_torch.models import common
 
@@ -164,13 +165,6 @@ def _attend_blockwise(cfg: ModelConfig, q, k, v, q_pos, k_pos,
     return torch.cat(outs, dim=1).reshape(B, Sq, Hq, hd).to(q.dtype)
 
 
-def _kernel_route(cfg: ModelConfig, *tensors) -> bool:
-    """The flash kernel takes this forward: `use_pallas`, and no input
-    that autograd would need a backward for."""
-    return cfg.use_pallas and not (torch.is_grad_enabled() and any(
-        t.requires_grad for t in tensors))
-
-
 def _index_positions(q_pos: torch.Tensor) -> bool:
     """Whether `q_pos` is q_pos[0] + 0..S-1. The kernel masks by index;
     its causal and window masks depend only on differences of positions,
@@ -184,7 +178,7 @@ def _index_positions(q_pos: torch.Tensor) -> bool:
 def _attend(cfg: ModelConfig, q, k, v, q_pos, window: int) -> torch.Tensor:
     """Causal self-attention over the whole sequence, q_pos = k_pos. The
     kernel takes it only where the positions are consecutive."""
-    if _kernel_route(cfg, q, k, v) and _index_positions(q_pos):
+    if kernel_route(cfg.use_pallas, q, k, v) and _index_positions(q_pos):
         return att_ops.flash_attention(
             q, k, v, causal=True, window=window,
             softcap=cfg.attn_logit_softcap).to(q.dtype)

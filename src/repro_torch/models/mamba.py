@@ -95,12 +95,13 @@ def _ssm_inputs(p: dict, cfg: ModelConfig, xc: torch.Tensor):
 def _scan(a: torch.Tensor, b: torch.Tensor):
     """Inclusive scan along dim 1 of the combine (a1 + a2, exp(a2) b1 +
     b2), log-depth: at step d each token takes the aggregate of the d
-    tokens before it. Returns (a_cum, b_cum), new tensors."""
-    a, b = a.clone(), b.clone()
+    tokens before it. Returns (a_cum, b_cum), new tensors; out of place,
+    so autograd can differentiate it."""
     d, L = 1, a.shape[1]
     while d < L:
-        b[:, d:] = torch.exp(a[:, d:]) * b[:, :-d] + b[:, d:]
-        a[:, d:] = a[:, :-d] + a[:, d:]
+        b = torch.cat([b[:, :d], torch.exp(a[:, d:]) * b[:, :-d] + b[:, d:]],
+                      dim=1)
+        a = torch.cat([a[:, :d], a[:, :-d] + a[:, d:]], dim=1)
         d *= 2
     return a, b
 

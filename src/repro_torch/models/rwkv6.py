@@ -3,8 +3,10 @@ and channel-mix FFN, ported from `repro.models.rwkv6`. [arXiv:2404.05892]
 
 The prefill/train path evaluates the WKV recurrence
     S_t = diag(w_t) S_{t-1} + k_t v_t^T ,   o_t = r_t (S_{t-1} + diag(u) k_t v_t^T)
-in one of two ways. Under `cfg.use_pallas` it launches the hand-written
-WKV6 kernel (`kernels/rwkv/ops.wkv`), the exact recurrence; this is the one
+in one of two ways. Under `cfg.use_pallas`, where no backward runs through
+it (`kernels.kernel_route`: serving, probes, a train step's frozen prefix
+behind a frozen embedding), it launches the hand-written WKV6 kernel
+(`kernels/rwkv/ops.wkv`), the exact recurrence; this is the one
 deliberate routing difference from the JAX model, which always takes the
 chunked closed form. Otherwise it takes `wkv_chunked`, that closed form
 ported as it is: log-decay products clamped at CUM_CLAMP inside a chunk
@@ -25,6 +27,7 @@ import torch.nn.functional as F
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import kernel_route
 from repro_torch.kernels.rwkv import ops as wkv_ops
 from repro_torch.models import common
 
@@ -163,7 +166,7 @@ def time_mix_train(p: dict, cfg: ModelConfig, x: torch.Tensor, chunk: int = 0,
     H = num_heads(cfg)
     xp = _token_shift(x)
     r, k, v, g, logw = _rkvgw(p, cfg, x, xp)
-    if cfg.use_pallas:
+    if kernel_route(cfg.use_pallas, r, k, v, logw, p["u"]):
         o, s_fin = wkv_ops.wkv(r, k, v, logw, p["u"], return_state=True)
     else:
         o, s_fin = wkv_chunked(r, k, v, logw, p["u"], chunk=chunk)

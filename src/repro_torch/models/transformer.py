@@ -15,7 +15,9 @@ unrolled Python loop over a list of per-layer param dicts in layer order
 Its decode caches are a list of per-layer dicts: ``{"attn": {"k", "v"}}``
 for attention, ``{"mamba": {"h", "conv"}}`` for mamba, ``{s, x_tm, x_cm}``
 for rwkv. The MoE layers' router aux losses sum over the layers into
-the loss, weighted by `router_aux_coef`.
+the loss, weighted by `router_aux_coef`. Where a backward will run,
+each group's forward runs under `cfg.remat` (`_remat`: activation
+checkpointing, as the reference's `jax.checkpoint` of a group body).
 
 Params: ``{"embed": {"tok", "head", "frontend_proj"}, "final_norm",
 "blocks": [...]}``; dense weights are [in, out], the JAX layout.
@@ -26,10 +28,13 @@ tokens; the loss drops their positions before the head.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import List, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch import resolve_device, tree_map
 from repro_torch.configs.base import ModelConfig
@@ -159,23 +164,64 @@ def _positions(x: torch.Tensor) -> torch.Tensor:
     return torch.arange(S, device=x.device).expand(B, S)
 
 
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+         torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    """`remat="dots"`: keep the matmuls' outputs, recompute the rest (JAX's
+    `checkpoint_policies.checkpoint_dots`)."""
+    return CheckpointPolicy.MUST_SAVE if op in _DOTS \
+        else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(fn, cfg: ModelConfig):
+    """A group body with its activations recomputed in the backward, as
+    the reference's `_remat` wraps it in `jax.checkpoint` where
+    `cfg.scan_layers`: `none` keeps them, `dots` keeps the matmul outputs
+    only, anything else (`full`) keeps none. Only a forward that a
+    backward will run through is wrapped; recomputing runs the same ops
+    on the same inputs, so the gradient does not change."""
+    if not cfg.scan_layers or cfg.remat == "none" or \
+            not torch.is_grad_enabled():
+        return fn
+    kw = {}
+    if cfg.remat == "dots":
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _save_dots)
+    return lambda *args: checkpoint(fn, *args, use_reentrant=False, **kw)
+
+
 def _run(blocks, cfg: ModelConfig, x, mode: str, caches=None,
          positions=None, pos=None, collect_feats: bool = False):
-    """Layers in order, from a group boundary. Returns (x, caches_out,
-    feats, aux): one feature a group, its last layer's output; aux the
-    sum of the layers' MoE router losses."""
+    """Layers in order, a group of g at a time, from a group boundary.
+    Returns (x, caches_out, feats, aux): one feature a group, its last
+    layer's output; aux the sum over groups of each group's sum of its
+    layers' MoE router losses, the reference's order. In train mode each
+    group body runs under `_remat`."""
     g = group_size(cfg)
+
+    def group(x, lo):
+        aux, cs = None, []
+        for i in range(lo, lo + g):
+            x, c, a = _apply_block(blocks[i], cfg, x, i % g, mode,
+                                   caches[i] if caches is not None else None,
+                                   positions, pos)
+            if a is not None:
+                aux = a if aux is None else aux + a
+            cs.append(c)
+        return x, cs, aux
+
+    body = _remat(group, cfg) if mode == "train" else group
     caches_out: List = []
     feats: List = []
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for i, blk in enumerate(blocks):
-        x, c, a = _apply_block(blk, cfg, x, i % g, mode,
-                               caches[i] if caches is not None else None,
-                               positions, pos)
+    for lo in range(0, len(blocks), g):
+        x, cs, a = body(x, lo)
         if a is not None:
             aux = aux + a
-        caches_out.append(c)
-        if collect_feats and (i + 1) % g == 0:
+        caches_out.extend(cs)
+        if collect_feats:
             feats.append(x)
     return x, caches_out, feats, aux
 
@@ -193,8 +239,10 @@ def lm_loss(params, cfg: ModelConfig, batch: dict,
     The plan's groups split the layers into segments (`lm_segments`); a
     frozen segment's params are detached, and so is the activation after
     a frozen prefix that starts at a frozen embedding (JAX's
-    stop_gradient); gradients of this loss are not held against JAX
-    yet. Returns (loss + router_aux_coef * aux, metrics), as JAX does."""
+    stop_gradient), so a frozen leaf gets no gradient and, under
+    `use_pallas`, that prefix's forwards take the kernels. Returns
+    (loss + router_aux_coef * aux, metrics), as JAX does; its gradients
+    are JAX's (tests/test_torch_lm_train.py)."""
     x, emb = _embed(params, cfg, batch, bool(plan and plan.embed))
     positions = _positions(x)
     blocks = params["blocks"]

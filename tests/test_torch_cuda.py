@@ -607,3 +607,88 @@ def test_moe_and_mamba_lms_on_the_card_match_the_cpu(gen, arch,
         assert torch.equal(a, b)
     for a, b in zip(runs["cpu"][:2], runs["cuda"][:2]):
         torch.testing.assert_close(b, a, rtol=1e-4, atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# LM training: checkpoints of CUDA tensors and the kernels on a frozen prefix
+
+
+def test_checkpoint_of_cuda_tensors_round_trips(gen, tmp_path):
+    # reduced gemma2-2b's bf16 params and AdamW state on the card, saved
+    # async and restored onto the card and onto the CPU, bit for bit
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.optim import adamw_init
+
+    model = build_model(get_reduced("gemma2-2b"), device="cuda")
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    state = (params, adamw_init(params, AdamWConfig()))
+    mgr = CheckpointManager(str(tmp_path), keep=1)
+    mgr.save(3, state)
+    for device in ("cuda", "cpu"):
+        got, step = mgr.restore_latest(state, device=device)
+        assert step == 3
+        for a, b in zip(tree_leaves(got), tree_leaves(state)):
+            assert a.device.type == device and a.dtype == b.dtype
+            assert torch.equal(a.cpu(), b.cpu())
+
+
+@pytest.mark.parametrize("arch,frozen,launches", [
+    ("gemma2-2b", 1, 2),   # one group of two layers: two flash launches
+    ("rwkv6-3b", 2, 2),    # two groups of one layer: two WKV6 launches
+])
+def test_frozen_prefix_takes_the_kernels_in_a_train_step(gen, arch, frozen,
+                                                         launches):
+    # under `use_pallas` a train step's frozen prefix behind a frozen
+    # embedding runs its forwards on the kernels, the trainable layers
+    # stay plain; loss and gradients are the plain model's on the card
+    from repro_torch.core.freeze_plan import FreezePlan
+
+    cfg = get_reduced(arch).replace(dtype="float32", param_dtype="float32")
+    plain = build_model(cfg, device="cuda")
+    kern = build_model(cfg.replace(use_pallas=True), device="cuda")
+    params = plain.init(torch.Generator(device="cuda").manual_seed(0))
+    G = plain.num_freeze_units
+    tok = torch.randint(0, cfg.vocab_size, (2, 32), generator=gen).cuda()
+    batch = {"tokens": tok, "targets": tok.roll(-1, dims=1)}
+    counters = (att_ops.flash_attention, wkv_ops.wkv)
+    for plan in (None, FreezePlan(tuple(i < frozen for i in range(G)),
+                                  True)):
+        before = [c.launches for c in counters]
+        got = grads_of(kern.loss, params, batch, plan)
+        ran = sum(c.launches - b for c, b in zip(counters, before))
+        assert ran == (launches if plan else 0)
+        want = grads_of(plain.loss, params, batch, plan)
+        torch.testing.assert_close(got[0], want[0], rtol=1e-4, atol=1e-4)
+        for a, b in zip(tree_leaves(got[2]), tree_leaves(want[2])):
+            torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+
+
+def test_train_lm_steps_on_the_card_match_the_cpu(gen):
+    # the example's `tiny` preset in fp32: four steps of its step builder,
+    # the last two under the half-prefix plan, on the card and on the CPU
+    import numpy as np
+
+    from repro_torch.examples import train_lm
+    from repro_torch.optim import adamw_init
+
+    cfg = train_lm.preset_config("tiny").replace(dtype="float32",
+                                                 param_dtype="float32")
+    params = build_model(cfg, device="cpu").init(
+        torch.Generator().manual_seed(0))
+    losses = {}
+    for device in ("cpu", "cuda"):
+        model = build_model(cfg, device=device)
+        p = tree_map(lambda t: t.to(device), params)
+        opt_cfg = AdamWConfig(lr=3e-3)
+        state = adamw_init(p, opt_cfg)
+        rng = np.random.default_rng(0)
+        losses[device] = []
+        for step in range(4):
+            plan = train_lm.half_prefix_plan(4) if step >= 2 else None
+            batch = train_lm.synthetic_batch(rng, cfg.vocab_size, 4, 64,
+                                             device)
+            p, state, loss = train_lm.make_step(model, opt_cfg, plan)(
+                p, state, batch, train_lm.cosine_schedule(step, warmup=2,
+                                                          total=4))
+            losses[device].append(float(loss))
+    np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-4)

@@ -17,7 +17,8 @@ from repro_torch import resolve_device
 from repro_torch.bridge import params_from_jax
 from repro_torch.configs import get_config, get_reduced
 from repro_torch.core.controller import ETunerController
-from repro_torch.examples import serve_lm
+from repro_torch.checkpoint import ckpt
+from repro_torch.examples import serve_lm, train_lm
 from repro_torch.models import build_model
 from repro_torch.runtime import (RuntimeConfig, SlotConfig, TelemetrySpec,
                                  edgeol_session)
@@ -156,6 +157,22 @@ def test_mamba_and_moe_modules_are_ported(name):
     assert (ROOT / "src" / "repro" / (name.replace(".", "/") + ".py")).exists()
 
 
+# LM training: the checkpoint package and the train_lm example
+LM_TRAINING = ["checkpoint", "checkpoint.ckpt", "checkpoint.manager",
+               "examples.train_lm"]
+
+
+@pytest.mark.parametrize("name", LM_TRAINING)
+def test_lm_training_modules_are_ported(name):
+    assert f"repro_torch.{name}" in _modules()
+    rel = name.replace(".", "/")
+    if name.startswith("examples."):
+        assert (ROOT / (rel + ".py")).exists()
+    else:
+        assert (ROOT / "src" / "repro" / (rel + ".py")).exists() or \
+            (ROOT / "src" / "repro" / rel / "__init__.py").exists()
+
+
 def test_serve_lm_example_is_ported():
     assert "repro_torch.examples.serve_lm" in _modules()
     assert (ROOT / "examples" / "serve_lm.py").exists()
@@ -164,7 +181,7 @@ def test_serve_lm_example_is_ported():
 def test_runtime_root_loads_neither_jax_nor_repro():
     names = ['repro_torch.' + n
              for n in RUNTIME_ROOT + CNN_AND_HOOKS + WORKLOADS + BASELINES
-             + OBS + ATTENTION_LMS + MAMBA_MOE
+             + OBS + ATTENTION_LMS + MAMBA_MOE + LM_TRAINING
              + ["models.common", "models.transformer", "runtime.serve",
                 "core.freeze_plan", "examples.serve_lm"]]
     code = ("import importlib, sys\n"
@@ -242,11 +259,19 @@ def _serve_lm():
     serve_lm.main([])
 
 
+def _train_lm():
+    train_lm.main([])
+
+
+def _restore():
+    ckpt.restore("no-such-checkpoint", {})
+
+
 @pytest.mark.parametrize("entry", [resolve_device, _build, _bridge, _etuner,
                                    _session, _cnn, _default_session,
                                    _compiled_workload_session, _bert,
                                    _mixed_session, _traced_session, _gemma2,
-                                   _serve_lm])
+                                   _serve_lm, _train_lm, _restore])
 def test_entry_points_raise_without_gpu(monkeypatch, entry):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
