@@ -23,13 +23,9 @@ included, on the device the caller names. No external deps.
 from __future__ import annotations
 
 import hashlib
-import io
 import json
-import math
-import mmap
 import os
 import shutil
-import struct
 import tempfile
 import threading
 import time
@@ -106,7 +102,7 @@ def _raw(t: torch.Tensor) -> np.ndarray:
 
 
 def _checksum(a: np.ndarray) -> str:
-    return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()[:16]
+    return hashlib.sha256(np.ascontiguousarray(a)).hexdigest()[:16]
 
 
 def _write_leaf(fid, t: torch.Tensor, a: np.ndarray) -> None:
@@ -172,80 +168,44 @@ def _manifest(path: str) -> dict:
         return json.load(f)
 
 
-def _members(path: str) -> dict:
-    """{leaf key: (shape, data)} of a checkpoint's ``data.npz``, each
-    `data` a memoryview of the leaf's records in a copy-on-write mapping
-    of the file. `np.savez` stores every member uncompressed, so a leaf's
-    records are a slice of the file: this reads them without the chunked
-    copies and CRC pass of `np.load` through `zipfile` (the manifest's
-    checksums cover the records). Raises on a compressed, truncated or
-    malformed member."""
-    with open(os.path.join(path, "data.npz"), "rb") as f:
-        mapped = mmap.mmap(f.fileno(), 0, access=mmap.ACCESS_COPY)
-        with zipfile.ZipFile(f) as zf:
-            infos = zf.infolist()
-    view = memoryview(mapped)
-    out = {}
-    for info in infos:
-        if info.compress_type != zipfile.ZIP_STORED:
-            raise ValueError(f"{info.filename} is compressed")
-        at = info.header_offset
-        if bytes(view[at:at + 4]) != b"PK\x03\x04":
-            raise ValueError(f"{info.filename}: no local file header")
-        n, e = struct.unpack("<HH", view[at + 26:at + 30])
-        member = view[at + 30 + n + e:at + 30 + n + e + info.file_size]
-        head = io.BytesIO(member[:1 << 16].tobytes())
-        version = np.lib.format.read_magic(head)
-        if version != (1, 0) and version != (2, 0):
-            raise ValueError(f"{info.filename}: npy version {version}")
-        read = np.lib.format.read_array_header_1_0 if version == (1, 0) \
-            else np.lib.format.read_array_header_2_0
-        shape, fortran, dtype = read(head)
-        nbytes = math.prod(shape) * dtype.itemsize
-        data = member[head.tell():head.tell() + nbytes]
-        if fortran or len(data) != nbytes:
-            raise ValueError(f"{info.filename}: fortran order or truncated")
-        out[info.filename.removesuffix(".npy")] = (shape, data)
-    return out
+def _tensor(a: np.ndarray, dtype: str) -> torch.Tensor:
+    """A stored leaf as a CPU tensor of the manifest's dtype, sharing the
+    array's memory (a bf16 leaf's '<V2' records reinterpreted)."""
+    if dtype == "bfloat16":
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
 
 
-def _checked(path: str, manifest: dict) -> dict:
-    """The checkpoint's members if every leaf's shape and checksum match
-    its manifest entry, else None."""
-    members = _members(path)
-    for key, meta in manifest["leaves"].items():
-        shape, data = members[key]
-        if list(shape) != meta["shape"] or \
-                hashlib.sha256(data).hexdigest()[:16] != meta["sum"]:
-            return None
-    return members
+def _read(path: str, manifest: dict, device=None, check: bool = True):
+    """The checkpoint's leaves in order, each member of ``data.npz`` read
+    once: tensors on `device` (none kept where `device` is None), or None
+    where `check` finds a leaf whose shape or checksum differs from its
+    manifest entry."""
+    leaves = []
+    with np.load(os.path.join(path, "data.npz")) as data:
+        for i in range(len(manifest["leaves"])):
+            meta = manifest["leaves"][f"leaf_{i}"]
+            a = data[f"leaf_{i}"]
+            if check and (list(a.shape) != meta["shape"] or
+                          _checksum(a) != meta["sum"]):
+                return None
+            if device is not None:
+                leaves.append(_tensor(a, meta["dtype"]).to(device))
+    return leaves
 
 
 def validate(path: str) -> bool:
     try:
-        return _checked(path, _manifest(path)) is not None
+        return _read(path, _manifest(path)) is not None
     except Exception:
         return False
 
 
-def _tensor(shape, data, dtype: str, device) -> torch.Tensor:
-    """A stored leaf as a tensor of the manifest's dtype on `device`, copied
-    out of the mapping."""
-    dt = getattr(torch, dtype)
-    t = torch.frombuffer(data, dtype=dt).reshape(shape) if len(data) \
-        else torch.empty(shape, dtype=dt)
-    return t.to(device, copy=True)
-
-
-def _restore(manifest: dict, members: dict, like, device):
+def _count(manifest: dict, like) -> None:
     n = len(manifest["leaves"])
     expected = len(_flatten_with_names(like))
     if n != expected:
         raise ValueError(f"checkpoint has {n} leaves, expected {expected}")
-    leaves = [_tensor(*members[f"leaf_{i}"],
-                      manifest["leaves"][f"leaf_{i}"]["dtype"], device)
-              for i in range(n)]
-    return _unflatten(like, leaves), manifest["step"]
 
 
 def restore(path: str, like, device=None, mesh=None, shardings=None):
@@ -255,20 +215,28 @@ def restore(path: str, like, device=None, mesh=None, shardings=None):
     if mesh is not None or shardings is not None:
         raise NotImplementedError(SHARDED)
     device = resolve_device(device)
-    return _restore(_manifest(path), _members(path), like, device)
+    manifest = _manifest(path)
+    _count(manifest, like)
+    leaves = _read(path, manifest, device, check=False)
+    return _unflatten(like, leaves), manifest["step"]
 
 
 def restore_if_valid(path: str, like, device=None):
-    """`validate` then `restore` in one read of the payload: (tree, step),
-    or None where `validate` would fail."""
+    """`validate` and `restore` in one read of the payload, each leaf
+    checked as it is read: (tree, step), or None where `validate` would
+    fail. Raises as `restore` does for a tree of another structure."""
     device = resolve_device(device)
     try:
         manifest = _manifest(path)
-        members = _checked(path, manifest)
     except Exception:
         return None
-    return None if members is None else _restore(manifest, members, like,
-                                                  device)
+    _count(manifest, like)
+    try:
+        leaves = _read(path, manifest, device)
+    except Exception:
+        return None
+    return None if leaves is None else (_unflatten(like, leaves),
+                                        manifest["step"])
 
 
 def load_step(path: str) -> int:

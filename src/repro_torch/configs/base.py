@@ -74,9 +74,10 @@ class ModelConfig:
     # the JAX model stacks the layers and scans over them; the port always
     # runs them as a Python loop over per-layer params (the bridge unstacks)
     scan_layers: bool = True
-    # recompute in the backward each group's forward (`full`), or all of
-    # it but its matmul outputs (`dots`); `none` keeps every activation
-    remat: str = "full"          # 'none' | 'full' | 'dots'
+    # recompute in the backward each group's forward (`full`); `none`
+    # keeps every activation. The reference's `dots` raises until the
+    # port's launch/ (ROADMAP A.9)
+    remat: str = "full"          # 'none' | 'full'
     attn_chunk: int = 2048       # blockwise attention above this length
     attn_q_block: int = 2048     # blockwise attention q block
     attn_k_block: int = 2048     # blockwise attention kv block

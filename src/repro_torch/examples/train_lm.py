@@ -13,12 +13,16 @@ names another device:
     PYTHONPATH=src python -m repro_torch.examples.train_lm --steps 200
     PYTHONPATH=src python -m repro_torch.examples.train_lm --device cpu
 
-`PRESETS`, `synthetic_batch`, `half_prefix_plan` and `make_step` are
-the pieces `main` runs, at module level for other callers. As in the
+`PRESETS`, `OPT_CFG`, `WARMUP`, `synthetic_batch`, `half_prefix_plan`
+and `make_step` are the pieces `main` runs, at module level for other
+callers. Checkpoints go to `repro_torch_train_lm` under the temporary
+directory (`TMPDIR`, else /tmp) unless --ckpt-dir names another. As in the
 reference, the step passes no optimizer masks: a frozen leaf gets a zero
 gradient, so AdamW's weight decay and leftover momentum still move it.
 """
 import argparse
+import os
+import tempfile
 import time
 
 import numpy as np
@@ -39,6 +43,8 @@ PRESETS = {
     "100m": dict(num_layers=12, d_model=768, num_heads=12, num_kv_heads=4,
                  head_dim=64, d_ff=3072, vocab_size=32768),
 }
+OPT_CFG = AdamWConfig(lr=3e-3)  # with cosine_schedule(step, WARMUP, steps)
+WARMUP = 20
 
 
 def preset_config(preset: str) -> ModelConfig:
@@ -85,7 +91,8 @@ def main(argv=None):
     ap.add_argument("--steps", type=int, default=200)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=128)
-    ap.add_argument("--ckpt-dir", default="/tmp/repro_torch_train_lm")
+    ap.add_argument("--ckpt-dir", default=os.path.join(
+        tempfile.gettempdir(), "repro_torch_train_lm"))
     ap.add_argument("--freeze-at", type=int, default=120,
                     help="step at which SimFreeze-style prefix freezing kicks in")
     ap.add_argument("--device", default=None,
@@ -98,7 +105,7 @@ def main(argv=None):
     n_params = sum(t.numel() for t in tree_leaves(params))
     print(f"model: {cfg.name}  params={n_params/1e6:.1f}M  groups={model.num_freeze_units}")
 
-    opt_cfg = AdamWConfig(lr=3e-3)
+    opt_cfg = OPT_CFG
     opt_state = adamw_init(params, opt_cfg)
     mgr = CheckpointManager(args.ckpt_dir, keep=2)
 
@@ -126,7 +133,7 @@ def main(argv=None):
             step_cache[key] = make_step(model, opt_cfg, plan)
         batch = synthetic_batch(rng, cfg.vocab_size, args.batch, args.seq,
                                 model.device)
-        lr = cosine_schedule(step, warmup=20, total=args.steps)
+        lr = cosine_schedule(step, warmup=WARMUP, total=args.steps)
         params, opt_state, loss = step_cache[key](params, opt_state, batch, lr)
         losses.append(float(loss))
         if step % 20 == 0 or step == args.steps - 1:

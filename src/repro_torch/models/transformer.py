@@ -28,13 +28,11 @@ tokens; the loss drops their positions before the head.
 """
 from __future__ import annotations
 
-import functools
 import math
 from typing import List, Optional, Tuple
 
 import torch
-from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
-                                    create_selective_checkpoint_contexts)
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device, tree_map
 from repro_torch.configs.base import ModelConfig
@@ -164,32 +162,24 @@ def _positions(x: torch.Tensor) -> torch.Tensor:
     return torch.arange(S, device=x.device).expand(B, S)
 
 
-_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
-         torch.ops.aten.addmm.default)
-
-
-def _save_dots(ctx, op, *args, **kwargs):
-    """`remat="dots"`: keep the matmuls' outputs, recompute the rest (JAX's
-    `checkpoint_policies.checkpoint_dots`)."""
-    return CheckpointPolicy.MUST_SAVE if op in _DOTS \
-        else CheckpointPolicy.PREFER_RECOMPUTE
+REMAT_DOTS = ("remat='dots' (recompute all but the matmuls' outputs) comes "
+              "with its first caller, launch/dryrun.py (ROADMAP A.9)")
 
 
 def _remat(fn, cfg: ModelConfig):
     """A group body with its activations recomputed in the backward, as
     the reference's `_remat` wraps it in `jax.checkpoint` where
-    `cfg.scan_layers`: `none` keeps them, `dots` keeps the matmul outputs
-    only, anything else (`full`) keeps none. Only a forward that a
-    backward will run through is wrapped; recomputing runs the same ops
-    on the same inputs, so the gradient does not change."""
+    `cfg.scan_layers`: `none` keeps them, `full` keeps none. Only a
+    forward that a backward will run through is wrapped; recomputing runs
+    the same ops on the same inputs, so the gradient does not change."""
+    if cfg.remat == "dots":
+        raise NotImplementedError(REMAT_DOTS)
+    if cfg.remat not in ("none", "full"):
+        raise ValueError(f"remat must be 'none' or 'full'; got {cfg.remat!r}")
     if not cfg.scan_layers or cfg.remat == "none" or \
             not torch.is_grad_enabled():
         return fn
-    kw = {}
-    if cfg.remat == "dots":
-        kw["context_fn"] = functools.partial(
-            create_selective_checkpoint_contexts, _save_dots)
-    return lambda *args: checkpoint(fn, *args, use_reentrant=False, **kw)
+    return lambda *args: checkpoint(fn, *args, use_reentrant=False)
 
 
 def _run(blocks, cfg: ModelConfig, x, mode: str, caches=None,

@@ -6,7 +6,7 @@ reference's pieces, and the example's save and resume). The models, params
 and the jitted reference come from tests/test_torch_lm_grads.py.
 
 Tolerances: gradients as there (the loss within 1e-5, each leaf within
-1e-5 + 1e-4 x its largest |g|); `remat` bitwise; the masked update
+1e-5 + 1e-4 x its largest |g|); `remat="full"` bitwise; the masked update
 bitwise on frozen slices and within rtol 1e-5 / atol 1e-6 of JAX's on the
 rest, from the same gradients; the example's losses within rtol 1e-4.
 """
@@ -48,44 +48,50 @@ ROOT = Path(__file__).resolve().parents[1]
 # remat
 
 
-@pytest.mark.parametrize("remat", ["full", "dots"])
 @pytest.mark.parametrize("arch", ["gemma2-2b", JAMBA, RWKV])
-def test_remat_leaves_gradients_bitwise_unchanged(arch, remat, monkeypatch):
-    """Each group's forward is recomputed in the backward (every block runs
-    twice), `dots` keeping the matmuls' outputs; the gradients are those
-    of `remat="none"` bit for bit, with and without a plan."""
+def test_remat_leaves_gradients_bitwise_unchanged(arch, monkeypatch):
+    """Under `remat="full"` each group's forward is recomputed in the
+    backward (every block runs twice); the gradients are those of
+    `remat="none"` bit for bit, with and without a plan."""
     _, _, _, model, params = _pair(arch)
     cfg = model.cfg
     G = model.num_freeze_units
     batch = _torch(_batch(cfg))
-    runs = {"block": 0, "saved": 0}
-    apply_block, save_dots = transformer._apply_block, transformer._save_dots
+    runs = {"block": 0}
+    apply_block = transformer._apply_block
 
     def counted_block(*a, **kw):
         runs["block"] += 1
         return apply_block(*a, **kw)
 
-    def counted_policy(ctx, op, *a, **kw):
-        decision = save_dots(ctx, op, *a, **kw)
-        runs["saved"] += decision.name == "MUST_SAVE"
-        return decision
-
     monkeypatch.setattr(transformer, "_apply_block", counted_block)
-    monkeypatch.setattr(transformer, "_save_dots", counted_policy)
     for spec in (None, _plans(G)["prefix_embed"]):
         plan = FreezePlan(*spec) if spec else None
         plain = build_model(cfg.replace(remat="none"), device="cpu")
-        remat_model = build_model(cfg.replace(remat=remat), device="cpu")
-        runs.update(block=0, saved=0)
+        remat_model = build_model(cfg.replace(remat="full"), device="cpu")
+        runs.update(block=0)
         want = grads_of(plain.loss, params, batch, plan)
-        assert runs["block"] == cfg.num_layers and not runs["saved"]
-        runs.update(block=0, saved=0)
+        assert runs["block"] == cfg.num_layers
+        runs.update(block=0)
         got = grads_of(remat_model.loss, params, batch, plan)
         assert runs["block"] > cfg.num_layers  # recomputed in the backward
-        assert (runs["saved"] > 0) == (remat == "dots")
         assert torch.equal(got[0], want[0])
         for (name, a), (_, b) in zip(_named(got[2]), _named(want[2])):
             assert torch.equal(a, b), name
+
+
+@pytest.mark.parametrize("remat, error", [
+    ("dots", NotImplementedError), ("Full", ValueError),
+    ("offload", ValueError)])
+def test_remat_refuses_what_it_does_not_run(remat, error):
+    """The reference's `dots` waits for its first caller (launch/, ROADMAP
+    A.9) and raises; a value the reference does not know raises too, where
+    it would quietly run `full`."""
+    _, _, _, model, params = _pair("gemma2-2b")
+    batch = _torch(_batch(model.cfg))
+    odd = build_model(model.cfg.replace(remat=remat), device="cpu")
+    with pytest.raises(error, match="A.9" if remat == "dots" else "remat"):
+        grads_of(odd.loss, params, batch, None)
 
 
 # ---------------------------------------------------------------------------
@@ -233,7 +239,7 @@ def test_train_lm_steps_match_the_reference():
     jparams = jax.jit(jmodel.init)(jax.random.PRNGKey(0))
     params = params_from_jax(jax.tree.map(np.asarray, jparams), cfg,
                              device="cpu")
-    jopt_cfg, opt_cfg = JaxAdamWConfig(lr=3e-3), AdamWConfig(lr=3e-3)
+    jopt_cfg, opt_cfg = JaxAdamWConfig(lr=3e-3), train_lm.OPT_CFG
     jstate = jax_adamw_init(jparams, jopt_cfg)
     state = adamw_state_from_jax(jax.tree.map(np.asarray, jstate), cfg,
                                  device="cpu")
@@ -267,7 +273,8 @@ def test_train_lm_steps_match_the_reference():
             jax_cosine_schedule(step, warmup=20, total=steps))
         params, state, loss = cache[plan][1](
             params, state, batch,
-            train_lm.cosine_schedule(step, warmup=20, total=steps))
+            train_lm.cosine_schedule(step, warmup=train_lm.WARMUP,
+                                     total=steps))
         np.testing.assert_allclose(float(loss), float(jloss), rtol=1e-4,
                                    err_msg=f"step {step}")
     assert len(cache) == 2
