@@ -112,7 +112,9 @@ It imports nothing of JAX and nothing of the JAX package, and fails
    the kernel run must launch flash attention 12 times a predict or
    features call, CKA 13 times a probe pass, and no kernel inside a train
    step. It prints each plan's train-step time (CUDA events around the
-   runtime's `TrainStepCache` steps), its FLOPs (`FlopCounterMode`) and
+   runtime's `TrainStepCache` steps), its FLOPs (the whole step by XLA's
+   rules, `runtime/flops.py`: XLA's count of the reference's step less
+   the work XLA's fusion recomputes, ROADMAP C.8) and
    their ratio to the all-active plan, and the loop's wall time and
    rounds per second; then one more kernel run with detector boundaries
    and preemptible rounds, which prints its rounds, probes and
@@ -142,6 +144,20 @@ It imports nothing of JAX and nothing of the JAX package, and fails
    reference, and launch nothing. It prints each method's rounds, plans,
    accuracy, modeled time and energy (Ekya's with its profiling charge),
    CKA launches and loop time;
+   then the paper's harness through its entry points (`harness_phase`):
+   Table II's four methods through `repro_torch.harness.common.run_method`
+   on full-width MobileNetV2 (20 freeze units) on `run_method`'s own `nc`
+   stream at its defaults with the kernels, and `etuner` again plain (its
+   row equal to the kernel row to the bit; CKA launched only under the
+   SimFreeze methods; the card's busy share over the kernel `etuner` run
+   from torch.profiler); Table IV's `etuner` row on reduced bert-base
+   with the kernels and plain (equal rows, flash launched); the workloads
+   sweep (`harness.workloads.sweep`) at `--quick` scale on `two-stream`
+   and `qos` for immed and etuner, compiled, under the kernels, its
+   document valid and the priority-weighted `qos` cell favoring the
+   priority-2 stream (fewer rounds, lower p95); and the quickstart with
+   its sanity check. It prints each row, the launches, the busy share and
+   the phase's wall time;
    then the compiled hot path (`compiled_phase`): DeiT-tiny (flash
    attention on; depth cut to `COMPILED_DEIT_LAYERS` of its 12 layers,
    so the fleet fits the script's time) on the `single-poisson` and
@@ -295,6 +311,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
 import json
 import math
 import shutil
@@ -335,7 +352,9 @@ from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models.rwkv6 import wkv_chunked  # noqa: E402
 from repro_torch import obs  # noqa: E402
 from repro_torch.obs import TelemetrySpec  # noqa: E402
-from repro_torch.examples import train_lm  # noqa: E402
+from repro_torch.examples import quickstart, train_lm  # noqa: E402
+from repro_torch.harness import common as harness_common  # noqa: E402
+from repro_torch.harness import workloads as harness_workloads  # noqa: E402
 from repro_torch.optim import (  # noqa: E402
     AdamWConfig, adamw_init, adamw_update, cosine_schedule)
 from repro_torch.runtime import config as config_mod  # noqa: E402
@@ -345,6 +364,7 @@ from repro_torch.runtime.config import (  # noqa: E402
 from repro_torch.runtime.continual import ContinualRuntime  # noqa: E402
 from repro_torch.runtime.costmodel import EdgeCostModel  # noqa: E402
 from repro_torch.runtime.device import DeviceRuntime  # noqa: E402
+from repro_torch.runtime import flops as flops_mod  # noqa: E402
 from repro_torch.runtime import train_loop  # noqa: E402
 from repro_torch.runtime.executor import (  # noqa: E402
     FineTuneExecutor, SimSiamHook)
@@ -1243,7 +1263,7 @@ def report_loop(units, kern, plain, again=None) -> None:
         print(f"  train step, {sum(plan)} of {units} units frozen "
               f"({''.join('F' if f else '.' for f in plan)}): {len(ms)} steps, "
               f"CUDA events mean {np.mean(ms):.3f} ms (min {np.min(ms):.3f}, "
-              f"max {np.max(ms):.3f}; {others}); FlopCounterMode "
+              f"max {np.max(ms):.3f}; {others}); the whole step "
               f"{kern['flops'][plan]:.6g} FLOPs, ratio to all-active "
               f"{kern['flops'][plan] / base:.4f}")
     runs = (("second kernel run", again), ("plain run", plain),
@@ -2146,7 +2166,7 @@ def run_method(model, bench, events, method: str, *, use_kernel: bool):
     with the kernels (`use_pallas`) or plain. Records every round's plan,
     the served logits, the probe passes and Ekya's post-run profiling
     charge."""
-    ctrl = make_controller(model, method, use_kernel)
+    ctrl = make_controller(model, method, use_kernel=use_kernel)
     rt = ContinualRuntime.from_config(
         RuntimeConfig(slots={"default": SlotConfig(arch=model.cfg.name)},
                       seed=0, pretrain_epochs=1, replay_batches=2,
@@ -2270,6 +2290,203 @@ def baselines_phase() -> dict:
     print("  every method's plain run agrees with its kernel run: rounds, "
           "plans, stats, accuracies, validation curve, ledger; served "
           "logits and final params bitwise equal")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 3: the paper's harness (Tables II and IV, the workloads sweep, the
+# quickstart) through its own entry points
+
+
+#: Table II's four methods
+TABLE_II = ("immed", "lazytune", "simfreeze", "etuner")
+#: the sweep's cells on the card: presets and methods, at --quick scale
+HARNESS_SWEEP = (("two-stream", "qos"), ("immed", "etuner"))
+
+
+def busy_run(fn):
+    """`fn()` under torch.profiler: (its result, the wall seconds, the
+    seconds the card was busy with its kernels and copies; nan when the
+    profiler records no device time)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    # the raw device events: `key_averages()` first builds a Python
+    # object for every event of the run, which a whole session makes slow
+    ns = sum(e.duration_ns() for e in prof.profiler.kineto_results.events()
+             if e.device_type() == torch.autograd.DeviceType.CUDA)
+    return out, wall, ns / 1e9 if ns else float("nan")
+
+
+def flop_count_times() -> None:
+    """Host time of one whole-step FLOP count (`TrainStepCache.flops`, on
+    meta tensors) at full width, batch 16: with the op memo of
+    `runtime/flops.py` emptied first (a process's first count of the
+    model), for a freshly built model's count of the same plan, and for
+    another plan (half the units frozen)."""
+    for arch in ("mobilenetv2", "deit-tiny"):
+        cfg = get_config(arch)
+        n = cfg.image_size
+        batch = {"images": np.zeros((16, n, n, 3), np.float32),
+                 "labels": np.zeros(16, np.int32)}
+        units = build_model(cfg).num_freeze_units
+        half = LayerFreezePlan((True,) * (units // 2)
+                               + (False,) * (units - units // 2))
+        active = LayerFreezePlan((False,) * units)
+        flops_mod._MEMO.clear()
+        times = []
+        for plan in (active, active, half):
+            cache = TrainStepCache(build_model(cfg), AdamWConfig(lr=1e-3))
+            t = time.perf_counter()
+            cache.flops(plan, batch)
+            times.append(time.perf_counter() - t)
+        print(f"  whole-step FLOP count, {arch} at full width (host): "
+              f"{times[0]:.3f} s first, {times[1]:.3f} s for a new model, "
+              f"{times[2]:.3f} s for another plan")
+
+
+def print_row(name: str, row: dict, launches: dict, wall: float) -> None:
+    print(f"  {name} {row['arch']}/{row['bench']}/{row['method']}: acc "
+          f"{row['acc']:.6f}, modeled {row['time_s']:.6g} s, "
+          f"{row['energy_j']:.6g} J, {row['tflops']:.6g} TFLOPs, "
+          f"{row['rounds']:.0f} rounds; launches: CKA "
+          f"{launches['cka_terms']} (example route "
+          f"{launches['cka_example']}), flash "
+          f"{launches['flash_attention']}; wall {wall:.2f} s")
+
+
+def harness_phase() -> dict:
+    """The paper's harness on the card, through its entry points
+    (`repro_torch.harness`, `repro_torch.examples.quickstart`):
+
+    - Table II's four methods through `harness.common.run_method` on
+      full-width MobileNetV2 (`model_cfg=get_config("mobilenetv2")`, 20
+      freeze units) on `run_method`'s own `nc` stream at its defaults,
+      with the kernels (`use_pallas`); then `etuner` plain: its row
+      equal to the kernel row to the bit. CKA launches only under the
+      SimFreeze methods; the card's busy share over the kernel `etuner`
+      run, which runs under torch.profiler.
+    - Table IV's `etuner` row on reduced bert-base (its 4 scenarios of 8
+      batches) with the kernels and plain: the rows equal to the bit,
+      flash launched in its forwards.
+    - The workloads sweep at `--quick` scale on `two-stream` and `qos`
+      for immed and etuner, compiled, under the kernels: its document
+      passes `validate_bench(min_workloads=2)`, and in the preemptible
+      priority-weighted `qos` cell the priority-2 stream runs fewer
+      rounds with a lower p95 than the bulk stream.
+    - The quickstart, with its sanity check.
+
+    Returns the phase's launches by path."""
+    t_phase = time.perf_counter()
+    flop_count_times()
+    cfg = get_config("mobilenetv2")
+    assert build_model(cfg).num_freeze_units == 20
+    rows, launches, walls, out = {}, {}, {}, {}
+    for method in TABLE_II:
+        zero_launches()
+        t = time.perf_counter()
+        run = functools.partial(harness_common.run_method, "mobilenetv2",
+                                "nc", method, model_cfg=cfg, use_pallas=True)
+        if method == "etuner":  # under torch.profiler, for its busy share
+            rows[method], wall, busy = busy_run(run)
+            print(f"  Table II etuner (kernels) under torch.profiler: the "
+                  f"card busy {busy:.3f} s, {busy / wall:.4f} of the "
+                  f"run's {wall:.3f} s wall")
+        else:
+            rows[method] = run()
+        walls[method] = time.perf_counter() - t
+        launches[method] = read_launches()
+        print_row("Table II", rows[method], launches[method], walls[method])
+        freezes = method in ("simfreeze", "etuner")
+        if bool(launches[method]["cka_terms"]) != freezes or \
+                launches[method]["flash_attention"] or \
+                launches[method]["wkv6"]:
+            raise AssertionError(f"Table II {method}: unexpected launches "
+                                 f"{launches[method]}")
+    zero_launches()
+    t = time.perf_counter()
+    plain = harness_common.run_method("mobilenetv2", "nc", "etuner",
+                                      model_cfg=cfg, use_pallas=False)
+    print_row("Table II plain", plain, read_launches(),
+              time.perf_counter() - t)
+    if any(read_launches().values()) or plain != rows["etuner"]:
+        raise AssertionError(f"Table II etuner: the plain row {plain} is not "
+                             f"the kernel row {rows['etuner']}")
+    out["table2"] = {m: n["cka_terms"] for m, n in launches.items()}
+
+    bert = {}
+    for use_pallas in (True, False):
+        zero_launches()
+        t = time.perf_counter()
+        bert[use_pallas] = harness_common.run_method(
+            "bert-base", "20news", "etuner", scenarios=4, batches=8,
+            use_pallas=use_pallas)
+        bert_launches = read_launches()
+        print_row("Table IV" + ("" if use_pallas else " plain"),
+                  bert[use_pallas], bert_launches, time.perf_counter() - t)
+        if use_pallas:
+            out["table4"] = bert_launches["flash_attention"]
+            if not bert_launches["flash_attention"]:
+                raise AssertionError("Table IV: flash never launched")
+        elif any(bert_launches.values()):
+            raise AssertionError("Table IV: the plain run launched a kernel")
+    if bert[True] != bert[False]:
+        raise AssertionError(f"Table IV etuner: kernel row {bert[True]} and "
+                             f"plain row {bert[False]} differ")
+
+    zero_launches()
+    t = time.perf_counter()
+    with CAPTURES:
+        mark = CAPTURES.mark()
+        names, methods = HARNESS_SWEEP
+        doc = harness_workloads.sweep(quick=True, workload_names=names,
+                                      methods=methods, use_pallas=True)
+        sweep_launches = read_launches()
+        in_graphs = CAPTURES.card_launches("flash_attention", mark)
+    errors = harness_workloads.validate_bench(doc, min_workloads=2,
+                                              methods=methods)
+    if errors:
+        raise AssertionError(f"the sweep's document is invalid: {errors}")
+    cell = next(c for c in doc["cells"] if c["workload"] == "qos"
+                and c["preemptible"]
+                and c["trigger_policy"] == "priority-weighted")
+    per = cell["per_stream"]
+    prio = {sid: doc["workloads"]["qos"]["streams"][int(sid)]["priority"]
+            for sid in per}
+    hi, lo = max(prio, key=prio.get), min(prio, key=prio.get)
+    if prio[hi] != 2:
+        raise AssertionError(f"qos: stream priorities {prio}")
+    print(f"  sweep: {len(doc['cells'])} cells on {sorted(doc['workloads'])}"
+          f" in {time.perf_counter() - t:.1f} s, the document valid; CKA "
+          f"launches {sweep_launches['cka_terms']}, flash "
+          f"{sweep_launches['flash_attention']} eager and {in_graphs} in "
+          f"graphs; qos/etuner/pw (preemptible): stream {hi} "
+          f"{per[hi]['rounds']:.0f} rounds, p95 {per[hi]['latency_p95']:.4f}"
+          f" s; stream {lo} {per[lo]['rounds']:.0f} rounds, p95 "
+          f"{per[lo]['latency_p95']:.4f} s")
+    if not (per[hi]["rounds"] < per[lo]["rounds"]
+            and per[hi]["latency_p95"] < per[lo]["latency_p95"]):
+        raise AssertionError("the priority-weighted trigger did not favor "
+                             "the priority-2 stream")
+    out["sweep"] = sweep_launches["cka_terms"]
+
+    t = time.perf_counter()
+    results = quickstart.main([])
+    failed = quickstart.sanity(results)
+    if failed:
+        raise AssertionError(f"quickstart: {failed}")
+    (imm, _), (et, et_rt) = results["Immediate"], results["ETuner"]
+    print(f"  quickstart in {time.perf_counter() - t:.1f} s: ETuner "
+          f"{et.total_time_s:.6g} s / {et.total_energy_j:.6g} J against "
+          f"Immediate's {imm.total_time_s:.6g} s / {imm.total_energy_j:.6g}"
+          f" J, {et_rt.controller.stats()['freezes']} freezes, "
+          f"{et.recompiles} recompiles: the sanity check holds")
+    print(f"  harness phase: {time.perf_counter() - t_phase:.1f} s")
     return out
 
 
@@ -4089,16 +4306,8 @@ def busy_device_ms(run, calls: int) -> float:
     """The card's busy time a call of `run` (its kernels and copies,
     summed) over `calls` calls under torch.profiler; nan when the
     profiler records no device time."""
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            run()
-        torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages()
-             if e.device_type == torch.autograd.DeviceType.CUDA)
-    return us / 1e3 / calls if us else float("nan")
+    _, _, busy = busy_run(lambda: [run() for _ in range(calls)])
+    return busy * 1e3 / calls
 
 
 def example_bound(dims, n=CNN_PROBE) -> dict:
@@ -4347,6 +4556,9 @@ def main() -> None:
     phase("phase 3: the paper's baselines (Table V) on MobileNetV2 at full "
           "width")
     baselines = baselines_phase()
+    phase("phase 3: the paper's harness: Tables II and IV through "
+          "run_method, the workloads sweep, the quickstart")
+    harness = harness_phase()
     phase("phase 3: the compiled hot path at full width (CUDA graphs)")
     with CAPTURES:
         compiled_launches = compiled_phase()
@@ -4395,7 +4607,8 @@ def main() -> None:
              "qwen3_moe_fp32": qwen3["fp32"],
              "jamba_reduced": jamba["jamba_reduced"],
              "gemma2_train": train["gemma2_train"],
-             "gemma2_train_fp32": train["gemma2_train_fp32"]},
+             "gemma2_train_fp32": train["gemma2_train_fp32"],
+             "harness_table4": harness["table4"]},
          "max_abs_err": bert_att_err, **bert["attention"]["loop"],
          "bert_serving": bert["attention"]["serving"],
          "deit_tiny": {"max_abs_err": att_err, **att},
@@ -4416,7 +4629,9 @@ def main() -> None:
              **{f"compiled {name}": n["cka_terms"]
                 for name, n in compiled_launches.items()},
              "baselines": baselines, "fleet": fleet,
-             "fleet_traced": traced},
+             "fleet_traced": traced,
+             "harness_table2": harness["table2"],
+             "harness_sweep": harness["sweep"]},
          "launches_by_route": {
              route: sum(p[f"cka_{route}"] for p in (
                  mbv2_launches, resnet_launches, loop_launches, launches))

@@ -1,9 +1,9 @@
 """The continual-learning runtime (counterpart of `repro.runtime`): the
 composition root (`ContinualRuntime`, `edgeol_session`, `RuntimeConfig`),
 the one-device `DeviceFleet` and its `DeviceRuntime`, the `ModelPool`,
-scheduler, cost model, ledger, inference server, train steps and the
-fine-tuning executor. `PodCostModel` and the compiled path are not
-ported (ROADMAP A.9, A.6)."""
+scheduler, cost model, ledger, inference server, train steps (eager, and
+the compiled path's CUDA graphs) and the fine-tuning executor.
+`PodCostModel`, the TPU pod's cost model, is not ported (ROADMAP A.9)."""
 from repro_torch.env.spec import EnvSpec
 from repro_torch.obs.spec import TelemetrySpec
 from repro_torch.runtime.config import (DeviceConfig, HookSpec, RuntimeConfig,

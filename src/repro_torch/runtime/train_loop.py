@@ -44,17 +44,16 @@ from __future__ import annotations
 import contextlib
 import contextvars
 import dataclasses
-import weakref
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, Sequence, Tuple
 
 import numpy as np
 import torch
-from torch.utils.flop_counter import FlopCounterMode, flop_registry
 
 from repro_torch import tree_leaves, tree_map, tree_unflatten
 from repro_torch.optim import (AdamWConfig, adamw_init, adamw_update,
                                sgdm_init, sgdm_update)
+from repro_torch.runtime.flops import FlopCount, count_flops
 
 
 # Process-global registries, keyed as the reference's: sessions over the
@@ -64,6 +63,9 @@ from repro_torch.optim import (AdamWConfig, adamw_init, adamw_update,
 _MULTI: Dict[Tuple, Callable] = {}
 _MULTI_BUCKETS: Dict[Tuple, set] = {}
 _COMPILED_MODELS: Dict[Any, Any] = {}
+# a plan's step FLOPs, counted once a process per (loss, init, optimizer,
+# plan, batch signature), as the reference's `_FLOPS` compiles once
+_FLOPS: Dict[Tuple, FlopCount] = {}
 # one CUDA-graph memory pool per device, shared by every graph: replays
 # run one at a time on one stream, and each call copies its outputs out
 # before any other graph replays, so one graph's scratch may reuse
@@ -236,59 +238,6 @@ def grads_of(loss_fn, params, batch, plan):
     return loss.detach(), metrics, tree_unflatten(params, grads)
 
 
-def _taps_in_bounds(size: int, low: int, k: int, stride: int, out: int):
-    """Window taps of a strided 1-D window over `out` outputs that land
-    in an input of `size` padded by `low` in front."""
-    return sum(max(0, min(k, size + low - o * stride)
-                   - max(0, low - o * stride)) for o in range(out))
-
-
-def _in_bounds_conv_formulas():
-    """FlopCounterMode formulas that count a convolution's window taps
-    as XLA's cost analysis does: only those that land in the input, not
-    in the "SAME" padding that `F.pad` put around it (the CNNs pad apart
-    from the convolution, models/cnn.py). Torch's own formulas count
-    every tap; on the deep units' small maps (a 3x3 window over 2x2 has
-    16 of its 36 taps in bounds) that overcounts them, and the count's
-    ratios between freeze plans drift from the reference's. Torch's
-    formulas are kept otherwise, and scaled by the in-bounds share."""
-    aten = torch.ops.aten
-    padded = {}  # id of a padded map -> (its weakref, H, top, W, left)
-
-    def pad(x, widths, *args, out_val=None, **kwargs):
-        if x.dim() == 4 and len(widths) == 4:  # (left, right, top, bottom)
-            padded[id(out_val)] = (weakref.ref(out_val), x.shape[2],
-                                   widths[2], x.shape[3], widths[0])
-        return 0
-
-    def share(x, w, stride, out_hw):
-        entry = padded.get(id(x))
-        if entry is None or entry[0]() is not x:
-            return 1.0
-        _, h, top, wd, left = entry
-        kh, kw = w.shape[2:]
-        return (_taps_in_bounds(h, top, kh, stride[0], out_hw[0])
-                * _taps_in_bounds(wd, left, kw, stride[1], out_hw[1])
-                / (kh * kw * out_hw[0] * out_hw[1]))
-
-    def conv(x, w, bias, stride, *args, out_val=None, **kwargs):
-        full = flop_registry[aten.convolution](x, w, bias, stride, *args,
-                                               out_val=out_val, **kwargs)
-        return round(full * share(x, w, stride, out_val.shape[2:]))
-
-    def conv_backward(grad_out, x, w, bias_sizes, stride, *args,
-                      out_val=None, **kwargs):
-        full = flop_registry[aten.convolution_backward](
-            grad_out, x, w, bias_sizes, stride, *args, out_val=out_val,
-            **kwargs)
-        return round(full * share(x, w, stride, grad_out.shape[2:]))
-
-    for f in (pad, conv, conv_backward):
-        f._get_raw = True
-    return {aten.constant_pad_nd: pad, aten.convolution: conv,
-            aten.convolution_backward: conv_backward}
-
-
 @dataclass
 class TrainStepCache:
     """Per-freeze-plan train steps + their FLOPs.
@@ -304,7 +253,7 @@ class TrainStepCache:
     opt_cfg: Any
     _steps: Dict[Any, Callable] = field(default_factory=dict)
     _shapes: Dict[Any, set] = field(default_factory=dict)
-    _flops: Dict[Any, float] = field(default_factory=dict)
+    flop_counts: Dict[Any, FlopCount] = field(default_factory=dict)
     _meta_params: Any = None
     recompiles: int = 0
 
@@ -386,29 +335,32 @@ class TrainStepCache:
         return fn(params, opt_state, padded, valid)
 
     def flops(self, plan, example_batch) -> float:
-        """FLOPs of one train step's loss and gradient under `plan`, as
-        `FlopCounterMode` counts them (matmuls and convolutions only,
-        forward and backward; a convolution's taps in its input, as XLA
-        counts them), on `meta` tensors of the params' and the batch's
-        shapes: nothing is computed and no state moves. Cached per plan.
-        XLA's count, which the reference takes, also counts elementwise
-        work, so only the ratios between plans carry over (the cost
-        model is calibrated on the first round's plan)."""
-        if plan not in self._flops:
-            if self._meta_params is None:  # the params' shapes, once
-                self._meta_params = tree_map(
-                    lambda t: torch.empty_like(t, device="meta"),
-                    self.model.init(torch.Generator()))
-            batch = {k: torch.empty(tuple(v.shape),
-                                    dtype=torch.as_tensor(v[:0]).dtype,
-                                    device="meta")
-                     for k, v in example_batch.items()}
-            counter = FlopCounterMode(
-                display=False, custom_mapping=_in_bounds_conv_formulas())
-            with counter:
-                grads_of(self.model.loss, self._meta_params, batch, plan)
-            self._flops[plan] = float(counter.get_total_flops())
-        return self._flops[plan]
+        """FLOPs of one whole train step under `plan`: the loss, its
+        gradient and the optimizer's update, counted as XLA's cost
+        analysis counts the reference's step (`runtime/flops.py`), on
+        `meta` tensors of the params', the optimizer state's and the
+        batch's shapes: nothing is computed and no state moves. Counted
+        once a process per model, optimizer, plan and batch signature;
+        `flop_counts[plan]` keeps the split."""
+        if plan not in self.flop_counts:
+            key = (self.model.loss, self.model.init, self.opt_cfg, plan,
+                   batch_signature(example_batch))
+            if key not in _FLOPS:
+                if self._meta_params is None:  # the params' shapes, once
+                    self._meta_params = tree_map(
+                        lambda t: torch.empty_like(t, device="meta"),
+                        self.model.init(torch.Generator()))
+                batch = {k: torch.empty(tuple(v.shape),
+                                        dtype=torch.as_tensor(v[:0]).dtype,
+                                        device="meta")
+                         for k, v in example_batch.items()}
+                params = self._meta_params
+                opt_state = make_optimizer_state(self.model, self.opt_cfg,
+                                                 params)
+                _FLOPS[key] = count_flops(self._raw_step(plan), params,
+                                          opt_state, batch)
+            self.flop_counts[plan] = _FLOPS[key]
+        return float(self.flop_counts[plan].total)
 
 
 class _MultiStep:

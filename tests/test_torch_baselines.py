@@ -228,8 +228,6 @@ def test_make_controller_matches_the_harness():
     for method in jax_common.PAPER_METHODS:
         want = jax_common.method_policies(method).to_dict()
         got = harness.method_policies(method).to_dict()
-        if want["freeze"]["name"] == "simfreeze":
-            want["freeze"]["use_kernel"] = False
         assert got == want, method
         kernel = harness.method_policies(method, use_kernel=True).freeze
         assert kernel.params.get("use_kernel") is \

@@ -18,15 +18,19 @@ from repro_torch.bridge import params_from_jax
 from repro_torch.configs import get_config, get_reduced
 from repro_torch.core.controller import ETunerController
 from repro_torch.checkpoint import ckpt
-from repro_torch.examples import serve_lm, train_lm
+from repro_torch.examples import (continual_cv, fleet, multi_stream,
+                                  quickstart, serve_lm, train_lm)
+from repro_torch.harness import common, run, workloads
 from repro_torch.models import build_model
 from repro_torch.runtime import (RuntimeConfig, SlotConfig, TelemetrySpec,
                                  edgeol_session)
+from repro_torch.workloads import presets
 
 ROOT = Path(__file__).resolve().parents[1]
 PACKAGE = ROOT / "src" / "repro_torch"
-FORBIDDEN = re.compile(r"^\s*(import\s+(jax|repro)\b|from\s+(jax|repro)(\.|\s))",
-                       re.MULTILINE)
+FORBIDDEN = re.compile(
+    r"^\s*(import\s+(jax|repro|benchmarks)\b"
+    r"|from\s+(jax|repro|benchmarks)(\.|\s))", re.MULTILINE)
 
 
 def _modules():
@@ -173,6 +177,23 @@ def test_lm_training_modules_are_ported(name):
             (ROOT / "src" / "repro" / rel / "__init__.py").exists()
 
 
+# the paper's harness (tables and workloads) and its four CL examples
+HARNESS = ["harness", "harness.common", "harness.run", "harness.workloads",
+           "harness.trace_report", "examples.quickstart",
+           "examples.continual_cv", "examples.fleet", "examples.multi_stream"]
+HARNESS_SOURCES = {"harness": "benchmarks", "harness.common":
+                   "benchmarks/common.py", "harness.run": "benchmarks/run.py",
+                   "harness.workloads": "benchmarks/workloads.py",
+                   "harness.trace_report": "benchmarks/trace_report.py"}
+
+
+@pytest.mark.parametrize("name", HARNESS)
+def test_harness_modules_are_ported(name):
+    assert f"repro_torch.{name}" in _modules()
+    assert (ROOT / HARNESS_SOURCES.get(
+        name, name.replace(".", "/") + ".py")).exists()
+
+
 def test_serve_lm_example_is_ported():
     assert "repro_torch.examples.serve_lm" in _modules()
     assert (ROOT / "examples" / "serve_lm.py").exists()
@@ -181,14 +202,14 @@ def test_serve_lm_example_is_ported():
 def test_runtime_root_loads_neither_jax_nor_repro():
     names = ['repro_torch.' + n
              for n in RUNTIME_ROOT + CNN_AND_HOOKS + WORKLOADS + BASELINES
-             + OBS + ATTENTION_LMS + MAMBA_MOE + LM_TRAINING
+             + OBS + ATTENTION_LMS + MAMBA_MOE + LM_TRAINING + HARNESS
              + ["models.common", "models.transformer", "runtime.serve",
                 "core.freeze_plan", "examples.serve_lm"]]
     code = ("import importlib, sys\n"
             f"for m in {names!r}:\n"
             "    importlib.import_module(m)\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'jaxlib', 'repro'))\n"
+            "('jax', 'jaxlib', 'repro', 'benchmarks'))\n"
             "print(bad)\n"
             "sys.exit(1 if bad else 0)\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -267,11 +288,46 @@ def _restore():
     ckpt.restore("no-such-checkpoint", {})
 
 
+def _run_method():
+    common.run_method("mobilenetv2", "nc", "immed")
+
+
+def _tables():
+    run.tab3_flops(False)
+
+
+def _run_workload():
+    workloads.run_workload("mobilenetv2", presets()["two-stream"], "immed")
+
+
+def _sweep():
+    workloads.sweep(workload_names=["two-stream"])
+
+
+def _quickstart():
+    quickstart.main([])
+
+
+def _continual_cv():
+    continual_cv.main([])
+
+
+def _fleet():
+    fleet.main([])
+
+
+def _multi_stream():
+    multi_stream.main([])
+
+
 @pytest.mark.parametrize("entry", [resolve_device, _build, _bridge, _etuner,
                                    _session, _cnn, _default_session,
                                    _compiled_workload_session, _bert,
                                    _mixed_session, _traced_session, _gemma2,
-                                   _serve_lm, _train_lm, _restore])
+                                   _serve_lm, _train_lm, _restore,
+                                   _run_method, _tables, _run_workload,
+                                   _sweep, _quickstart, _continual_cv,
+                                   _fleet, _multi_stream])
 def test_entry_points_raise_without_gpu(monkeypatch, entry):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):

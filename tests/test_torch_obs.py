@@ -19,9 +19,9 @@ discrete arg, in order, with `ts` and `dur` within rel 3% (`wall_ms`,
 the host's time, is left out); the metric key sets are equal, the
 count-valued counters equal and the time, energy, latency and gauge
 figures within rel 3%. The `flops` counters are held as shares of the
-session's total within rel 3%: the totals themselves part by the FLOP
-count of ROADMAP C.5 (the port counts matmuls and convolutions, XLA the
-whole step), which `test_flop_counters_part_from_xla_as_c5_says` pins.
+session's total within rel 3%: the totals themselves part by XLA's
+recomputation (ROADMAP C.8), and `test_flop_counters_part_from_xla_as_c5_says`
+holds them to the reference's counted less it.
 
 The port's model is injected with an `init` returning the JAX package's
 `init(PRNGKey(0))` carried across by `bridge.params_from_jax`; the JAX
@@ -700,19 +700,40 @@ def test_metrics_match_reference(name):
         assert got["counters"]["syncs{device=dev0}"] > 0
 
 
+@functools.lru_cache(maxsize=None)
+def _reference_less_recomputation(name):
+    """The reference's session `name`, its steps counted by XLA less
+    what XLA recomputes (`test_torch_train.xla_less_recomputation`)."""
+    from test_torch_train import xla_less_recomputation
+
+    with xla_less_recomputation():
+        rt = _Jax.session(_config(_Jax, name, enabled=True))
+        return _run_session(rt), rt
+
+
 @pytest.mark.parametrize("name", ["two-stream", "fleet"])
 def test_flop_counters_part_from_xla_as_c5_says(name):
-    """The port counts a step's matmuls and convolutions
-    (`FlopCounterMode`); the reference takes XLA's `cost_analysis` of
-    the whole step, elementwise work included (ROADMAP C.5). On the
-    reduced MobileNetV2 the port's session FLOPs are 0.741x XLA's, in
-    every counter alike; the modeled times, calibrated from each side's
-    own count, agree."""
+    """The port counts a whole step as XLA's cost analysis counts the
+    reference's (`runtime/flops.py`), less the work XLA's fusion pass
+    recomputes, which the port's programs do not (ROADMAP C.8). Held
+    against the reference's session with its steps counted so, the
+    session's FLOPs agree within rel 3%, in every counter and in
+    `compute_tflops`; against XLA's whole count they are 0.83-0.85x on
+    the reduced MobileNetV2 (0.741x when the port counted matmuls and
+    convolutions only), and the modeled times, calibrated from each
+    side's own count, agree."""
     (res, rt), (ref, jrt) = _pair(name)
+    less, lrt = _reference_less_recomputation(name)
     got = rt.telemetry.metrics.sum_counters("flops", device="dev0")
-    want = jrt.telemetry.metrics.sum_counters("flops", device="dev0")
-    ratio = got / want
-    assert 0.72 < ratio < 0.76
-    assert res.compute_tflops / ref.compute_tflops == \
-        pytest.approx(ratio, rel=REL)
+    want = lrt.telemetry.metrics.sum_counters("flops", device="dev0")
+    assert got == pytest.approx(want, rel=REL)
+    for k, v in lrt.telemetry.snapshot(less)["counters"].items():
+        if k.startswith("flops"):
+            assert _close(rt.telemetry.snapshot(res)["counters"][k], v), k
+    assert res.compute_tflops == pytest.approx(less.compute_tflops, rel=REL)
+    whole = jrt.telemetry.metrics.sum_counters("flops", device="dev0")
+    print(f"{name}: the port's FLOPs {got / whole:.4f}x XLA's whole count, "
+          f"compute_tflops {res.compute_tflops / ref.compute_tflops:.4f}x")
+    assert 0.8 < got / whole < 0.9
+    assert less.rounds == ref.rounds == res.rounds
     assert res.total_time_s == pytest.approx(ref.total_time_s, rel=1e-9)
