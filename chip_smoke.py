@@ -63,17 +63,18 @@ It imports nothing of JAX and nothing of the JAX package, and fails
    then LM training (`train_lm_phase`) through the train_lm example's
    step builder (`repro_torch.examples.train_lm.make_step`: `grads_of`
    then AdamW at lr 3e-3 on its cosine schedule) on its synthetic Markov
-   batches: gemma2-2b at full width and depth in bf16 (`remat="full"`,
-   the config's) on 4 x 512 tokens, 3 steps all active (no kernel
-   launch: every forward needs a backward), then 3 under the example's
-   half-prefix plan (6 of 13 groups and the embedding frozen), whose 12
-   frozen layers take flash (exactly 12 launches a step); each step's
+   batches: gemma2-2b at full width in bf16 with depth cut to 8 of its 26
+   layers (`TRAIN_LAYERS`; `remat="full"`, the config's) on 4 x 512
+   tokens, 3 steps all active (no kernel launch: every forward needs a
+   backward), then 3 under the example's half-prefix plan (2 of 4 groups
+   and the embedding frozen), whose 4 frozen layers take flash (exactly
+   4 launches a step); each step's
    loss, CUDA-event time and tokens/s, each plan's peak memory, one step
    split into its gradients and AdamW's update, the peak memory of the
    forward and backward under remat "full" and "none" and of a whole step
    without remat; the bf16 gap between the kernel and plain routes,
    printed; then one async `CheckpointManager.save` of the whole state
-   (15.7 GB, into a temporary directory, the free space printed first)
+   (7.3 GB, into a temporary directory, the free space printed first)
    while the uninterrupted run takes its next step, `restore_latest`
    into fresh tensors, every leaf bitwise the saved one, and the same
    step from the restored state, whose loss must be bitwise the
@@ -85,6 +86,24 @@ It imports nothing of JAX and nothing of the JAX package, and fails
    ROADMAP C.4's clamp does not bite): an all-active step that launches
    nothing and does not raise, a half-prefix step with 2 WKV6 launches,
    and its fp32 pair within 1e-3;
+   then the distributed layer (`distributed_phase`, a world of one on
+   NCCL): `repro_torch.launch.train`'s loop on gemma2-2b at full width
+   and depth (bf16, `use_pallas`) on 4 x 512 tokens for 6 steps, the
+   half-prefix plan from step 3, params and AdamW's moments DTensors on
+   the (1, 1) host mesh (`distributed.sharding.param_specs` through
+   `named`): flash launches by step [0, 0, 0, 12, 12, 12]; the same loop
+   on plain tensors, whose losses, launches and final params must be the
+   mesh run's bitwise; the loop with `use_pallas` off, whose all-active
+   steps must be bitwise the flash run's and whose bf16 loss gap is
+   printed; the mesh run's final checkpoint restored onto the mesh by
+   `distributed.elastic.elastic_restore`, every leaf bitwise; and
+   `distributed.collectives.sync_grads` plain and int8, each leaf and
+   its own decode bitwise, a frozen leaf zeros with no collective sent;
+   then `repro_torch.harness.kernels_micro` (`kernels_micro_phase`): the
+   three kernels and their plain versions on the reference
+   microbenchmark's inputs (flash [8, 65, 3, 64] non-causal, CKA
+   520 x 192, WKV6 [2, 128, 2, 64]) timed with CUDA events, its document
+   valid, each kernel within its tolerance;
    then the slice phase at full width: DeiT-tiny (`get_config("deit-tiny")`,
    224x224, 12 layers, d=192) with params from a seeded
    `torch.Generator`, serving every inference event of a
@@ -290,7 +309,11 @@ It imports nothing of JAX and nothing of the JAX package, and fails
 
 The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``. A kernel's `launches` there is the
-count of its newest path (CKA: the MobileNetV2 loop; flash attention: the
+count of its newest path (flash attention: `launch.train`'s run under
+`launch_train`, its numbers under `launch_train_run`; CKA and WKV6:
+`kernels_micro`; each kernel's `kernels_micro` cell under
+`kernels_micro`); its times are those of the path named next (CKA: the
+MobileNetV2 loop; flash attention: the
 eager mixed loop, whose shape [16, 32, 12, 64] its times there are, with
 serving's shape under `bert_serving` and DeiT-tiny's under `deit_tiny`;
 WKV6: rwkv6-3b serving), and `launches_by_path` has every path's count
@@ -323,6 +346,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
@@ -341,6 +365,9 @@ from repro_torch.core.simfreeze import SimFreeze, SimFreezeConfig  # noqa: E402
 from repro_torch.data.arrivals import build_timeline  # noqa: E402
 from repro_torch.data.streams import REGISTRY, nc_benchmark  # noqa: E402
 from repro_torch.distributed.straggler import StragglerConfig  # noqa: E402
+from repro_torch.distributed import collectives  # noqa: E402
+from repro_torch.distributed import elastic  # noqa: E402
+from repro_torch.distributed import sharding  # noqa: E402
 from repro_torch.env import EnvSpec  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.attention import ops as att_ops  # noqa: E402
@@ -354,9 +381,12 @@ from repro_torch import obs  # noqa: E402
 from repro_torch.obs import TelemetrySpec  # noqa: E402
 from repro_torch.examples import quickstart, train_lm  # noqa: E402
 from repro_torch.harness import common as harness_common  # noqa: E402
+from repro_torch.harness import kernels_micro  # noqa: E402
 from repro_torch.harness import workloads as harness_workloads  # noqa: E402
+from repro_torch.launch import mesh as launch_mesh  # noqa: E402
+from repro_torch.launch import train as launch_train  # noqa: E402
 from repro_torch.optim import (  # noqa: E402
-    AdamWConfig, adamw_init, adamw_update, cosine_schedule)
+    AdamWConfig, adamw_init, adamw_update, compression, cosine_schedule)
 from repro_torch.runtime import config as config_mod  # noqa: E402
 from repro_torch.runtime import fleet as fleet_mod  # noqa: E402
 from repro_torch.runtime.config import (  # noqa: E402
@@ -443,9 +473,18 @@ JAMBA_DECODE_AT = 256
 # chunked form, short enough that ROADMAP C.4's clamp does not bite (the
 # CPU tests hold it against JAX at 16)
 TRAIN_BATCH = (4, 512)
+# gemma2-2b's layers in train_lm_phase's bf16 run and checkpoint round
+# trip: cut from 26 for the script's time (the checkpoint of the whole
+# state is most of that phase); `distributed_phase` trains all 26
+TRAIN_LAYERS = 8
 TRAIN_STEPS = (3, 3)
 TRAIN_FP32_LAYERS = 8
 RWKV_TRAIN = (4, 24)
+# `launch.train`'s loop on gemma2-2b at full width and depth: steps, the
+# step its half-prefix plan starts at
+LAUNCH_STEPS = (6, 3)
+# `harness.kernels_micro`'s timed calls a kernel and a plain version
+MICRO_ITERS = 20
 # the rwkv6-3b kernel/plain pair and prefill/decode check, run in fp32
 # (rwkv_phase says why)
 PAIR_TOL = 1e-3
@@ -3686,10 +3725,11 @@ def train_lm_phase():
     """LM training through the train_lm example's step builder
     (`repro_torch.examples.train_lm.make_step`) on its synthetic batches.
 
-    (a) gemma2-2b at full width and depth in bf16 (`remat="full"`, the
-    config's): `TRAIN_STEPS[0]` steps all active (no kernel launch: every
-    forward needs a backward), then `TRAIN_STEPS[1]` under the half-prefix
-    plan, whose frozen 12 layers take flash (12 launches a step), each
+    (a) gemma2-2b at full width in bf16, depth cut to `TRAIN_LAYERS`
+    (`remat="full"`, the config's): `TRAIN_STEPS[0]` steps all active (no
+    kernel launch: every forward needs a backward), then `TRAIN_STEPS[1]`
+    under the half-prefix plan, whose frozen 4 layers take flash (4
+    launches a step), each
     step timed with its tokens/s and each plan's peak memory, beside one
     step with `remat="none"`; the bf16 gap between the kernel and plain
     routes under the plan, printed; then the checkpoint round trip of the
@@ -3699,7 +3739,7 @@ def train_lm_phase():
     with `RWKV_TRAIN` layers and tokens: no launch and no error before the
     switch, 2 WKV6 launches a step under the plan, the fp32 pair within
     1e-3."""
-    cfg = get_config("gemma2-2b")
+    cfg = get_config("gemma2-2b").replace(num_layers=TRAIN_LAYERS)
     B, S = TRAIN_BATCH
     n_active, n_frozen = TRAIN_STEPS
     total = n_active + n_frozen + 1
@@ -3854,6 +3894,251 @@ def train_lm_phase():
     del kern, plain, params, held, moved, noise
     torch.cuda.empty_cache()
     return out
+
+
+class _StepLaunches:
+    """`launch.train`'s `on_step`: the kernels each step launched (zeroed
+    before a step, read before the next one and by `close`)."""
+
+    def __init__(self):
+        self.steps, self._open = [], False
+
+    def __call__(self, step, plan):
+        self.close()
+        zero_launches()
+        self._open = True
+
+    def close(self):
+        if self._open:
+            self.steps.append(read_launches())
+        self._open = False
+
+
+def launch_run(cfg, mesh, ckpt_dir=None) -> tuple:
+    """`launch.train.train` on gemma2-2b at `TRAIN_BATCH`, checkpoints in
+    `ckpt_dir` (none where it is None): (its result, each step's
+    launches, its wall seconds, the final save included)."""
+    B, S = TRAIN_BATCH
+    steps, freeze_at = LAUNCH_STEPS
+    counts = _StepLaunches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = launch_train.train(cfg, steps=steps, batch=B, seq=S,
+                             freeze_at=freeze_at, ckpt_dir=ckpt_dir,
+                             mesh=mesh, device="cuda", on_step=counts)
+    counts.close()
+    torch.cuda.synchronize()
+    return res, counts.steps, time.perf_counter() - t0
+
+
+def sync_grads_check(mesh) -> dict:
+    """`collectives.sync_grads` plain and int8 on the NCCL world of one:
+    the mean over one rank is each gradient itself (int8: its own
+    decode, the residual what the codec lost), a frozen leaf comes back
+    as zeros and sends nothing (the collectives counted)."""
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    grads = {"a": torch.randn(1024, 1024, device="cuda", generator=gen),
+             "b": torch.randn(2304, device="cuda", generator=gen),
+             "frozen": torch.randn(256, 256, device="cuda", generator=gen)}
+    mask = {"a": 1, "b": 1, "frozen": 0}
+    calls = []
+    real = {n: getattr(dist, n) for n in ("all_reduce", "all_gather")}
+    for n, fn in real.items():
+        setattr(dist, n, lambda *a, _n=n, _f=fn, **k: (calls.append(_n),
+                                                      _f(*a, **k))[1])
+    try:
+        plain, _ = collectives.sync_grads(mesh, grads, freeze_mask=mask)
+        n_plain = len(calls)
+        comp, res = collectives.sync_grads(mesh, grads, compress=True,
+                                           freeze_mask=mask)
+        n_comp = len(calls) - n_plain
+    finally:
+        for n, fn in real.items():
+            setattr(dist, n, fn)
+    torch.cuda.synchronize()
+    for k in ("a", "b"):
+        q, sc = compression.int8_encode(grads[k])
+        want = compression.int8_decode(q, sc)
+        if not (torch.equal(plain[k], grads[k]) and torch.equal(comp[k], want)
+                and torch.equal(res[k], grads[k] - want)):
+            raise AssertionError(f"sync_grads on a world of one: leaf {k}")
+    if plain["frozen"].any() or comp["frozen"].any() or \
+            res["frozen"].any() or (n_plain, n_comp) != (2, 4):
+        raise AssertionError(f"frozen leaf: collectives {n_plain} plain, "
+                             f"{n_comp} int8 (want 2 and 4)")
+    print(f"  sync_grads on the NCCL world of one: plain ({n_plain} "
+          f"all_reduce) and int8 ({n_comp} all_gather) give each leaf and "
+          f"its own decode bitwise, the frozen leaf zeros with nothing sent")
+    return {"plain_collectives": n_plain, "int8_collectives": n_comp}
+
+
+def distributed_phase() -> dict:
+    """The distributed layer on the card, a world of one on NCCL.
+    `launch.train`'s loop on gemma2-2b at full width and depth (bf16,
+    `use_pallas`) at `TRAIN_BATCH`, `LAUNCH_STEPS`: params and AdamW's
+    moments DTensors on the (1, 1) host mesh, flash on the half-prefix
+    plan's frozen layers (none in an all-active step, one a frozen layer
+    in a half-prefix step); the same loop on plain tensors (no
+    checkpoints), whose losses, launches and final params must be the
+    mesh run's bitwise; the bf16 gap between the flash and the plain
+    route on the final params and the last batch under the plan, as
+    `train_lm_phase` takes it (printed, not held: its fp32 pair holds
+    flash on this step); the mesh run's final checkpoint restored onto
+    the mesh by `elastic_restore`, bitwise; and `sync_grads_check`."""
+    cfg = get_config("gemma2-2b").replace(use_pallas=True)
+    G = build_model(cfg).num_freeze_units
+    frozen = sum(launch_train.half_prefix_plan(G).groups) * \
+        cfg.num_layers // G
+    steps, freeze_at = LAUNCH_STEPS
+    launch_mesh.init_world("cuda")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_launch_")
+    out = {}
+    try:
+        mesh = launch_mesh.make_host_mesh(device="cuda")
+        if sharding.axis_sizes(mesh) != {"data": 1, "model": 1}:
+            raise AssertionError(f"host mesh {sharding.axis_sizes(mesh)}")
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        res, counts, wall = launch_run(cfg, mesh, tmp)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        want = [flash_only(frozen if i >= freeze_at else 0)
+                for i in range(steps)]
+        if counts != want:
+            raise AssertionError(f"launches by step {counts}, want {want}")
+        tok = res["params"]["embed"]["tok"]
+        if type(tok).__name__ != "DTensor" or \
+                type(res["opt_state"].m["embed"]["tok"]).__name__ != \
+                "DTensor":
+            raise AssertionError("the mesh run's params are not DTensors")
+        final = tree_map(elastic.whole, res["params"])
+        losses = res["losses"]
+        del res
+        torch.cuda.empty_cache()
+        B, S = TRAIN_BATCH
+        out.update(losses=losses, launches_by_step=[
+            c["flash_attention"] for c in counts], seconds=wall,
+            tokens_per_s=steps * B * S / wall, peak_memory_gb=peak,
+            launch_train=sum(c["flash_attention"] for c in counts))
+        print(f"  launch.train on the (1, 1) mesh (DTensor params and "
+              f"moments), gemma2-2b bf16, {B} x {S} tokens, {steps} steps, "
+              f"plan from step {freeze_at}: losses "
+              f"{[round(x, 4) for x in losses]}; flash launches by step "
+              f"{out['launches_by_step']}; {wall:.2f} s with the final save "
+              f"({steps * B * S / wall:.0f} tokens/s); peak {peak:.2f} GB")
+
+        plain, pcounts, pwall = launch_run(cfg, None)
+        same = plain["losses"] == losses and pcounts == counts and all(
+            torch.equal(a, b) for a, b in zip(
+                tree_leaves(final), tree_leaves(plain["params"]),
+                strict=True))
+        del plain
+        torch.cuda.empty_cache()
+        if not same:
+            raise AssertionError("the plain-tensor run is not the mesh "
+                                 "run's bits")
+        print(f"  the same loop on plain tensors: losses, launches and "
+              f"final params bitwise the mesh run's ({pwall:.2f} s)")
+
+        rng = np.random.default_rng(0)
+        for _ in range(steps):
+            batch = launch_train.synthetic_batch(rng, cfg, B, S, "cuda")
+        plan = launch_train.half_prefix_plan(G)
+        zero_launches()
+        kern = grads_of(build_model(cfg).loss, final, batch, plan)[0]
+        if read_launches() != flash_only(frozen):
+            raise AssertionError(f"the gap's kernel loss launched "
+                                 f"{read_launches()}")
+        plain = grads_of(build_model(cfg.replace(use_pallas=False)).loss,
+                         final, batch, plan)[0]
+        out["bf16_loss_gap"] = abs(float(kern) - float(plain))
+        print(f"  bf16 under the plan, not held: the final params' loss on "
+              f"the last batch, flash against the plain route "
+              f"{out['bf16_loss_gap']:.4g}")
+
+        t0 = time.perf_counter()
+        restored, step = elastic.elastic_restore(
+            CheckpointManager(tmp), final, cfg, mesh)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        bad = [i for i, (a, b) in enumerate(zip(
+            tree_leaves(restored), tree_leaves(final), strict=True))
+            if type(a).__name__ != "DTensor" or a.dtype != b.dtype
+            or not torch.equal(a.to_local(), b)]
+        if step != steps - 1 or bad:
+            raise AssertionError(f"elastic_restore: step {step}, leaves "
+                                 f"{bad[:8]} differ")
+        del restored, final
+        torch.cuda.empty_cache()
+        out["restore_s"] = restore_s
+        print(f"  elastic_restore of the final checkpoint onto the mesh: "
+              f"step {step}, every leaf bitwise, {restore_s:.2f} s")
+        out["sync_grads"] = sync_grads_check(mesh)
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
+def kernels_micro_phase(card: str) -> dict:
+    """`repro_torch.harness.kernels_micro` on the card: its document
+    valid, each kernel held against its plain version on the reference's
+    inputs (attention rtol 2e-4 / atol 2e-5, CKA rtol 1e-4, WKV6 1e-4),
+    the three times printed with the card, each beside its bound (the
+    formulas of `timing_phase`) and, for flash attention, SDPA's time on
+    the same inputs (the same function: non-causal, no softcap). Its
+    launches: one for the error, one warm-up and `MICRO_ITERS` timed, a
+    kernel."""
+    zero_launches()
+    doc = kernels_micro.run(iters=MICRO_ITERS, device="cuda")
+    launches = read_launches()
+    errors = kernels_micro.validate_bench(doc)
+    if errors:
+        raise AssertionError(f"kernels_micro document: {errors}")
+    with torch.no_grad():
+        cases = {c["op"]: (c["kernel"](), c["plain"]())
+                 for c in kernels_micro._cases(0, "cuda")}
+    tols = {"flash_attention": (ATT_RTOL, ATT_ATOL),
+            "cka": (CKA_RTOL, 0.0), "rwkv_wkv": (WKV_RTOL, WKV_ATOL)}
+    for op, (got, want) in cases.items():
+        rtol, atol = tols[op]
+        if not torch.allclose(got, want, rtol=rtol, atol=atol):
+            raise AssertionError(f"kernels_micro {op}: "
+                                 f"{float((got - want).abs().max())}")
+    n = MICRO_ITERS + 2
+    if (launches["flash_attention"], launches["cka_terms"],
+            launches["wkv6"]) != (n, n, n):
+        raise AssertionError(f"kernels_micro launches {launches}")
+    inputs = kernels_micro.case_inputs(0)
+    q, k, v = (torch.from_numpy(a).cuda() for a in inputs["flash_attention"])
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt)  # noqa: E731
+    sdpa_err = float((sdpa().transpose(1, 2) - cases["flash_attention"][1])
+                     .abs().max())
+    B, S, H, hd = q.shape
+    n, d = inputs["cka"][0].shape
+    Bw, T, Hw, nw = inputs["rwkv_wkv"][0].shape
+    extra = {
+        "flash_attention": {**bound(4.0 * B * H * S * S * hd,
+                                    4.0 * 4 * B * S * H * hd,
+                                    tensor_cores=True),
+                            "library_ms": kernels_micro._time(sdpa,
+                                                              MICRO_ITERS),
+                            "library_max_abs_err": sdpa_err},
+        "cka": {**bound(2.0 * n * (d * d + d * (d + 1)), 4.0 * n * 2 * d + 4,
+                        tensor_cores=True), "library_ms": None},
+        "rwkv_wkv": {**bound(5.0 * nw * nw * Bw * T * Hw,
+                             4.0 * (5 * Bw * T * Hw * nw + Hw * nw)),
+                     "library_ms": None}}
+    cells = [{**c, **extra[c["op"]]} for c in doc["cells"]]
+    for c in cells:
+        lib = "none" if c["library_ms"] is None else \
+            f"SDPA {c['library_ms']:.4f} ms"
+        print(f"  {c['op']} {c['shape']}: kernel {c['pallas_ms']} ms, plain "
+              f"{c['ref_ms']} ms, library {lib} (median of {c['iters']}, "
+              f"CUDA events), bound {c['bound_ms']:.5f} ms "
+              f"({c['bound_by']}), max_abs_err {c['max_abs_err']:.3g}; "
+              f"{card}")
+    return {"cells": cells, "launches": launches}
 
 
 # ---------------------------------------------------------------------------
@@ -4538,10 +4823,15 @@ def main() -> None:
     phase("phase 3: jamba's mamba block at full width; the reduced jamba "
           "served")
     jamba = mamba_phase()
-    phase("phase 3: LM training: gemma2-2b at full width and depth, flash "
-          "on its frozen prefix, the checkpoint round trip; rwkv6-3b, WKV6 "
-          "on its frozen prefix")
+    phase("phase 3: LM training: gemma2-2b at full width, 8 of its 26 "
+          "layers, flash on its frozen prefix, the checkpoint round trip; "
+          "rwkv6-3b, WKV6 on its frozen prefix")
     train = train_lm_phase()
+    phase("phase 3: the distributed layer: launch.train on gemma2-2b at "
+          "full width and depth on the (1, 1) mesh, DTensor params, NCCL")
+    distributed = distributed_phase()
+    phase("phase 3: kernels_micro, each kernel against its plain version")
+    micro = kernels_micro_phase(card)
     phase("phase 3: DeiT-tiny serving and SimFreeze probes at full width")
     launches = slice_phase(get_config("deit-tiny"))
     phase("phase 3: the ETuner loop on DeiT-tiny at full width")
@@ -4591,8 +4881,10 @@ def main() -> None:
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/attention/kernel.py:80",
-         "launches": mixed["flash_eager"],
+         "launches": distributed["launch_train"],
          "launches_by_path": {
+             "launch_train": distributed["launch_train"],
+             "kernels_micro": micro["launches"]["flash_attention"],
              "mixed_loop": mixed["flash_eager"],
              "compiled mixed": mixed["flash_card"],
              "bert_serving": bert_serving["launches"],
@@ -4610,6 +4902,8 @@ def main() -> None:
              "gemma2_train_fp32": train["gemma2_train_fp32"],
              "harness_table4": harness["table4"]},
          "max_abs_err": bert_att_err, **bert["attention"]["loop"],
+         "launch_train_run": distributed,
+         "kernels_micro": micro["cells"][0],
          "bert_serving": bert["attention"]["serving"],
          "deit_tiny": {"max_abs_err": att_err, **att},
          "gemma2": {"max_abs_err": lm_att_err, "serving_run": gemma,
@@ -4619,8 +4913,9 @@ def main() -> None:
         {"name": "cka_terms", "route": "cuda",
          "source": "src/repro_torch/csrc/cka_terms.cu",
          "replaces": "src/repro/kernels/cka/kernel.py:56",
-         "launches": mbv2_launches["cka_terms"],
+         "launches": micro["launches"]["cka_terms"],
          "launches_by_path": {
+             "kernels_micro": micro["launches"]["cka_terms"],
              "cnn_loop_mobilenetv2": mbv2_launches["cka_terms"],
              "cnn_loop_resnet50": resnet_launches["cka_terms"],
              "etuner_loop": loop_launches["cka_terms"],
@@ -4634,22 +4929,26 @@ def main() -> None:
              "harness_sweep": harness["sweep"]},
          "launches_by_route": {
              route: sum(p[f"cka_{route}"] for p in (
-                 mbv2_launches, resnet_launches, loop_launches, launches))
+                 mbv2_launches, resnet_launches, loop_launches, launches,
+                 micro["launches"]))
              + (mixed["cka_eager"] + sum(baselines.values())
                 + sum(n for runs in (fleet, traced)
                       for devs in runs.values() for n in devs.values())
                 if route == "example" else 0)
              for route in ("feature", "example")},
          "max_abs_err": cnn_err, **cka_record(cka),
+         "kernels_micro": micro["cells"][1],
          "bert_probe": {"max_abs_err": bert_cka_err, **bert["cka"]},
          "feature_route": {"max_abs_err": cka_err, **cka_feature}},
         {"name": "wkv6", "route": "cuda",
          "source": "src/repro_torch/csrc/wkv6.cu",
          "replaces": "src/repro/kernels/rwkv/kernel.py:58",
-         "launches": wkv_launches,
-         "launches_by_path": {"rwkv6_serving": wkv_launches,
+         "launches": micro["launches"]["wkv6"],
+         "launches_by_path": {"kernels_micro": micro["launches"]["wkv6"],
+                              "rwkv6_serving": wkv_launches,
                               "rwkv6_train": train["rwkv6_train"]},
-         "max_abs_err": wkv_err, **wkv},
+         "max_abs_err": wkv_err, **wkv,
+         "kernels_micro": micro["cells"][2]},
     ]}
     print(f"all phases done in {time.perf_counter() - t0:.1f} s since the "
           f"build began")

@@ -7,8 +7,9 @@ the reference's on-disk format.
 - async: `AsyncCheckpointer` copies device tensors to the host on the
   caller's thread, then writes on a worker thread, so the training loop
   is blocked only for the device->host copy.
-- the reference's sharded and elastic restore (`shardings=`, `mesh=`)
-  waits for the port's `distributed/` (ROADMAP A.9) and raises here.
+- sharded and elastic restore: `restore(..., shardings=)` places each
+  leaf by its `distributed.sharding.NamedSharding` on any mesh, each rank
+  keeping its own shard (`distributed/elastic.py::elastic_restore`).
 
 Format, as the reference writes it: ``data.npz`` holding ``leaf_{i}`` in
 JAX's flattening order (dict keys sorted, lists, tuples and NamedTuple
@@ -36,10 +37,6 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
-
-SHARDED = ("sharded and elastic checkpoints wait for the port's "
-           "distributed/ (ROADMAP A.9)")
-
 
 def _is_namedtuple(x) -> bool:
     return isinstance(x, tuple) and hasattr(x, "_fields")
@@ -208,24 +205,34 @@ def _count(manifest: dict, like) -> None:
         raise ValueError(f"checkpoint has {n} leaves, expected {expected}")
 
 
-def restore(path: str, like, device=None, mesh=None, shardings=None):
+def _place(leaves, shardings):
+    """Each leaf (on the host) as a DTensor by its `NamedSharding` in
+    `shardings`, a tree of `like`'s structure."""
+    return [s.place(t) for t, (_, s) in
+            zip(leaves, _flatten_with_names(shardings), strict=True)]
+
+
+def restore(path: str, like, device=None, shardings=None):
     """Restore into the structure of `like`: (tree, step), each leaf a
     tensor in the dtype it was saved in on `device` (CUDA unless given:
-    `resolve_device`). Raises for the reference's sharded restore."""
-    if mesh is not None or shardings is not None:
-        raise NotImplementedError(SHARDED)
-    device = resolve_device(device)
+    `resolve_device`). If `shardings` (a tree of
+    `distributed.sharding.NamedSharding` matching `like`) is given, each
+    leaf is placed by it as a DTensor on its mesh's device instead: the
+    elastic path, onto a mesh of any shape."""
+    host = "cpu" if shardings is not None else resolve_device(device)
     manifest = _manifest(path)
     _count(manifest, like)
-    leaves = _read(path, manifest, device, check=False)
+    leaves = _read(path, manifest, host, check=False)
+    if shardings is not None:
+        leaves = _place(leaves, shardings)
     return _unflatten(like, leaves), manifest["step"]
 
 
-def restore_if_valid(path: str, like, device=None):
+def restore_if_valid(path: str, like, device=None, shardings=None):
     """`validate` and `restore` in one read of the payload, each leaf
     checked as it is read: (tree, step), or None where `validate` would
     fail. Raises as `restore` does for a tree of another structure."""
-    device = resolve_device(device)
+    device = "cpu" if shardings is not None else resolve_device(device)
     try:
         manifest = _manifest(path)
     except Exception:
@@ -235,8 +242,11 @@ def restore_if_valid(path: str, like, device=None):
         leaves = _read(path, manifest, device)
     except Exception:
         return None
-    return None if leaves is None else (_unflatten(like, leaves),
-                                        manifest["step"])
+    if leaves is None:
+        return None
+    if shardings is not None:
+        leaves = _place(leaves, shardings)
+    return _unflatten(like, leaves), manifest["step"]
 
 
 def load_step(path: str) -> int:

@@ -59,13 +59,13 @@ class CheckpointManager:
     def restore_latest(self, like, shardings=None,
                        device=None) -> Tuple[Optional[Any], int]:
         """Newest *valid* checkpoint, its leaves on `device` (CUDA unless
-        given), skipping corrupt ones. (None, -1) if nothing restorable —
-        the caller falls back to fresh init."""
-        if shardings is not None:
-            raise NotImplementedError(ckpt.SHARDED)
+        given) or placed by `shardings` (as `ckpt.restore` places them),
+        skipping corrupt ones. (None, -1) if nothing restorable — the
+        caller falls back to fresh init."""
         self.wait()
         for step in reversed(self.all_steps()):
-            restored = ckpt.restore_if_valid(self._path(step), like, device)
+            restored = ckpt.restore_if_valid(self._path(step), like, device,
+                                             shardings)
             if restored is not None:
                 return restored
         return None, -1

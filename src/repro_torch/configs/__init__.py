@@ -1,6 +1,8 @@
 """Config registry for the paper models and the JAX package's ten LM
-architectures (`ARCHS`): ``get_config(name)`` (full size) and
-``get_reduced(name)`` (CPU-runnable)."""
+architectures (`ARCHS`): ``get_config(name)`` (full size),
+``get_reduced(name)`` (CPU-runnable), the four LM shapes (`LM_SHAPES`,
+``get_shape(name)``) and which (arch, shape) cells run
+(`cell_is_applicable`)."""
 from __future__ import annotations
 
 from typing import Dict
@@ -9,7 +11,9 @@ from repro_torch.configs import (gemma2_2b, gemma2_27b, granite_20b,
                                  jamba_1_5_large_398b, kimi_k2_1t_a32b,
                                  musicgen_medium, paper_models, qwen1_5_32b,
                                  qwen2_vl_72b, qwen3_moe_30b_a3b, rwkv6_3b)
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import (DECODE_32K, LM_SHAPES, LONG_500K,
+                                      PREFILL_32K, TRAIN_4K, ModelConfig,
+                                      ShapeConfig)
 
 # the JAX package's ten LM architectures, in its order
 # (`repro.configs.ARCHS`)
@@ -59,5 +63,21 @@ def get_reduced(name: str) -> ModelConfig:
     raise KeyError(f"unknown model {name!r}; known: {sorted(_REDUCED)}")
 
 
-__all__ = ["ARCHS", "LM_MODELS", "ModelConfig", "PAPER_MODELS", "get_config",
-           "get_reduced"]
+def get_shape(name: str) -> ShapeConfig:
+    for s in LM_SHAPES:
+        if s.name == name:
+            return s
+    raise KeyError(name)
+
+
+def cell_is_applicable(cfg: ModelConfig, shape: ShapeConfig) -> str:
+    """'' if the (arch, shape) cell runs, else a skip reason."""
+    if shape.name == "long_500k" and not cfg.subquadratic:
+        return "skip: full quadratic attention at 524288 ctx (DESIGN.md §4)"
+    return ""
+
+
+__all__ = ["ARCHS", "DECODE_32K", "LM_MODELS", "LM_SHAPES", "LONG_500K",
+           "ModelConfig", "PAPER_MODELS", "PREFILL_32K", "ShapeConfig",
+           "TRAIN_4K", "cell_is_applicable", "get_config", "get_reduced",
+           "get_shape"]

@@ -4,13 +4,38 @@
 Carries the fields of the paper's own models (ETuner §V-A) and of the
 decoder LMs: the attention, RoPE/M-RoPE, frontend-stub and block-layout
 fields of the attention LMs, the rwkv6 fields, and the MoE and hybrid
-fields of jamba, qwen3-moe and kimi-k2. The JAX config's sharding and
-dry-run fields have no counterpart: the port runs on one card."""
+fields of jamba, qwen3-moe and kimi-k2, and the MoE's group-local
+dispatch (`moe_local_dispatch`) and the sharding fields
+(`attn_batch_shard`, `shard_head_dim`); `ShapeConfig` and the four LM shapes;
+the analytic parameter counts. The JAX config's other sharding and
+dry-run fields wait for the port's dry run (ROADMAP A.9)."""
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
 from typing import Tuple
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    """One (input-shape x step-kind) cell of the dry-run matrix."""
+
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # 'train' | 'prefill' | 'decode'
+
+    @property
+    def tokens(self) -> int:
+        return self.seq_len * self.global_batch
+
+
+# the four LM shapes of the JAX package (the same for all ten archs)
+TRAIN_4K = ShapeConfig("train_4k", 4096, 256, "train")
+PREFILL_32K = ShapeConfig("prefill_32k", 32768, 32, "prefill")
+DECODE_32K = ShapeConfig("decode_32k", 32768, 128, "decode")
+LONG_500K = ShapeConfig("long_500k", 524288, 1, "decode")
+LM_SHAPES = (TRAIN_4K, PREFILL_32K, DECODE_32K, LONG_500K)
 
 
 @dataclass(frozen=True)
@@ -83,6 +108,13 @@ class ModelConfig:
     attn_k_block: int = 2048     # blockwise attention kv block
     ssm_chunk: int = 128         # mamba / rwkv chunk length (sequence blocking)
     ssm_dtype: str = "float32"   # mamba state-expansion dtype
+    # per-data-shard top-k routing under an activation mesh (no global
+    # token gather; capacity split per shard): `models.moe._dispatch_shards`
+    moe_local_dispatch: bool = False
+    # batch-shard attention over (data x model) where the heads do not
+    # divide the model axis (`models.attention`'s activation hints)
+    attn_batch_shard: bool = False
+    shard_head_dim: bool = False  # head_dim sharding where heads < model
     subquadratic: bool = False
     # route attention forwards through the hand-written flash-attention
     # kernel (repro_torch.kernels.attention); the name follows the JAX
@@ -139,3 +171,43 @@ class ModelConfig:
             return self.sliding_window if i % self.local_global_period == 0 \
                 else 0
         return self.sliding_window
+
+    def param_count(self) -> int:
+        """Analytic parameter count (6ND model FLOPs, memory napkin math);
+        -1 for the paper models, whose count comes from their params."""
+        if self.family in ("cnn", "vit", "encoder"):
+            return -1
+        d, ff, V = self.d_model, self.d_ff, self.vocab_size
+        total = V * d * (1 if self.tie_embeddings else 2)
+        for i in range(self.num_layers):
+            kind = self.layer_kind(i)
+            if kind == "attn":
+                total += d * self.q_dim + 2 * d * self.kv_dim + self.q_dim * d
+                if self.qkv_bias:
+                    total += self.q_dim + 2 * self.kv_dim
+            elif kind == "mamba":
+                di = self.mamba_expand * d
+                total += d * 2 * di + di * (2 * self.mamba_state + 1) \
+                    + self.mamba_conv * di + di * d + di
+            elif kind == "rwkv":
+                total += 4 * d * d + d * d  # r, k, v, g, o
+                total += 2 * d * d // 8     # the decay's low rank (approx.)
+            if self.layer_is_moe(i):
+                total += self.num_experts * 3 * d * self.expert_ff \
+                    + d * self.num_experts
+            else:
+                total += 3 * d * ff if self.act in ("silu", "gelu") \
+                    else 2 * d * ff
+            total += 2 * d  # norms
+        return total
+
+    def active_param_count(self) -> int:
+        """Params a token uses (MoE: its top-k experts only)."""
+        total = self.param_count()
+        if not self.num_experts:
+            return total
+        for i in range(self.num_layers):
+            if self.layer_is_moe(i):
+                total -= (self.num_experts - self.experts_per_token) \
+                    * 3 * self.d_model * self.expert_ff
+        return total

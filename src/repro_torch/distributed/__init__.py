@@ -1,3 +1,4 @@
-"""The port's counterpart of `repro.distributed`: so far only the
-straggler tracker the fleet imports. The `shard_map` collectives, elastic
-meshes and sharding rules come with ROADMAP A.9."""
+"""The port's counterpart of `repro.distributed`, on `torch.distributed`:
+the straggler tracker the fleet imports, the sharding rules
+(`sharding`: specs, DTensor placements, activation hints), the gradient
+collectives (`collectives`) and elastic re-meshing (`elastic`)."""

@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import sharding as shd
 from repro_torch.kernels import kernel_route
 from repro_torch.kernels.attention import ops as att_ops
 from repro_torch.models import common
@@ -67,6 +68,7 @@ def _project_qkv(p: dict, cfg: ModelConfig, x: torch.Tensor,
     q, k, v = _proj(x, p["wq"]), _proj(x, p["wk"]), _proj(x, p["wv"])
     if cfg.qkv_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    q, k, v = (_hint_heads(cfg, t) for t in (q, k, v))
     if cfg.mrope_sections:
         if positions.dim() == 2:  # [B, S] -> text-only 3-axis positions
             positions = torch.stack([positions] * 3, dim=0)
@@ -78,6 +80,21 @@ def _project_qkv(p: dict, cfg: ModelConfig, x: torch.Tensor,
         q = common.apply_rope(q, positions, cfg.rope_theta)
         k = common.apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
+
+
+def _hint_heads(cfg: ModelConfig, t: torch.Tensor) -> torch.Tensor:
+    """The reference's layout of q, k or v [B, S, H, hd] under an
+    activation mesh: batch over the data axes and heads over `model`,
+    or, where the heads do not divide `model` (`attn_batch_shard`), the
+    batch over (data x model)."""
+    mesh = shd._current_mesh()
+    tp = shd.axis_sizes(mesh).get("model", 1) if mesh is not None else 1
+    if (cfg.attn_batch_shard and tp > 1 and cfg.num_heads % tp != 0
+            and t.shape[0] % (tp * shd._axis_size(mesh, shd.data_axes(mesh)))
+            == 0):
+        return shd.hint(t, tuple(shd.data_axes(mesh)) + ("model",),
+                        None, None, None)
+    return shd.hint(t, shd.BATCH_AXES, None, "model", None)
 
 
 def _inv_sqrt(hd: int) -> Tuple[float, float]:

@@ -30,6 +30,7 @@ import torch.nn.functional as F
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import sharding as shd
 from repro_torch.models import common
 
 
@@ -113,7 +114,8 @@ def mamba_train(p: dict, cfg: ModelConfig, x: torch.Tensor, chunk: int = 0,
     B, S, _ = x.shape
     chunk = chunk or cfg.ssm_chunk
     di, N = d_inner(cfg), cfg.mamba_state
-    x1, z = (x @ p["in_proj"]).chunk(2, dim=-1)
+    xz = shd.hint(x @ p["in_proj"], shd.BATCH_AXES, None, "model")
+    x1, z = xz.chunk(2, dim=-1)
     xc = F.silu(_causal_conv(p, x1, cfg.mamba_conv))
     log_decay, drive, Cc = _ssm_inputs(p, cfg, xc)
 

@@ -5,6 +5,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import sharding as shd
 from repro_torch.models import common
 
 
@@ -18,4 +19,5 @@ def init_mlp(gen: torch.Generator, cfg: ModelConfig) -> dict:
 
 def mlp(p: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     g = common.activation(x @ p["wg"], cfg.act)
-    return (g * (x @ p["wu"])) @ p["wd"]
+    h = shd.hint(g * (x @ p["wu"]), shd.BATCH_AXES, None, "model")
+    return h @ p["wd"]

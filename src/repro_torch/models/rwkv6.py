@@ -27,6 +27,7 @@ import torch.nn.functional as F
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import sharding as shd
 from repro_torch.kernels import kernel_route
 from repro_torch.kernels.rwkv import ops as wkv_ops
 from repro_torch.models import common
@@ -120,7 +121,8 @@ def _rkvgw(p: dict, cfg: ModelConfig, x: torch.Tensor, xp: torch.Tensor):
     g = _silu(_lerp(x, xp, p["mu"][3]) @ p["wg"])
     logw = _decay(p, _lerp(x, xp, p["mu"][4]))
     shape = (B, S, H, n)
-    r, k, v = (a.reshape(shape).float() for a in (r, k, v))
+    r, k, v = (shd.hint(a.reshape(shape).float(), shd.BATCH_AXES, None,
+                        "model", None) for a in (r, k, v))
     return r, k, v, g, logw.reshape(shape)
 
 

@@ -36,6 +36,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device, tree_map
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import sharding as shd
 from repro_torch.core.freeze_plan import FreezePlan, lm_segments, maybe_stop
 from repro_torch.models import attention, common, mamba, mlp, moe, rwkv6
 
@@ -95,6 +96,7 @@ def _apply_block(p: dict, cfg: ModelConfig, x: torch.Tensor, offset: int,
     kind = cfg.layer_kind(offset)
     window = cfg.layer_window(offset)
     aux = None
+    x = shd.hint(x, shd.BATCH_AXES, None, None)
     h = common.rms_norm(x, p["ln1"], cfg.norm_eps)
     c = None
     if kind == "attn":
@@ -218,8 +220,9 @@ def _run(blocks, cfg: ModelConfig, x, mode: str, caches=None,
 
 def _embed(params, cfg: ModelConfig, batch: dict, frozen: bool = False):
     emb = maybe_stop(params["embed"], frozen)
-    return common.embed_tokens(emb, cfg, batch["tokens"],
-                               batch.get("frontend_embeds")), emb
+    x = common.embed_tokens(emb, cfg, batch["tokens"],
+                            batch.get("frontend_embeds"))
+    return shd.hint(x, shd.BATCH_AXES, None, None), emb
 
 
 def lm_loss(params, cfg: ModelConfig, batch: dict,
@@ -256,7 +259,8 @@ def lm_loss(params, cfg: ModelConfig, batch: dict,
         x = x[:, F:]
     head = emb if cfg.tie_embeddings else params["embed"]
     head = maybe_stop(head, bool(plan and plan.head))
-    logits = common.lm_logits(head, cfg, x)
+    logits = shd.hint(common.lm_logits(head, cfg, x), shd.BATCH_AXES, None,
+                      "model")
     loss = common.cross_entropy(logits, batch["targets"], batch.get("mask"))
     total = loss + cfg.router_aux_coef * aux
     return total, {"loss": loss, "aux_loss": aux,

@@ -27,10 +27,15 @@ occupancy lane — driven off ONE shared event timeline and ONE shared
   eviction path.
 
 `ContinualRuntime.run()` always delegates here; the default session is a
-fleet of one device. The reference can also shrink an injected JAX mesh
-on eviction and re-shard the survivors' params (`mesh`, `param_specs`,
-`distributed/elastic.py`); that is JAX sharding, and passing a mesh here
-raises `NotImplementedError` naming ROADMAP A.9. With a live
+fleet of one device. An injected elastic mesh (`mesh`, a DeviceMesh;
+`mesh_axis`; `param_specs`, `distributed.sharding` specs of a slot's
+params) shrinks on eviction, where `mesh_axis` is even and 2 or more,
+to its first half along that axis (`distributed.elastic.shrink_mesh`),
+and each surviving device's params are re-sharded onto it
+(`elastic.remesh`, values kept) into `mesh_params[(device index, slot)]`.
+The simulated devices train on their params' whole values, as before
+the eviction: the DTensors there are what a sharded save or a
+multi-rank caller reads. With a live
 `Telemetry` on the host, the fleet records the reference's sync spans,
 straggler instants, counters and gauges, and writes the sinks at run end.
 """
@@ -151,19 +156,15 @@ class DeviceFleet:
     specs / routing / aggregation period default to the host's
     (`RuntimeConfig.devices/routing/aggregate_every`) and can be
     overridden per run. `straggler` takes a `StragglerConfig` (else the
-    host's `straggler_config`, else the tracker's defaults). `mesh` is the
-    reference's elastic JAX mesh, which the port does not take (module
+    host's `straggler_config`, else the tracker's defaults). `mesh`,
+    `mesh_axis` and `param_specs` wire the elastic mesh (module
     docstring)."""
 
     def __init__(self, host, *, devices: Optional[List[DeviceConfig]] = None,
                  routing: Optional[str] = None,
                  aggregate_every: Optional[float] = None,
                  straggler: Optional[StragglerConfig] = None,
-                 mesh=None, param_specs=None):
-        if mesh is not None or param_specs is not None:
-            raise NotImplementedError(
-                "an elastic device mesh is not ported yet (ROADMAP A.9: "
-                "distributed/elastic.py re-shards params over a JAX mesh)")
+                 mesh=None, mesh_axis: str = "data", param_specs=None):
         self.host = host
         specs = list(devices) if devices is not None \
             else (list(getattr(host, "devices", ())) or
@@ -188,6 +189,10 @@ class DeviceFleet:
         self.tracker: Optional[StragglerTracker] = None
         self._evicted: set = set()
         self._flagged: set = set()
+        self._mesh = mesh
+        self._mesh_axis = mesh_axis
+        self._param_specs = param_specs
+        self.mesh_params: Dict[tuple, dict] = {}
         # physical environment (DESIGN.md §15): device name -> DeviceEnv
         # for every device whose DeviceConfig carries an active EnvSpec;
         # empty (the default) keeps every env branch untaken.
@@ -543,10 +548,12 @@ class DeviceFleet:
 
     def evict_device(self, index: int, ts: float, *,
                      reason: str = "persistent straggler") -> None:
-        """Drop a device for good: its streams re-route and its deltas
-        drop out of every future merge. `reason` tells straggler
-        evictions from environment-driven ones (a dead battery rides the
-        same path, DESIGN.md §15)."""
+        """Drop a device for good: its streams re-route, its deltas drop
+        out of every future merge, and — when an elastic mesh was
+        injected — the mesh shrinks and the survivors' params re-shard
+        onto it (`mesh_params`). `reason` tells straggler evictions from
+        environment-driven ones (a dead battery rides the same path,
+        DESIGN.md §15)."""
         if index in self._evicted:
             return
         log.warning("t=%.3f: evicting device %s (%s); "
@@ -563,6 +570,22 @@ class DeviceFleet:
             self.tracker.evict(index)
         self._evicted.add(index)
         self._reroute_streams(index, ts)
+        if self._mesh is not None:
+            from repro_torch.distributed import elastic, sharding
+
+            size = sharding.axis_sizes(self._mesh).get(self._mesh_axis, 0)
+            if size % 2 == 0 and size >= 2:
+                self._mesh = elastic.shrink_mesh(self._mesh,
+                                                 self._mesh_axis)
+                if self._param_specs is not None:
+                    for d in self.devices:
+                        if d.index in self._evicted:
+                            continue
+                        for name, st in d.slots.items():
+                            self.mesh_params[(d.index, name)] = \
+                                elastic.remesh(st.executor.params,
+                                               self._mesh,
+                                               self._param_specs)
 
     # ---- result ----------------------------------------------------------
     def _assemble(self, RunResult):

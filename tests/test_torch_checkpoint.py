@@ -19,6 +19,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.distributed as dist
 
 from repro.checkpoint import ckpt as jax_ckpt
 from repro.configs import get_reduced as jax_get_reduced
@@ -203,13 +204,37 @@ def test_restore_missing_returns_none(tmp_path, state):
 
 
 def test_sharded_restore_waits_for_distributed(tmp_path, state):
+    """The sharded restore is ported: `shardings` (a tree of
+    `distributed.sharding.NamedSharding`) places each leaf as a DTensor on
+    its mesh, here a (1, 1) mesh over a gloo world of one, with every
+    value and dtype kept; `restore_latest` takes it too. The multi-rank
+    case (a shrunk mesh, the reference's checkpoint) is held in
+    tests/test_torch_distributed.py."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.launch import mesh as launch_mesh
+
     path = str(tmp_path / "c")
-    ckpt.save(path, state)
-    with pytest.raises(NotImplementedError, match="A.9"):
-        ckpt.restore(path, state, device="cpu", shardings=object())
-    with pytest.raises(NotImplementedError, match="A.9"):
-        CheckpointManager(str(tmp_path)).restore_latest(state,
-                                                        shardings=object())
+    ckpt.save(path, state, step=4)
+    CheckpointManager(str(tmp_path / "m")).save(4, state, block=True)
+    launch_mesh.init_world("cpu")
+    try:
+        mesh = launch_mesh.make_mesh((1, 1), ("data", "model"), "cpu")
+        shardings = sh.named(mesh, sh.map_with_path(
+            lambda _, t: sh.P(*([None] * t.ndim)), state))
+        restored = [ckpt.restore(path, state, shardings=shardings),
+                    CheckpointManager(str(tmp_path / "m")).restore_latest(
+                        state, shardings=shardings)]
+    finally:
+        dist.destroy_process_group()
+    for tree, step in restored:
+        assert step == 4 and isinstance(tree[1], AdamWState)
+        got, want = _named(tree), _named(state)
+        assert [n for n, _ in got] == [n for n, _ in want]
+        for (name, a), (_, b) in zip(got, want):
+            assert isinstance(a, DTensor), name
+            assert a.dtype == b.dtype and torch.equal(a.to_local(), b), name
 
 
 def test_restore_refuses_another_structure(tmp_path, state):

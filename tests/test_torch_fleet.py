@@ -405,3 +405,67 @@ def _sorted_like(port_tree, jax_tree):
     if isinstance(port_tree, (list, tuple)):
         return [_sorted_like(v, w) for v, w in zip(port_tree, jax_tree)]
     return jax_tree
+
+
+def test_eviction_shrinks_an_injected_mesh():
+    """The reference's elastic mesh (`DeviceFleet(mesh=, param_specs=)`,
+    `src/repro/runtime/fleet.py:576-591`): the straggler session's
+    eviction halves the `data` axis of an injected (4, 2) mesh, here over
+    a fake process group of 8 ranks in this process, and re-shards the
+    survivors' params onto the (2, 2) mesh (`fleet.mesh_params`). The
+    mesh changes no number: the run is the mesh-less run exactly, every
+    device's params bitwise, and its rounds, syncs and per-device counts
+    are the reference fleet's. Its params are held to the reference's
+    through what they compute (served accuracies within 1e-6, the
+    validation curve within 1e-5), as `test_session_matches_reference`
+    holds them: after this session's AdamW rounds the two frameworks'
+    params part by up to ~1e-2 of entries near 2, rounding amplified."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.runtime.fleet import DeviceFleet
+
+    workload, scale, devices, knobs, straggler = SESSIONS["straggler"]
+    rt = _Port.session(RuntimeConfig(
+        slots={"cv": SlotConfig()}, workload=workload,
+        workload_scale=dict(scale), seed=0, pretrain_epochs=1,
+        devices=_devices(_Port, devices), **knobs))
+    rt.straggler_config = StragglerConfig(**straggler)
+    cfg = get_reduced("mobilenetv2")
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=8)
+    try:
+        mesh = init_device_mesh("cpu", (4, 2), mesh_dim_names=("data",
+                                                               "model"))
+        specs = sh.param_specs(_port_model().init(None), cfg, mesh)
+        fl = DeviceFleet(rt, mesh=mesh, param_specs=specs)
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", UserWarning)
+            res = fl.run(list(rt._session_events))
+        assert sh.axis_sizes(fl._mesh) == {"data": 2, "model": 2}
+    finally:
+        dist.destroy_process_group()
+    (plain, prt), (ref, _) = _run(_Port, "straggler"), _run(_Jax, "straggler")
+    _assert_identical(res, plain)
+    for a, b in zip(fl.devices, prt.fleet.devices, strict=True):
+        for x, y in zip(tree_leaves(a.primary.executor.params),
+                        tree_leaves(b.primary.executor.params), strict=True):
+            assert torch.equal(x, y)
+    assert (res.rounds, res.syncs) == (ref.rounds, ref.syncs)
+    np.testing.assert_allclose(res.inference_accs, ref.inference_accs,
+                               rtol=0, atol=1e-6)
+    np.testing.assert_allclose(res.val_curve, ref.val_curve, rtol=0,
+                               atol=1e-5)
+    for dev in ref.per_device:
+        assert {k: res.per_device[dev][k] for k in DEVICE_COUNTS} == \
+            {k: ref.per_device[dev][k] for k in DEVICE_COUNTS}, dev
+    assert ref.per_device["slow"]["evicted"]
+    survivors = [d.index for d in fl.devices if d.name != "slow"]
+    assert sorted(fl.mesh_params) == [(i, name) for i in survivors
+                                      for name in fl.devices[i].slots]
+    for placed in fl.mesh_params.values():
+        for t, s in zip(tree_leaves(placed), tree_leaves(
+                sh.map_with_path(lambda _, s: s, specs)), strict=True):
+            assert t.device_mesh is not mesh
+            assert t.placements == sh.placements(t.device_mesh, s)

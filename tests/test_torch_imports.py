@@ -194,6 +194,23 @@ def test_harness_modules_are_ported(name):
         name, name.replace(".", "/") + ".py")).exists()
 
 
+# the distributed layer, the entry-point helpers and the kernels'
+# microbenchmark
+DISTRIBUTED = ["configs.base", "optim.compression", "distributed.sharding",
+               "distributed.collectives", "distributed.elastic", "launch",
+               "launch.mesh", "launch.platform", "launch.train",
+               "harness.kernels_micro"]
+DISTRIBUTED_SOURCES = {"harness.kernels_micro": "benchmarks/kernels_micro.py"}
+
+
+@pytest.mark.parametrize("name", DISTRIBUTED)
+def test_distributed_modules_are_ported(name):
+    assert f"repro_torch.{name}" in _modules()
+    rel = name.replace(".", "/")
+    assert (ROOT / DISTRIBUTED_SOURCES.get(name, f"src/repro/{rel}.py")
+            ).exists() or (ROOT / "src" / "repro" / rel).is_dir()
+
+
 def test_serve_lm_example_is_ported():
     assert "repro_torch.examples.serve_lm" in _modules()
     assert (ROOT / "examples" / "serve_lm.py").exists()
@@ -203,7 +220,7 @@ def test_runtime_root_loads_neither_jax_nor_repro():
     names = ['repro_torch.' + n
              for n in RUNTIME_ROOT + CNN_AND_HOOKS + WORKLOADS + BASELINES
              + OBS + ATTENTION_LMS + MAMBA_MOE + LM_TRAINING + HARNESS
-             + ["models.common", "models.transformer", "runtime.serve",
+             + DISTRIBUTED + ["models.common", "models.transformer", "runtime.serve",
                 "core.freeze_plan", "examples.serve_lm"]]
     code = ("import importlib, sys\n"
             f"for m in {names!r}:\n"
@@ -320,6 +337,25 @@ def _multi_stream():
     multi_stream.main([])
 
 
+def _launch_train():
+    from repro_torch.launch import platform, train
+
+    platform._bootstrapped = None
+    train.main([])
+
+
+def _host_mesh():
+    from repro_torch.launch import mesh
+
+    mesh.make_host_mesh()
+
+
+def _kernels_micro():
+    from repro_torch.harness import kernels_micro
+
+    kernels_micro.run()
+
+
 @pytest.mark.parametrize("entry", [resolve_device, _build, _bridge, _etuner,
                                    _session, _cnn, _default_session,
                                    _compiled_workload_session, _bert,
@@ -327,7 +363,8 @@ def _multi_stream():
                                    _serve_lm, _train_lm, _restore,
                                    _run_method, _tables, _run_workload,
                                    _sweep, _quickstart, _continual_cv,
-                                   _fleet, _multi_stream])
+                                   _fleet, _multi_stream, _launch_train,
+                                   _host_mesh, _kernels_micro])
 def test_entry_points_raise_without_gpu(monkeypatch, entry):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):

@@ -520,3 +520,62 @@ def test_kernel_route_takes_flash_once_a_jamba_prefill(monkeypatch):
     got, _ = kern.prefill(params, tok)
     assert len(calls) == 2 and all(c["causal"] for c in calls)
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+def _moe_pair():
+    jcfg = jax_get_reduced("qwen3-moe-30b-a3b").replace(**FP32)
+    cfg = get_reduced("qwen3-moe-30b-a3b").replace(**FP32)
+    jp = jax_moe.init_moe(jax.random.PRNGKey(0), jcfg)
+    p = {k: torch.from_numpy(np.array(v)) for k, v in jp.items()}
+    x = np.array(jax.random.normal(jax.random.PRNGKey(2),
+                                   (4, 16, jcfg.d_model)))
+    return jcfg, cfg, jp, p, x
+
+
+def test_group_local_dispatch_matches_reference():
+    """`_moe_dispatch(groups=2)`: experts pick their capacity within each
+    group (reference `moe.py:88-112`), at 1e-5 of the reference's; at
+    ample capacity it is the global route (`tests/test_moe.py:28`)."""
+    jcfg, cfg, jp, p, x = _moe_pair()
+    for groups, cap in ((2, 32), (2, 8), (1, 64)):
+        want, waux = jax_moe._moe_dispatch(jp, jcfg, jnp.asarray(x),
+                                           groups=groups, capacity=cap)
+        got, aux = moe._moe_dispatch(p, cfg, torch.from_numpy(x),
+                                     groups=groups, capacity=cap)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                                   atol=1e-5, err_msg=f"{groups} {cap}")
+        np.testing.assert_allclose(float(aux), float(waux), rtol=1e-6)
+    local, _ = moe._moe_dispatch(p, cfg, torch.from_numpy(x), groups=2,
+                                 capacity=32)
+    glob, _ = moe._moe_dispatch(p, cfg, torch.from_numpy(x), groups=1,
+                                capacity=64)
+    np.testing.assert_allclose(local.numpy(), glob.numpy(), rtol=0,
+                               atol=1e-5)
+
+
+def test_moe_ffn_reads_the_data_axis_only_under_local_dispatch():
+    """`_dispatch_shards`: the activation mesh's data shards where
+    `cfg.moe_local_dispatch` is set and they divide the batch, else 1."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    from repro_torch.distributed import sharding as shd
+
+    _, cfg, _, p, x = _moe_pair()
+    local = cfg.replace(moe_local_dispatch=True)
+    xt = torch.from_numpy(x)
+    assert moe._dispatch_shards(local, 4) == 1  # no activation mesh
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=2)
+    try:
+        mesh = init_device_mesh("cpu", (2, 1),
+                                mesh_dim_names=("data", "model"))
+        with shd.activation_sharding(mesh):
+            assert [moe._dispatch_shards(c, b) for c, b in
+                    ((local, 4), (local, 3), (cfg, 4))] == [2, 1, 1]
+            out, aux = moe.moe_ffn(p, local, xt)
+    finally:
+        dist.destroy_process_group()
+    cap = max(8, moe.moe_capacity(cfg, 64) // 2)
+    want, waux = moe._moe_dispatch(p, cfg, xt, groups=2, capacity=cap)
+    assert torch.equal(out, want) and torch.equal(aux, waux)

@@ -434,17 +434,19 @@ def test_telemetry_session_runs_with_a_live_tracer():
 
 
 def test_elastic_mesh_raises_naming_its_roadmap_item():
-    """The reference's fleet can shrink an injected JAX mesh on eviction
-    (`distributed/elastic.py`); the port's fleet takes no mesh."""
+    """The elastic mesh is ported (ROADMAP A.9): the fleet takes the
+    reference's `mesh`, `mesh_axis` and `param_specs` and places nothing
+    before an eviction; tests/test_torch_fleet.py shrinks one."""
     from repro_torch.runtime.fleet import DeviceFleet
 
     rt = continual.ContinualRuntime.from_config(
         config.RuntimeConfig(pretrain_epochs=0, slots={
             "default": config.SlotConfig(arch="deit-tiny")}),
         device=CPU, benchmark=_tiny_bench())
-    for kw in (dict(mesh=object()), dict(param_specs={})):
-        with pytest.raises(NotImplementedError, match=r"ROADMAP A\.9"):
-            DeviceFleet(rt, **kw)
+    mesh = object()
+    fl = DeviceFleet(rt, mesh=mesh, mesh_axis="model", param_specs={})
+    assert (fl._mesh, fl._mesh_axis, fl._param_specs, fl.mesh_params) == \
+        (mesh, "model", {}, {})
 
 
 def test_legacy_constructor_warns_and_resolves_like_from_config():
