@@ -99,6 +99,21 @@ It imports nothing of JAX and nothing of the JAX package, and fails
    `distributed.elastic.elastic_restore`, every leaf bitwise; and
    `distributed.collectives.sync_grads` plain and int8, each leaf and
    its own decode bitwise, a frozen leaf zeros with no collective sent;
+   then the dry run (`dryrun_phase`): `repro_torch.launch.dryrun`'s
+   workers on the host through `orchestrate`, all at once (gemma2-2b's
+   four shapes on the 256-rank fake mesh and its train_4k on the
+   512-rank one, rwkv6-3b's long_500k; each cell's seconds, dominant
+   term, roofline terms and argument + temp printed), and the card's
+   own cell (gemma2-2b at 4 x 512 on the (1, 1) mesh of a world of one)
+   dry-run and run for real on the card: its whole step through
+   `launch.train.make_step` (all active and half prefix, remat full and
+   dots; timed before the workers start), and its loss and gradients
+   alone (remat none, full and dots; the dry run's `--no-update`):
+   argument bytes equal, the predicted peak (argument + temp) within 10%
+   of `max_memory_allocated` above what the card held before, `bound_s`
+   beside the median step, dots' losses and gradients held to full's,
+   and no kernel launched (the dry run's path is the plain one; its
+   record under `dryrun` in flash attention's entry);
    then `repro_torch.harness.kernels_micro` (`kernels_micro_phase`): the
    three kernels and their plain versions on the reference
    microbenchmark's inputs (flash [8, 65, 3, 64] non-causal, CKA
@@ -335,8 +350,10 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import functools
+import gc
 import json
 import math
+import os
 import shutil
 import subprocess
 import sys
@@ -4079,6 +4096,359 @@ def distributed_phase() -> dict:
     return out
 
 
+# the dry run's production cells (gemma2-2b's four shapes on the 256-rank
+# mesh, its train_4k on the 512-rank one, rwkv6-3b's long_500k) and the
+# card's own cell: gemma2-2b at TRAIN_BATCH on the (1, 1) mesh of a world
+# of one, its whole step under each plan and remat (CARD_CASES), and its
+# loss and gradients alone, all active, under each remat (GRAD_CASES)
+DRYRUN_CELLS = tuple(("gemma2-2b", s, "single") for s in (
+    "train_4k", "prefill_32k", "decode_32k", "long_500k")) + (
+    ("gemma2-2b", "train_4k", "multi"), ("rwkv6-3b", "long_500k", "single"))
+CARD_SHAPE = f"train_{TRAIN_BATCH[0]}x{TRAIN_BATCH[1]}"
+CARD_CASES = tuple((plan, prefix, remat)
+                   for plan, prefix in (("all-active", 0.0),
+                                        ("half-prefix", 0.5))
+                   for remat in ("full", "dots"))
+GRAD_CASES = ("none", "full", "dots")
+CARD_STEPS = 3
+# every cell's worker at once: the host's cores share them evenly, where
+# two waves of 8 left cores idle while the last cells ran
+DRYRUN_JOBS = len(DRYRUN_CELLS) + len(CARD_CASES) + len(GRAD_CASES)
+PEAK_TOL = 0.10
+
+
+def remat_gap(model, cfg, params, batch, plan) -> dict:
+    """The gradients of `batch` under `plan` with `cfg.remat` against
+    those with remat full: whether loss and gradients are bitwise, and
+    the worst leaf's gap as a share of its max |g|."""
+    whole = tree_map(elastic.whole, params)
+    got = grads_of(model.loss, whole, batch, plan)
+    want = grads_of(build_model(cfg.replace(remat="full")).loss, whole,
+                    batch, plan)
+    worst = 0.0
+    for a, b in zip(tree_leaves(got[2]), tree_leaves(want[2]), strict=True):
+        if not torch.equal(a, b):
+            scale = float(b.float().abs().max())
+            worst = max(worst, float((a.float() - b.float()).abs().max())
+                        / max(scale, GRAD_FLOOR))
+    return {"loss_bitwise": bool(torch.equal(got[0], want[0])),
+            "loss_gap": abs(float(got[0]) - float(want[0])),
+            "grad_gap": worst}
+
+
+def settled_bytes() -> int:
+    """The bytes the card holds once garbage is collected: a case's
+    baseline. Earlier phases' garbage is freed here, not by a collection
+    during the steps, where it would lower the peak below the case's own."""
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return torch.cuda.memory_allocated()
+
+
+def hold_arguments(base: int, argument: float) -> int:
+    """What the card holds above `base`, held within 1% of the case's
+    `argument` bytes (the allocator rounds to 512-byte blocks)."""
+    held = settled_bytes() - base
+    if abs(held - argument) > 0.01 * argument:
+        raise AssertionError(f"the card holds {held} B more than before "
+                             f"the case, not its {argument:.0f} B of "
+                             f"arguments")
+    return held
+
+
+def card_cell_config(remat: str):
+    """gemma2-2b as `dryrun.run_cell` changes it, under `remat`."""
+    return get_config("gemma2-2b").replace(
+        ssm_chunk=2048, attn_q_block=4096, attn_k_block=4096, remat=remat)
+
+
+def card_cell_run(mesh, plan_name: str, prefix: float, remat: str) -> dict:
+    """The card's own cell for real: `launch.train.make_step` with the dry
+    run's config and AdamW (`dryrun.run_cell`'s: lr 1e-4, no clipping) on
+    gemma2-2b from seed 0, params and moments DTensors on the (1, 1) mesh,
+    `CARD_STEPS` steps on `TRAIN_BATCH` from `default_rng(0)`: the bytes
+    of its arguments, the peak the steps allocated above what the card
+    held before the case began, each step's seconds and loss, and under
+    dots the first batch's gradients against remat full's (`remat_gap`,
+    taken before the steps and freed)."""
+    from repro_torch.launch import dryrun
+
+    cfg = card_cell_config(remat)
+    opt_cfg = AdamWConfig(lr=1e-4, clip_norm=0.0)
+    model = build_model(cfg)
+    G = model.num_freeze_units
+    plan = launch_train.half_prefix_plan(G) if prefix else None
+    if prefix and plan.groups != tuple(i < int(G * prefix)
+                                       for i in range(G)):
+        raise AssertionError("the half-prefix plan is not the dry run's")
+    base = settled_bytes()
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    moments = adamw_init(params, opt_cfg)
+    specs = sharding.param_specs(params, cfg, mesh)
+    opt_state = sharding.place(moments, sharding.opt_state_specs(
+        specs, moments, params), mesh)
+    params = sharding.place(params, specs, mesh)
+    del moments
+    B, S = TRAIN_BATCH
+    rng = np.random.default_rng(0)
+    batches = [launch_train.synthetic_batch(rng, cfg, B, S, "cuda")
+               for _ in range(CARD_STEPS)]
+    argument = dryrun.local_bytes((params, opt_state, batches[0]))
+    gap = remat_gap(model, cfg, params, batches[0], plan) \
+        if remat != "full" else None
+    step = launch_train.make_step(model, opt_cfg, plan, mesh)
+    held = hold_arguments(base, argument)
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    seconds, losses = [], []
+    for b in batches:
+        t0 = time.perf_counter()
+        params, opt_state, loss = step(params, opt_state, b)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        losses.append(loss.detach().cpu())
+    peak = torch.cuda.max_memory_allocated() - base
+    launches = read_launches()
+    del params, opt_state, step, batches
+    torch.cuda.empty_cache()
+    return {"plan": plan_name, "remat": remat, "argument": argument,
+            "held": held, "peak": peak, "seconds": seconds, "losses": losses,
+            "grads_gap": gap, "launches": launches}
+
+
+def card_grads_run(mesh, remat: str) -> dict:
+    """The card's own cell's loss and gradients alone, all active, under
+    `remat` (the dry run's ``update=False``): `launch.train.
+    _loss_and_grads` once on gemma2-2b from seed 0, params DTensors on
+    the (1, 1) mesh, `TRAIN_BATCH`'s first batch from `default_rng(0)`:
+    the bytes of its arguments and the peak allocated above what the card
+    held before the case began. Its peak is the activations' and remat's,
+    where the whole step's is AdamW's."""
+    from repro_torch.launch import dryrun
+
+    cfg = card_cell_config(remat)
+    model = build_model(cfg)
+    base = settled_bytes()
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    params = sharding.place(params, sharding.param_specs(params, cfg, mesh),
+                            mesh)
+    B, S = TRAIN_BATCH
+    batch = launch_train.synthetic_batch(np.random.default_rng(0), cfg, B,
+                                         S, "cuda")
+    argument = dryrun.local_bytes((params, batch))
+    held = hold_arguments(base, argument)
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    loss, grads = launch_train._loss_and_grads(model, params, batch, None,
+                                               mesh)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    launches = read_launches()
+    loss = float(loss)
+    del params, batch, grads
+    torch.cuda.empty_cache()
+    return {"remat": remat, "argument": argument, "held": held,
+            "peak": peak, "loss": loss, "launches": launches}
+
+
+def dryrun_phase() -> dict:
+    """The dry run (`launch.dryrun`) on the card machine. Its workers run
+    on the host through `orchestrate`, `DRYRUN_JOBS` at a time: the
+    production cells (`DRYRUN_CELLS`) at full width and depth, and the
+    card's own cell (`CARD_SHAPE` on the (1, 1) mesh): its whole step
+    under the all-active and half-prefix plans, each under remat full and
+    dots (`CARD_CASES`), and its loss and gradients alone under remat
+    none, full and dots (`GRAD_CASES`, ``--no-update``). The card first
+    runs the whole steps for real (`card_cell_run`), with the host to
+    itself so that their times are the steps'; then the workers start,
+    and meanwhile the card runs the loss-and-gradients cases
+    (`card_grads_run`), which read memory, not time. Each card case holds
+    the dry run's argument bytes equal to what its tensors hold, and its
+    predicted peak (argument + temp) within `PEAK_TOL` of the peak it
+    allocated: the whole steps' peak is AdamW's, the loss-and-gradients
+    cases' the activations' and remat's. A whole step prints `bound_s`
+    beside its median step time. The dots steps' losses and the first
+    batch's gradients are held to the full steps' (bitwise, or else
+    within 1e-3 of a leaf's max |g|, printed). No kernel launches: the dry
+    run and its card cell take the plain path; the launches the cases
+    counted are returned under "launches"."""
+    import threading
+
+    from repro_torch.launch import dryrun
+
+    t0 = time.perf_counter()
+    results = tempfile.mkdtemp(prefix="chip_smoke_dryrun_")
+    cells = [(a, s, m, "", ()) for a, s, m in DRYRUN_CELLS] + [
+        ("gemma2-2b", CARD_SHAPE, "one", f"{plan}_{remat}",
+         ("--freeze-prefix", str(prefix), "--remat", remat))
+        for plan, prefix, remat in CARD_CASES] + [
+        ("gemma2-2b", CARD_SHAPE, "one", f"grads_{remat}",
+         ("--remat", remat, "--no-update")) for remat in GRAD_CASES]
+    rc = []
+    workers = threading.Thread(target=lambda: rc.append(dryrun.orchestrate(
+        [], cells=cells, jobs=DRYRUN_JOBS, timeout=240,
+        results_dir=results)))
+    out = {"cells": {}, "card": {}, "grads": {}}
+    env = {k: os.environ.get(k) for k in ("PYTHONPATH", "EDGEOL_LOG")}
+    launch_mesh.init_world("cuda")
+    try:
+        mesh = launch_mesh.make_host_mesh(device="cuda")
+        runs = [card_cell_run(mesh, *case) for case in CARD_CASES]
+        card_s = time.perf_counter() - t0
+        # the workers find the port as this process does, and log
+        # warnings only
+        os.environ["PYTHONPATH"] = os.pathsep.join(
+            [str(Path(__file__).resolve().parent / "src")]
+            + ([env["PYTHONPATH"]] if env["PYTHONPATH"] else []))
+        os.environ["EDGEOL_LOG"] = "WARNING"
+        workers.start()
+        try:
+            grads_runs = [card_grads_run(mesh, remat)
+                          for remat in GRAD_CASES]
+        finally:
+            workers.join()
+    finally:
+        dist.destroy_process_group()
+        for k, v in env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    workers_s = time.perf_counter() - t0 - card_s
+
+    def record(arch, shape, mesh_name, tag=""):
+        path = dryrun.cell_filename(arch, shape, mesh_name, tag, results)
+        if not os.path.exists(path):
+            return {"status": "missing", "error": "no record (timed out?)"}
+        with open(path) as f:
+            return json.load(f)
+
+    try:
+        recs = {cell: record(*cell) for cell in DRYRUN_CELLS}
+        cards = {(plan, remat): record("gemma2-2b", CARD_SHAPE, "one",
+                                       f"{plan}_{remat}")
+                 for plan, _, remat in CARD_CASES}
+        grads = {remat: record("gemma2-2b", CARD_SHAPE, "one",
+                               f"grads_{remat}") for remat in GRAD_CASES}
+    finally:
+        shutil.rmtree(results, ignore_errors=True)
+    if rc != [0]:
+        bad = {c: r.get("error") for c, r in {**recs, **cards, **grads}
+               .items() if r["status"] not in ("ok", "skip")}
+        raise AssertionError(f"dry-run workers failed: {bad}")
+    print(f"  the card's whole steps alone first: {card_s:.1f} s; then "
+          f"{len(cells)} dry-run workers, {DRYRUN_JOBS} at a time on the "
+          f"host, beside the card's loss-and-gradients cases: "
+          f"{workers_s:.1f} s")
+    for (arch, shape, mesh_name), r in recs.items():
+        if r["status"] == "skip":
+            print(f"  {arch} {shape} {mesh_name}: skip ({r['reason']})")
+            out["cells"][f"{arch}/{shape}/{mesh_name}"] = {"status": "skip"}
+            continue
+        mem = r["memory_per_chip"]
+        peak = mem["argument"] + mem["temp"]
+        print(f"  {arch} {shape} {mesh_name} ({r['chips']} ranks): "
+              f"inputs {r['lower_s']} s, counted step {r['compile_s']} s; "
+              f"dominant {r['dominant']}, compute_s {r['compute_s']:.4g}, "
+              f"memory_s {r['memory_s']:.4g}, collective_s "
+              f"{r['collective_s']:.4g}; argument + temp {peak / 1e9:.2f} "
+              f"GB a rank; collectives {r['collective_counts']}")
+        out["cells"][f"{arch}/{shape}/{mesh_name}"] = {
+            k: r[k] for k in ("lower_s", "compile_s", "dominant",
+                              "compute_s", "memory_s", "collective_s",
+                              "flops_per_chip", "bytes_per_chip",
+                              "collective_bytes_per_chip",
+                              "collective_counts", "memory_per_chip",
+                              "roofline_fraction")}
+
+    def hold_peak(name, r, run) -> tuple:
+        """The case's record against the card: argument bytes equal, the
+        predicted peak within `PEAK_TOL` of the one allocated, no kernel
+        launched. Returns (predicted peak, its gap)."""
+        if r["status"] != "ok":
+            raise AssertionError(f"{name}: {r}")
+        mem = r["memory_per_chip"]
+        predicted = mem["argument"] + mem["temp"]
+        gap = abs(predicted - run["peak"]) / run["peak"]
+        print(f"  {name}: argument {mem['argument']:.0f} B predicted, "
+              f"{run['argument']:.0f} B on the card ({run['held']} B "
+              f"allocated for them); peak {predicted / 1e9:.3f} GB "
+              f"predicted (temp {mem['temp'] / 1e9:.3f}), "
+              f"{run['peak'] / 1e9:.3f} GB allocated ({100 * gap:.2f}% "
+              f"apart)")
+        if mem["argument"] != run["argument"]:
+            raise AssertionError(f"{name}: argument {mem['argument']} "
+                                 f"predicted, {run['argument']} on the "
+                                 f"card")
+        if gap > PEAK_TOL:
+            raise AssertionError(f"{name}: predicted peak {predicted:.0f} "
+                                 f"B is {100 * gap:.1f}% from the "
+                                 f"{run['peak']} B allocated")
+        if any(run["launches"].values()):
+            raise AssertionError(f"{name} launched {run['launches']}")
+        return predicted, gap
+
+    full = {}
+    for run, (plan, _, remat) in zip(runs, CARD_CASES, strict=True):
+        r = cards[(plan, remat)]
+        predicted, gap = hold_peak(f"card cell {plan} remat={remat}", r, run)
+        bound_s = max(r["compute_s"], r["memory_s"], r["collective_s"])
+        median = float(np.median(run["seconds"]))
+        print(f"    bound_s {bound_s:.4f} ({r['dominant']}) beside the "
+              f"median step {median:.4f} s: {bound_s / median:.3f} of the "
+              f"bound; losses "
+              f"{[round(float(x), 4) for x in run['losses']]}")
+        if remat == "full":
+            full[plan] = run
+        else:
+            same = all(torch.equal(a, b) for a, b in zip(
+                run["losses"], full[plan]["losses"], strict=True))
+            g = run["grads_gap"]
+            if same and g["loss_bitwise"] and not g["grad_gap"]:
+                print(f"    {remat} against full under {plan}: step losses, "
+                      f"and the first batch's loss and gradients, bitwise")
+            else:
+                step_gap = max(abs(float(a) - float(b)) for a, b in zip(
+                    run["losses"], full[plan]["losses"]))
+                print(f"    {remat} against full under {plan}: step losses "
+                      f"{'bitwise' if same else f'{step_gap:.3g} apart'}; "
+                      f"first batch loss {g['loss_gap']:.3g} apart, worst "
+                      f"gradient gap {g['grad_gap']:.3g} of its leaf's max "
+                      f"|g|")
+                if g["grad_gap"] > PAIR_TOL or g["loss_gap"] > PAIR_TOL:
+                    raise AssertionError(f"card cell {plan}: {remat} "
+                                         f"against full beyond {PAIR_TOL}")
+        out["card"][f"{plan}/{remat}"] = {
+            "argument": r["memory_per_chip"]["argument"],
+            "temp": r["memory_per_chip"]["temp"],
+            "predicted_peak": predicted, "allocated_peak": run["peak"],
+            "peak_gap": gap, "bound_s": bound_s, "dominant": r["dominant"],
+            "step_s": run["seconds"], "median_step_s": median,
+            "dryrun_compile_s": r["compile_s"],
+            "losses": [float(x) for x in run["losses"]]}
+    for run in grads_runs:
+        r = grads[run["remat"]]
+        predicted, gap = hold_peak(f"card cell loss and gradients alone, "
+                                   f"remat={run['remat']}", r, run)
+        out["grads"][run["remat"]] = {
+            "argument": r["memory_per_chip"]["argument"],
+            "temp": r["memory_per_chip"]["temp"],
+            "predicted_peak": predicted, "allocated_peak": run["peak"],
+            "peak_gap": gap, "loss": run["loss"]}
+    losses = {run["remat"]: run["loss"] for run in grads_runs}
+    if len(set(losses.values())) != 1:
+        print(f"    the loss-and-gradients cases' losses differ by remat: "
+              f"{losses}")
+    out["launches"] = {k: sum(run["launches"][k] for run in runs + grads_runs)
+                       for k in ("flash_attention", "cka_terms", "wkv6")}
+    del runs, grads_runs, full
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t0
+    print(f"  the dry-run phase took {out['seconds']:.1f} s")
+    return out
+
+
 def kernels_micro_phase(card: str) -> dict:
     """`repro_torch.harness.kernels_micro` on the card: its document
     valid, each kernel held against its plain version on the reference's
@@ -4830,6 +5200,10 @@ def main() -> None:
     phase("phase 3: the distributed layer: launch.train on gemma2-2b at "
           "full width and depth on the (1, 1) mesh, DTensor params, NCCL")
     distributed = distributed_phase()
+    phase("phase 3: the dry run: production cells on the 256- and 512-rank "
+          "fake meshes on the host, the card's own cell held against the "
+          "card")
+    dry = dryrun_phase()
     phase("phase 3: kernels_micro, each kernel against its plain version")
     micro = kernels_micro_phase(card)
     phase("phase 3: DeiT-tiny serving and SimFreeze probes at full width")
@@ -4884,6 +5258,7 @@ def main() -> None:
          "launches": distributed["launch_train"],
          "launches_by_path": {
              "launch_train": distributed["launch_train"],
+             "dryrun_card_cell": dry["launches"]["flash_attention"],
              "kernels_micro": micro["launches"]["flash_attention"],
              "mixed_loop": mixed["flash_eager"],
              "compiled mixed": mixed["flash_card"],
@@ -4903,6 +5278,7 @@ def main() -> None:
              "harness_table4": harness["table4"]},
          "max_abs_err": bert_att_err, **bert["attention"]["loop"],
          "launch_train_run": distributed,
+         "dryrun": dry,
          "kernels_micro": micro["cells"][0],
          "bert_serving": bert["attention"]["serving"],
          "deit_tiny": {"max_abs_err": att_err, **att},
@@ -4916,6 +5292,7 @@ def main() -> None:
          "launches": micro["launches"]["cka_terms"],
          "launches_by_path": {
              "kernels_micro": micro["launches"]["cka_terms"],
+             "dryrun_card_cell": dry["launches"]["cka_terms"],
              "cnn_loop_mobilenetv2": mbv2_launches["cka_terms"],
              "cnn_loop_resnet50": resnet_launches["cka_terms"],
              "etuner_loop": loop_launches["cka_terms"],
@@ -4945,6 +5322,7 @@ def main() -> None:
          "replaces": "src/repro/kernels/rwkv/kernel.py:58",
          "launches": micro["launches"]["wkv6"],
          "launches_by_path": {"kernels_micro": micro["launches"]["wkv6"],
+                              "dryrun_card_cell": dry["launches"]["wkv6"],
                               "rwkv6_serving": wkv_launches,
                               "rwkv6_train": train["rwkv6_train"]},
          "max_abs_err": wkv_err, **wkv,

@@ -6,9 +6,10 @@ decoder LMs: the attention, RoPE/M-RoPE, frontend-stub and block-layout
 fields of the attention LMs, the rwkv6 fields, and the MoE and hybrid
 fields of jamba, qwen3-moe and kimi-k2, and the MoE's group-local
 dispatch (`moe_local_dispatch`) and the sharding fields
-(`attn_batch_shard`, `shard_head_dim`); `ShapeConfig` and the four LM shapes;
-the analytic parameter counts. The JAX config's other sharding and
-dry-run fields wait for the port's dry run (ROADMAP A.9)."""
+(`attn_batch_shard`, `shard_head_dim`); `ShapeConfig` and the four LM
+shapes; the analytic parameter counts. The reference's `scan_unroll` has
+no counterpart: the port's layers are always a Python loop, so an
+override of it fails as an unknown field."""
 from __future__ import annotations
 
 import dataclasses
@@ -99,10 +100,9 @@ class ModelConfig:
     # the JAX model stacks the layers and scans over them; the port always
     # runs them as a Python loop over per-layer params (the bridge unstacks)
     scan_layers: bool = True
-    # recompute in the backward each group's forward (`full`); `none`
-    # keeps every activation. The reference's `dots` raises until the
-    # port's launch/ (ROADMAP A.9)
-    remat: str = "full"          # 'none' | 'full'
+    # recompute in the backward each group's forward (`full`), all of it
+    # but the matmuls' outputs (`dots`), or none of it (`none`)
+    remat: str = "full"          # 'none' | 'full' | 'dots'
     attn_chunk: int = 2048       # blockwise attention above this length
     attn_q_block: int = 2048     # blockwise attention q block
     attn_k_block: int = 2048     # blockwise attention kv block

@@ -3,9 +3,9 @@
 
 61L d_model=7168 64H (GQA kv=8) d_ff=2048 (expert hidden) vocab=163840,
 MoE 384e top-8. Unverified tier: we follow the assigned table verbatim
-(GQA attention, no MLA, no shared expert). At ~1T params this config only
-fits a 256-chip v5e pod with heavy FSDP + low-precision optimizer state;
-the dry-run memory analysis reports the honest per-chip bytes.
+(GQA attention, no MLA, no shared expert). At ~1T params (2 TB in bf16)
+it fits no single card; the dry run (`launch/dryrun.py`) reports its
+bytes per rank on the production meshes.
 
 The same values as `repro.configs.kimi_k2_1t_a32b`.
 """

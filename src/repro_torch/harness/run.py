@@ -5,8 +5,8 @@ and writes JSON to `results_torch/`.
 Quick mode (default) uses one seed and the lighter model/benchmark pairs;
 `--full` widens models, seeds and benchmarks. All time and energy figures
 come from the calibrated `EdgeCostModel` over the port's train-step FLOP
-counts. `roofline_table` is not here: it formats the distributed dry
-run's output, which waits for the port of `roofline/` (ROADMAP A.9).
+counts. `roofline_table` formats the dry run's records
+(`launch/dryrun.py`, in `results_torch/dryrun/`).
 
     python -m repro_torch.harness.run --only tab2 [--full] [--device cpu]
 """
@@ -136,10 +136,36 @@ def fig13_14_sensitivity(full: bool, device=None):
     return rows
 
 
+def roofline_table(full: bool, device=None):
+    """§Roofline: format the dry-run JSONs into the 40-cell table."""
+    import glob
+    import json
+    import os
+
+    from repro_torch.launch.dryrun import RESULTS_DIR
+
+    rows = []
+    for path in sorted(glob.glob(os.path.join(RESULTS_DIR,
+                                              "*__single.json"))):
+        with open(path) as f:
+            r = json.load(f)
+        rows.append(r)
+        if r.get("status") == "ok":
+            print(f"roofline,{r['arch']}/{r['shape']},dom={r['dominant']} "
+                  f"compute_s={r['compute_s']:.3g} "
+                  f"memory_s={r['memory_s']:.3g} "
+                  f"collective_s={r['collective_s']:.3g} "
+                  f"frac={r['roofline_fraction']:.4f}")
+        else:
+            print(f"roofline,{r['arch']}/{r['shape']},{r['status']}")
+    return rows
+
+
 TABLES = {
     "tab2": tab2_accuracy, "tab3": tab3_flops, "tab4": tab4_nlp,
     "tab5": tab5_sota, "tab6": tab6_semi, "tab7": tab7_static,
     "tab8": tab8_quant, "fig13": fig13_14_sensitivity,
+    "roofline": roofline_table,
 }
 
 

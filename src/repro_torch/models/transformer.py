@@ -164,23 +164,42 @@ def _positions(x: torch.Tensor) -> torch.Tensor:
     return torch.arange(S, device=x.device).expand(B, S)
 
 
-REMAT_DOTS = ("remat='dots' (recompute all but the matmuls' outputs) comes "
-              "with its first caller, launch/dryrun.py (ROADMAP A.9)")
+# the ops whose outputs `remat="dots"` keeps: the reference's
+# `checkpoint_dots` saves every `dot_general`, which these are in torch
+_DOTS = frozenset((torch.ops.aten.mm, torch.ops.aten.bmm, torch.ops.aten.addmm,
+                   torch.ops.aten.baddbmm))
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    from torch.utils.checkpoint import CheckpointPolicy
+
+    return CheckpointPolicy.MUST_SAVE if op.overloadpacket in _DOTS \
+        else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _dots_context():
+    from torch.utils.checkpoint import create_selective_checkpoint_contexts
+
+    return create_selective_checkpoint_contexts(_save_dots)
 
 
 def _remat(fn, cfg: ModelConfig):
     """A group body with its activations recomputed in the backward, as
     the reference's `_remat` wraps it in `jax.checkpoint` where
-    `cfg.scan_layers`: `none` keeps them, `full` keeps none. Only a
+    `cfg.scan_layers`: `none` keeps them, `full` keeps none, `dots` keeps
+    the matmuls' outputs and recomputes the rest (selective
+    checkpointing, the reference's `checkpoint_dots` policy). Only a
     forward that a backward will run through is wrapped; recomputing runs
     the same ops on the same inputs, so the gradient does not change."""
-    if cfg.remat == "dots":
-        raise NotImplementedError(REMAT_DOTS)
-    if cfg.remat not in ("none", "full"):
-        raise ValueError(f"remat must be 'none' or 'full'; got {cfg.remat!r}")
+    if cfg.remat not in ("none", "full", "dots"):
+        raise ValueError(f"remat must be 'none', 'full' or 'dots'; got "
+                         f"{cfg.remat!r}")
     if not cfg.scan_layers or cfg.remat == "none" or \
             not torch.is_grad_enabled():
         return fn
+    if cfg.remat == "dots":
+        return lambda *args: checkpoint(fn, *args, use_reentrant=False,
+                                        context_fn=_dots_context)
     return lambda *args: checkpoint(fn, *args, use_reentrant=False)
 
 

@@ -1,9 +1,9 @@
 """The continual-learning runtime (counterpart of `repro.runtime`): the
 composition root (`ContinualRuntime`, `edgeol_session`, `RuntimeConfig`),
 the one-device `DeviceFleet` and its `DeviceRuntime`, the `ModelPool`,
-scheduler, cost model, ledger, inference server, train steps (eager, and
-the compiled path's CUDA graphs) and the fine-tuning executor.
-`PodCostModel`, the TPU pod's cost model, is not ported (ROADMAP A.9)."""
+scheduler, cost models (the edge device's, and `PodCostModel`, the dry
+run's H100 cluster), ledger, inference server, train steps (eager, and
+the compiled path's CUDA graphs) and the fine-tuning executor."""
 from repro_torch.env.spec import EnvSpec
 from repro_torch.obs.spec import TelemetrySpec
 from repro_torch.runtime.config import (DeviceConfig, HookSpec, RuntimeConfig,
@@ -11,7 +11,8 @@ from repro_torch.runtime.config import (DeviceConfig, HookSpec, RuntimeConfig,
                                         materialize_stream_benchmarks)
 from repro_torch.runtime.continual import (ContinualRuntime, RunResult,
                                            edgeol_session)
-from repro_torch.runtime.costmodel import EdgeCostModel, scale_cost
+from repro_torch.runtime.costmodel import (EdgeCostModel, PodCostModel,
+                                           scale_cost)
 from repro_torch.runtime.device import DeviceRuntime
 from repro_torch.runtime.executor import (FineTuneExecutor, ReplayBuffer,
                                           RoundHook, RoundReport)
@@ -27,7 +28,7 @@ from repro_torch.runtime.modelpool import ModelPool, ModelSlot
 from repro_torch.runtime.scheduler import EventScheduler
 from repro_torch.runtime.train_loop import TrainStepCache, evaluate
 
-__all__ = ["EdgeCostModel", "ContinualRuntime", "RunResult",
+__all__ = ["EdgeCostModel", "PodCostModel", "ContinualRuntime", "RunResult",
            "TrainStepCache", "evaluate", "EventScheduler", "InferenceServer",
            "FineTuneExecutor", "ReplayBuffer", "RoundHook", "RoundReport",
            "CostLedger", "BREAKDOWN_KEYS", "STREAM_KEYS", "MODEL_KEYS",

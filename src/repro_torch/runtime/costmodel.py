@@ -1,6 +1,4 @@
-"""Execution-cost model of the edge device (counterpart of
-`repro.runtime.costmodel`; `PodCostModel` and its TPU v5e constants are
-not carried over).
+"""Execution-cost models (counterpart of `repro.runtime.costmodel`).
 
 ``EdgeCostModel`` — Jetson-Xavier-NX-class device for the paper-faithful
 experiments. Time/energy are *modeled* from FLOPs plus per-round
@@ -8,10 +6,15 @@ overheads, not measured. Constants are calibrated so that immediate
 fine-tuning reproduces the paper's Fig. 3 breakdown: overheads (system
 init + model load/save) = ~58% of round time and ~38% of round energy on
 ResNet50 with 16-image batches. All outputs that use it are model-derived.
+
+``PodCostModel`` — the H100 roofline constants of the dry run's cluster
+(`roofline/h100.py`: dense bf16, HBM3, one NDR InfiniBand NIC a GPU).
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
+
+from repro_torch.roofline.h100 import HBM_BW, LINK_BW, PEAK_FLOPS
 
 
 @dataclass(frozen=True)
@@ -71,3 +74,20 @@ def scale_cost(cost: EdgeCostModel, *, speed: float = 1.0,
         t_save_s=cost.t_save_s / speed,
         t_recompile_s=cost.t_recompile_s / speed)
 
+
+@dataclass(frozen=True)
+class PodCostModel:
+    peak_flops: float = PEAK_FLOPS    # dense bf16 / GPU
+    hbm_bw: float = HBM_BW            # bytes/s / GPU
+    link_bw: float = LINK_BW          # bytes/s / GPU across nodes
+    chips: int = 256
+
+    def roofline_terms(self, hlo_flops: float, hlo_bytes: float,
+                       collective_bytes: float):
+        """The three roofline terms, in seconds, of a whole step's global
+        FLOPs, bytes and collective bytes (all GPUs)."""
+        return {
+            "compute_s": hlo_flops / (self.chips * self.peak_flops),
+            "memory_s": hlo_bytes / (self.chips * self.hbm_bw),
+            "collective_s": collective_bytes / (self.chips * self.link_bw),
+        }

@@ -81,16 +81,24 @@ def test_remat_leaves_gradients_bitwise_unchanged(arch, monkeypatch):
 
 
 @pytest.mark.parametrize("remat, error", [
-    ("dots", NotImplementedError), ("Full", ValueError),
-    ("offload", ValueError)])
+    ("dots", None), ("Full", ValueError), ("offload", ValueError)])
 def test_remat_refuses_what_it_does_not_run(remat, error):
-    """The reference's `dots` waits for its first caller (launch/, ROADMAP
-    A.9) and raises; a value the reference does not know raises too, where
-    it would quietly run `full`."""
+    """A value the reference does not know raises, where it would quietly
+    run `full`; the reference's `dots` runs, and its gradients are
+    `none`'s bitwise (tests/test_torch_remat.py holds them against the
+    reference's)."""
     _, _, _, model, params = _pair("gemma2-2b")
     batch = _torch(_batch(model.cfg))
     odd = build_model(model.cfg.replace(remat=remat), device="cpu")
-    with pytest.raises(error, match="A.9" if remat == "dots" else "remat"):
+    if error is None:
+        got = grads_of(odd.loss, params, batch, None)
+        want = grads_of(build_model(model.cfg.replace(remat="none"),
+                                    device="cpu").loss, params, batch, None)
+        assert torch.equal(got[0], want[0])
+        for (name, a), (_, b) in zip(_named(got[2]), _named(want[2])):
+            assert torch.equal(a, b), name
+        return
+    with pytest.raises(error, match="remat"):
         grads_of(odd.loss, params, batch, None)
 
 
