@@ -108,8 +108,8 @@ class ModelConfig:
     attn_k_block: int = 2048     # blockwise attention kv block
     ssm_chunk: int = 128         # mamba / rwkv chunk length (sequence blocking)
     ssm_dtype: str = "float32"   # mamba state-expansion dtype
-    # per-data-shard top-k routing under an activation mesh (no global
-    # token gather; capacity split per shard): `models.moe._dispatch_shards`
+    # per-data-shard top-k routing in a sharded step (no global token
+    # gather; capacity split per shard): `models.moe._moe_spmd`
     moe_local_dispatch: bool = False
     # batch-shard attention over (data x model) where the heads do not
     # divide the model axis (`models.attention`'s activation hints)

@@ -29,7 +29,11 @@ dim of every large param over the data axes (and the pod axis).
 `hint` is the reference's activation-layout assertion: under
 `activation_sharding(mesh)` it redistributes a DTensor activation to its
 spec; a plain tensor passes through untouched, and so does everything
-outside `activation_sharding`.
+outside `activation_sharding`. The sharded LM step (`distributed/
+spmd.py`) enters `activation_sharding` and runs the model on each rank's
+local shards, plain tensors already laid out as the hints name (batch
+over the data axes; heads, hidden dims, vocabulary and experts over
+`model` where the params' specs split them), so there they pass through.
 """
 from __future__ import annotations
 

@@ -23,7 +23,14 @@ def forward_only(name: str, *tensors) -> None:
     """Raise where autograd would need a backward: the kernels have none,
     and a CUDA kernel's output carries no `grad_fn`, so the gradient would
     be dropped without a word. The check is the same on every device, so
-    the CPU route, which runs the plain version, refuses the same calls."""
+    the CPU route, which runs the plain version, refuses the same calls.
+    Raise too on a DTensor, which has no data pointer for a kernel: a
+    sharded step hands the kernels each rank's local shards."""
+    from torch.distributed.tensor import DTensor
+
+    if any(isinstance(t, DTensor) for t in tensors):
+        raise TypeError(f"{name} takes a rank's local tensors, not a "
+                        f"DTensor (its kernel reads a data pointer)")
     if needs_backward(*tensors):
         raise RuntimeError(
             f"{name} is forward-only (its kernel has no backward): call it "

@@ -9,15 +9,17 @@ model 16), and 1 for ``one``, the (1, 1) mesh of a world of one that
 runs, on fake tensors under `roofline.analysis.StepCostCounter`, the
 step the port would really run:
 
-- train: `launch/train.py::make_step`. The params are gathered whole at
-  one boundary, the rank's data rows are its own, the gradients are
-  averaged over the data axes and AdamW updates the shards. With
-  ``update=False`` (``--no-update``) the step stops before AdamW: the
-  loss and gradients alone (`launch.train._loss_and_grads`), whose peak
-  is the activations' and remat's, not the optimizer's;
-- prefill and decode: the same boundary. The params are gathered whole,
-  and the model runs `lm_prefill` or `lm_decode` on the rank's data rows;
-  a decode's cache is gathered to the rank's data rows (`_rows`).
+- train: `launch/train.py::make_step`, the sharded step
+  (`distributed/spmd.py`): the rank's data rows are its own, each layer
+  gathers its params' FSDP shards for its use and computes its part
+  over `model`, the gradients are reduce-scattered back to the params'
+  placements and AdamW updates the shards. With ``update=False``
+  (``--no-update``) the step stops before AdamW: the loss and gradients
+  alone (`launch.train._loss_and_grads`), whose peak is the activations'
+  and remat's, not the optimizer's;
+- prefill and decode: the same sharded step under `torch.no_grad`,
+  `lm_prefill` or `lm_decode` on the rank's shards of the batch; a
+  decode writes its token into the rank's shard of the cache.
 
 The record carries the reference's keys: the counted FLOPs, bytes and
 collectives per rank, `memory_per_chip` (`argument`: the local bytes of
@@ -118,22 +120,19 @@ def fake_world(mesh_name: str):
 
 
 def _rows(leaf):
-    """A DTensor leaf as the plain tensor of this rank's data rows: its
-    shards over the data axes of dim 0 kept, every other dim gathered
-    whole."""
-    from torch.distributed.tensor import DTensor, Replicate
+    """A batch leaf as the plain tensor of this rank's shard: its rows
+    where the batch specs split them over the data axes."""
+    from torch.distributed.tensor import DTensor
 
-    from repro_torch.distributed import sharding as sh
+    return leaf.to_local() if isinstance(leaf, DTensor) else leaf
 
-    if not isinstance(leaf, DTensor):
-        return leaf
-    mesh = leaf.device_mesh
-    data = set(sh.data_axes(mesh))
-    keep = tuple(p if name in data and p.is_shard(0) else Replicate()
-                 for name, p in zip(mesh.mesh_dim_names, leaf.placements))
-    if keep != tuple(leaf.placements):
-        leaf = leaf.redistribute(mesh, keep)
-    return leaf.to_local()
+
+def _split_rows(leaf) -> bool:
+    """Whether a batch leaf's rows are split over the data axes."""
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(leaf, DTensor) and any(
+        p.is_shard(0) for p in leaf.placements)
 
 
 def local_bytes(tree) -> float:
@@ -161,7 +160,7 @@ def count_step(cfg, shape, mesh, policy, opt_cfg, frozen_groups: int = 0,
 
     from repro_torch import tree_map
     from repro_torch.core.freeze_plan import FreezePlan
-    from repro_torch.distributed.elastic import whole
+    from repro_torch.distributed import spmd
     from repro_torch.launch import specs as S
     from repro_torch.launch.train import _loss_and_grads, make_step
     from repro_torch.models import build_model
@@ -189,23 +188,25 @@ def count_step(cfg, shape, mesh, policy, opt_cfg, frozen_groups: int = 0,
 
                 args = (params, batch)
         elif shape.kind == "prefill":
-            def step(params, batch):
-                with torch.no_grad():
-                    return T.lm_prefill(tree_map(whole, params), cfg, batch)
+            specs = S.prefill_batch_specs(cfg, shape, mesh, policy)
+            rows = _split_rows(specs["tokens"])
 
-            args = (params, tree_map(_rows, S.prefill_batch_specs(
-                cfg, shape, mesh, policy)))
+            def step(params, batch):
+                with torch.no_grad(), spmd.step(mesh, rows):
+                    return T.lm_prefill(params, cfg, batch)
+
+            args = (params, tree_map(_rows, specs))
         else:
             cache, _ = S.cache_structs(cfg, shape, mesh, policy)
             pos = shape.seq_len - 1
+            tokens = S.decode_token_specs(cfg, shape, mesh, policy)
+            rows = _split_rows(tokens)
 
             def step(params, cache, tokens):
-                with torch.no_grad():
-                    return T.lm_decode(tree_map(whole, params), cfg, tokens,
-                                       tree_map(_rows, cache), pos)
+                with torch.no_grad(), spmd.step(mesh, rows):
+                    return T.lm_decode(params, cfg, tokens, cache, pos)
 
-            args = (params, cache,
-                    _rows(S.decode_token_specs(cfg, shape, mesh, policy)))
+            args = (params, cache, _rows(tokens))
         build_s = time.time() - t0
         counter = StepCostCounter(arguments=args)
         with counter:

@@ -13,15 +13,17 @@ Params (the port's init from seed 0, or the caller's: bridged JAX params,
 for one) are placed as DTensors by `distributed.sharding.param_specs`
 through `named`, and AdamW's moments by `opt_state_specs`; AdamW updates
 them as DTensors, each rank its own shards (`implicit_replication` lets
-its scalars and step count in). The model itself meets the DTensors at
-one boundary, gathered to plain tensors (`_loss_and_grads`: each leaf's
-whole value by `elastic.whole`): the loss and its gradients run on plain
-tensors, so every op, `remat` and the hand-written kernels' autograd
-Functions (flash attention, WKV6) see what they see on one card. Each
-rank's gradients are then averaged over the data axes
-(`collectives.hierarchical_grad_sync`, where those axes hold more than
-one rank) and cut to the params' placements. A rank trains on its data
-shard's rows of each global batch.
+its scalars and step count in). The loss and its gradients are the
+sharded step (`_loss_and_grads` under `distributed.spmd.step`): a rank
+trains on its data shard's rows of each global batch, each layer gathers
+its params' FSDP shards for its use and computes its part of the heads,
+the MLP, the vocabulary and the experts over `model`
+(`distributed/spmd.py`), and the gradients come back placed as the
+params are, summed over the data axes by the reduce-scatters of that
+gather's backward. A frozen leaf is detached before its gather, so its
+gradient is zeros and nothing of it is sent. The hand-written kernels
+(flash attention, WKV6) run on each rank's local heads. No param is
+gathered whole but for a checkpoint.
 
 As in the reference: AdamW at lr 1e-3 with no schedule, batches of
 uniform tokens from `default_rng(0)`, the half-prefix plan (the first
@@ -47,7 +49,7 @@ from repro_torch.configs import ARCHS, get_config, get_reduced
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.freeze_plan import FreezePlan
 from repro_torch.distributed import sharding as sh
-from repro_torch.distributed.collectives import hierarchical_grad_sync
+from repro_torch.distributed import spmd
 from repro_torch.distributed.elastic import whole
 from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.launch.platform import bootstrap
@@ -72,27 +74,23 @@ def _data_shards(mesh) -> tuple:
 
 
 def _loss_and_grads(model, params, batch, plan, mesh):
-    """The loss and the params' gradients, the model run on plain tensors
-    (DTensor params gathered whole), the gradients averaged over the data
-    axes and placed as their params are."""
-    from torch.distributed.tensor import DTensor
-
-    local = tree_map(whole, params)
-    loss, _, grads = grads_of(model.loss, local, batch, plan)
+    """The loss and the params' gradients: on `mesh` the sharded step on
+    this rank's rows of the batch, the gradients placed as their params
+    (DTensors), the loss the global batch's."""
     if mesh is None:
+        loss, _, grads = grads_of(model.loss, params, batch, plan)
         return loss, grads
-    if _data_shards(mesh)[1] > 1:
-        grads = hierarchical_grad_sync(mesh, grads)
-        loss = hierarchical_grad_sync(mesh, {"loss": loss})["loss"]
-
-    def cut(g, p):
-        if not isinstance(p, DTensor):
-            return g
-        from torch.distributed.tensor import distribute_tensor
-        return distribute_tensor(g, p.device_mesh, p.placements,
-                                 src_data_rank=None)
-
-    return loss, tree_map(cut, grads, params)
+    if mesh.size() == 1:
+        # one rank holds every leaf whole: its local tensors are taken
+        # once here, not at each use (DTensor's host dispatch), and the
+        # gradients placed as the params are
+        local, back = spmd.local(params)
+        with spmd.step(mesh):
+            loss, _, grads = grads_of(model.loss, local, batch, plan)
+        return loss, back(grads)
+    with spmd.step(mesh):
+        loss, _, grads = grads_of(model.loss, params, batch, plan)
+    return loss, grads
 
 
 def make_step(model, opt_cfg: AdamWConfig, plan, mesh=None):

@@ -30,6 +30,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed import sharding as shd
+from repro_torch.distributed import spmd
 from repro_torch.kernels import kernel_route
 from repro_torch.kernels.attention import ops as att_ops
 from repro_torch.models import common
@@ -63,9 +64,32 @@ def _out_proj(out: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
     return out.reshape(*out.shape[:2], -1) @ wo.reshape(-1, wo.shape[-1])
 
 
+# the head_dim axis of each attention param (`shard_head_dim` specs may
+# put it on `model`)
+_HD_DIM = {"wq": 2, "wk": 2, "wv": 2, "wo": 1, "bq": 1, "bk": 1, "bv": 1}
+
+
+def _whole_hd(p: dict, cfg: ModelConfig) -> dict:
+    """`p` with any param split over `model` by head_dim (a
+    `shard_head_dim` spec, where the heads do not divide `model`)
+    gathered along it: RoPE pairs entries hd / 2 apart, so the heads'
+    computation runs whole on every rank."""
+    return {k: spmd.gather_model(v, _HD_DIM[k])
+            if k in _HD_DIM and spmd.split(v, _HD_DIM[k], cfg.head_dim)
+            else v for k, v in p.items()}
+
+
 def _project_qkv(p: dict, cfg: ModelConfig, x: torch.Tensor,
                  positions: torch.Tensor):
-    q, k, v = _proj(x, p["wq"]), _proj(x, p["wk"]), _proj(x, p["wv"])
+    """q, k, v [B, S, H, hd] with RoPE; in a sharded step each holds the
+    heads its weight holds (`wq` split over `model` by heads gives this
+    rank's H / tp)."""
+    split_q = spmd.split(p["wq"], 1, cfg.num_heads)
+    split_kv = spmd.split(p["wk"], 1, cfg.num_kv_heads)
+    xm = spmd.to_model(x) if split_q or split_kv else x
+    q = _proj(xm if split_q else x, p["wq"])
+    k = _proj(xm if split_kv else x, p["wk"])
+    v = _proj(xm if split_kv else x, p["wv"])
     if cfg.qkv_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
     q, k, v = (_hint_heads(cfg, t) for t in (q, k, v))
@@ -80,6 +104,35 @@ def _project_qkv(p: dict, cfg: ModelConfig, x: torch.Tensor,
         q = common.apply_rope(q, positions, cfg.rope_theta)
         k = common.apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
+
+
+def _local_kv(cfg: ModelConfig, q, k, v):
+    """k and v cut to the KV heads of q's heads, where q holds this rank's
+    H / tp query heads and k, v every KV head (the spec replicates the KV
+    heads on `model`: gemma2-2b's 4 on 16). A rank's query heads read a
+    run of whole KV heads, or one KV head, or (where neither divides the
+    other) each its own, gathered. Each rank reads a part of k and v, so
+    their gradients are all-reduced over `model` (`to_model`)."""
+    Hq, Hkv = q.shape[2], k.shape[2]
+    if Hq == cfg.num_heads or Hkv != cfg.num_kv_heads:
+        return k, v
+    k, v = spmd.to_model(k), spmd.to_model(v)
+    g = cfg.num_heads // cfg.num_kv_heads
+    lo = spmd.part(cfg.num_heads)[0]
+    if Hq % g == 0:
+        return k[:, :, lo // g:(lo + Hq) // g], v[:, :, lo // g:(lo + Hq) // g]
+    if g % Hq == 0:
+        return k[:, :, lo // g:lo // g + 1], v[:, :, lo // g:lo // g + 1]
+    idx = (lo + torch.arange(Hq, device=q.device)) // g
+    return k.index_select(2, idx), v.index_select(2, idx)
+
+
+def _output(p: dict, cfg: ModelConfig, out: torch.Tensor) -> torch.Tensor:
+    """The output projection of [B, S, H, hd]: row-parallel, its parts
+    summed over `model`, where `wo` is split by heads."""
+    y = _out_proj(out, p["wo"])
+    return spmd.from_model(y) if spmd.split(p["wo"], 0, cfg.num_heads) \
+        else y
 
 
 def _hint_heads(cfg: ModelConfig, t: torch.Tensor) -> torch.Tensor:
@@ -205,10 +258,12 @@ def _attend(cfg: ModelConfig, q, k, v, q_pos, window: int) -> torch.Tensor:
 
 
 def _self_attention(p: dict, cfg: ModelConfig, x, positions, window: int):
+    p = _whole_hd(p, cfg)
     pos1d = positions[0] if positions.dim() == 3 else positions
     q, k, v = _project_qkv(p, cfg, x, positions)
     q_pos = pos1d[0] if pos1d.dim() == 2 else pos1d  # per-row positions
-    return _out_proj(_attend(cfg, q, k, v, q_pos, window), p["wo"]), k, v
+    kl, vl = _local_kv(cfg, q, k, v)
+    return _output(p, cfg, _attend(cfg, q, kl, vl, q_pos, window)), k, v
 
 
 def attention_train(p: dict, cfg: ModelConfig, x: torch.Tensor,
@@ -241,7 +296,11 @@ def attention_decode(p: dict, cfg: ModelConfig, x: torch.Tensor,
     Returns the output [B, 1, D] and a new cache holding this token's k
     and v at `pos` (the given cache is left as it is). As the reference's
     `dynamic_update_slice`, a `pos` past the cache writes at its last
-    row."""
+    row. A cache of DTensors (a sharded step's) takes `_decode_sharded`."""
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(cache["k"], DTensor):
+        return _decode_sharded(p, cfg, x, cache, pos, window)
     B = x.shape[0]
     L = cache["k"].shape[1]
     positions = torch.full((B, 1), pos, dtype=torch.long, device=x.device)
@@ -263,3 +322,68 @@ def attention_decode(p: dict, cfg: ModelConfig, x: torch.Tensor,
     probs = torch.softmax(scores, dim=-1).to(v.dtype)
     out = torch.einsum("bkgs,bskh->bkgh", probs, v).reshape(B, 1, Hq, hd)
     return _out_proj(out, p["wo"]), {"k": k, "v": v}
+
+
+def _decode_sharded(p: dict, cfg: ModelConfig, x: torch.Tensor,
+                    cache: dict, pos: int, window: int):
+    """`attention_decode` on a sharded cache, this rank's shard of it
+    (`cache_specs`: the batch or, for a batch the data axes do not split,
+    the sequence over the data axes; the KV heads or else hd over
+    `model`). The token's q, k and v are gathered whole over `model` (one
+    row each); the rank writes the k and v it holds, scores its KV heads
+    on its hd (summed over `model` where hd is split), and takes the
+    softmax over a sequence split over the data axes as a max and a sum
+    over them. The heads' outputs go through `wo` as `_output` does."""
+    ctx = spmd.current()
+    p = _whole_hd(p, cfg)
+    local, back = spmd.local(cache)
+    k, v = local["k"], local["v"]
+    B, Ll, Hc, dc = k.shape
+    L = cache["k"].shape[1]
+    _, l0, h0, d0 = spmd.offsets(cache["k"])
+    Hq, hd, Hkv = cfg.num_heads, cfg.head_dim, cfg.num_kv_heads
+    g = Hq // Hkv
+    positions = torch.full((B, 1), pos, dtype=torch.long, device=x.device)
+    q, k_new, v_new = _project_qkv(p, cfg, x, positions)
+    if q.shape[2] != Hq:
+        q = spmd.all_gather(q, ctx.model_group, ctx.tp, 2)
+    if k_new.shape[2] != Hkv:
+        k_new = spmd.all_gather(k_new, ctx.model_group, ctx.tp, 2)
+        v_new = spmd.all_gather(v_new, ctx.model_group, ctx.tp, 2)
+    row = min(max(pos, 0), L - 1)
+    k, v = k.clone(), v.clone()
+    if l0 <= row < l0 + Ll:
+        k[:, row - l0] = k_new[:, 0, h0:h0 + Hc, d0:d0 + dc].to(k.dtype)
+        v[:, row - l0] = v_new[:, 0, h0:h0 + Hc, d0:d0 + dc].to(v.dtype)
+    qg = q.reshape(B, Hkv, g, hd)[:, h0:h0 + Hc, :, d0:d0 + dc]
+    scores = torch.einsum("bkgh,bskh->bkgs", qg, k).float()
+    if dc != hd:
+        scores = spmd.all_reduce(scores, ctx.model_group)
+    scores = scores / _inv_sqrt(hd)[0]
+    scores = common.softcap(scores, cfg.attn_logit_softcap)
+    k_pos = l0 + torch.arange(Ll, device=x.device)
+    mask = k_pos <= pos
+    if window:
+        mask &= (pos - k_pos) < window
+    scores = torch.where(mask, scores, NEG_INF)
+    if Ll != L:
+        m = spmd.all_reduce(scores.amax(dim=-1, keepdim=True),
+                            ctx.data_group, "max")
+        e = torch.exp(scores - m)
+        probs = (e / spmd.all_reduce(e.sum(dim=-1, keepdim=True),
+                                     ctx.data_group)).to(v.dtype)
+    else:
+        probs = torch.softmax(scores, dim=-1).to(v.dtype)
+    out = torch.einsum("bkgs,bskh->bkgh", probs, v)
+    if Ll != L:
+        out = spmd.all_reduce(out, ctx.data_group)
+    if dc != hd:
+        out = spmd.all_gather(out, ctx.model_group, ctx.tp, 3)
+    out = out.reshape(B, 1, Hc * g, hd)     # q heads h0 * g ...
+    if Hc == Hkv and spmd.split(p["wo"], 0, Hq):
+        lo, hi = spmd.part(Hq)
+        out = out[:, :, lo:hi]
+    y = _out_proj(out, p["wo"])
+    if spmd.split(p["wo"], 0, Hq):
+        y = spmd.all_reduce(y, ctx.model_group)
+    return y, back({"k": k, "v": v})

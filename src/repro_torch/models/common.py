@@ -17,6 +17,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import spmd
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
@@ -154,33 +155,77 @@ def embed_tokens(p: dict, cfg: ModelConfig, tokens: torch.Tensor,
     """tokens [B, S] -> [B, S, d] in the table's dtype (tied tables scale
     by sqrt(d), rounded to that dtype first, as in JAX). With a frontend,
     the stub's precomputed patch / frame embeddings [B, F, frontend_dim]
-    are projected and prepended: [B, F + S, d]."""
-    x = F.embedding(tokens.long(), p["tok"])
+    are projected and prepended: [B, F + S, d]. In a sharded step a table
+    split over `model` by the vocabulary looks up the rows it holds and
+    the ranks' rows are summed; a projection split by d is gathered."""
+    table = p["tok"]
+    if spmd.split(table, 0, cfg.vocab_size):
+        lo, hi = spmd.part(cfg.vocab_size)
+        ids = tokens.long()
+        inside = (ids >= lo) & (ids < hi)
+        x = F.embedding((ids - lo).clamp(0, hi - lo - 1), table)
+        x = spmd.from_model(torch.where(inside[..., None], x, 0.0))
+    else:
+        x = F.embedding(tokens.long(), table)
     if cfg.is_lm and cfg.tie_embeddings:
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype)
     if frontend_embeds is not None and cfg.frontend != "none":
-        pre = frontend_embeds.to(x.dtype) @ p["frontend_proj"]
+        proj = p["frontend_proj"]
+        pre = frontend_embeds.to(x.dtype) @ proj
+        if spmd.split(proj, 1, cfg.d_model):
+            pre = spmd.gather_model(pre, -1)
         x = torch.cat([pre, x], dim=1)
     return x
 
 
 def lm_logits(p: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     """[B, S, d] -> fp32 logits [B, S, V]; the product runs in the
-    activations' dtype and is cast after, as in JAX."""
-    logits = x @ (p["tok"].T if cfg.tie_embeddings else p["head"])
+    activations' dtype and is cast after, as in JAX. A head split over
+    `model` by the vocabulary gives this rank's logits [B, S, V / tp]."""
+    head = p["tok"].T if cfg.tie_embeddings else p["head"]
+    if spmd.split(head, 1, cfg.vocab_size):
+        x = spmd.to_model(x)
+    logits = x @ head
     return softcap(logits.float(), cfg.final_logit_softcap)
 
 
 def cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
-                  mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                  mask: Optional[torch.Tensor] = None,
+                  vocab: Optional[int] = None) -> torch.Tensor:
     """Mean negative log-likelihood of `targets`, computed in fp32 with
-    the max shifted out first."""
+    the max shifted out first. In a sharded step, logits split over
+    `model` by the vocabulary (fewer than `vocab`) take the max, the sum
+    of exponentials and the target's logit as reductions over `model`,
+    and a batch split over the data axes gives this rank's share of the
+    global mean (`spmd.data_sum` adds the shares)."""
     logits = logits.float()
+    split = vocab is not None and logits.shape[-1] != vocab
     m = logits.max(dim=-1, keepdim=True).values.detach()
+    if split:
+        m = spmd.model_max(m)
     shifted = logits - m
-    logz = torch.log(torch.exp(shifted).sum(dim=-1))
-    picked = shifted.gather(-1, targets.long()[..., None])[..., 0]
+    sumexp = torch.exp(shifted).sum(dim=-1)
+    if split:
+        sumexp = spmd.from_model(sumexp)
+    logz = torch.log(sumexp)
+    if split:
+        lo, hi = spmd.part(vocab)
+        ids = targets.long()
+        inside = (ids >= lo) & (ids < hi)
+        picked = shifted.gather(-1, (ids - lo).clamp(0, hi - lo - 1)[
+            ..., None])[..., 0]
+        picked = spmd.from_model(torch.where(inside, picked, 0.0))
+    else:
+        picked = shifted.gather(-1, targets.long()[..., None])[..., 0]
     nll = logz - picked
+    n = spmd.nd()
     if mask is not None:
-        return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+        count = mask.sum()
+        if n > 1:
+            count = spmd.data_total(count)
+            return spmd.data_sum((nll * mask).sum()
+                                 / torch.clamp(count, min=1.0))
+        return (nll * mask).sum() / torch.clamp(count, min=1.0)
+    if n > 1:
+        return spmd.data_sum(nll.sum() / (nll.numel() * n))
     return nll.mean()

@@ -19,6 +19,13 @@ Cast points follow the reference: `in_proj` and `x_proj` in the params'
 dtype with the projection cast to fp32; `dt_proj`, `dt_bias`, `A_log`
 and `D_skip` fp32; the scan in `cfg.ssm_dtype`; `y` cast to the
 activation dtype before ``* silu(z)``.
+
+In a sharded step the spec splits the inner channels over `model`: a
+rank runs the conv, the scan and `D_skip` on its di / tp channels,
+`x_proj` and `out_proj` are row-parallel (their parts summed over
+`model`), `dt_proj` column-parallel. `in_proj`'s columns are split over
+`model` across its x and z halves, so its output is gathered and each
+rank takes its channels of both.
 """
 from __future__ import annotations
 
@@ -31,6 +38,7 @@ import torch.nn.functional as F
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed import sharding as shd
+from repro_torch.distributed import spmd
 from repro_torch.models import common
 
 
@@ -80,11 +88,38 @@ def _causal_conv(p: dict, x: torch.Tensor, width: int) -> torch.Tensor:
     return out + p["conv_b"]
 
 
+def _in_proj(p: dict, cfg: ModelConfig, x: torch.Tensor):
+    """x [B, S, D] -> (x1, z), this rank's channels of each half of
+    `in_proj`'s output."""
+    di = d_inner(cfg)
+    w = p["in_proj"]
+    split_in = spmd.split(w, 1, 2 * di)
+    xz = (spmd.to_model(x) if split_in else x) @ w
+    if split_in:
+        xz = spmd.gather_model(xz, -1)
+    xz = shd.hint(xz, shd.BATCH_AXES, None, "model")
+    x1, z = xz.chunk(2, dim=-1)
+    if spmd.split(p["conv_w"], 1, di):
+        x1, z = spmd.to_model(x1), spmd.to_model(z)
+        lo, hi = spmd.part(di)
+        x1, z = x1[..., lo:hi], z[..., lo:hi]
+    return x1, z
+
+
+def _out(p: dict, cfg: ModelConfig, y: torch.Tensor) -> torch.Tensor:
+    out = y @ p["out_proj"]
+    return spmd.from_model(out) \
+        if spmd.split(p["out_proj"], 0, d_inner(cfg)) else out
+
+
 def _ssm_inputs(p: dict, cfg: ModelConfig, xc: torch.Tensor):
     """xc: [B, S, di] (after the conv and silu). Returns the log decay
     [B, S, di, N] (<= 0), the drive [B, S, di, N] and C [B, S, N], fp32."""
     R, N = dt_rank(cfg), cfg.mamba_state
-    proj = (xc @ p["x_proj"]).float()
+    proj = xc @ p["x_proj"]
+    if spmd.split(p["x_proj"], 0, d_inner(cfg)):
+        proj = spmd.to_model(spmd.from_model(proj))
+    proj = proj.float()
     dt_in, Bc, Cc = torch.split(proj, [R, N, N], dim=-1)
     dt = _softplus(dt_in @ p["dt_proj"] + p["dt_bias"])  # [B, S, di]
     A = -torch.exp(p["A_log"])                           # [di, N]
@@ -113,9 +148,9 @@ def mamba_train(p: dict, cfg: ModelConfig, x: torch.Tensor, chunk: int = 0,
     [B, di, N], ``conv`` [B, w - 1, di]) for a prefill."""
     B, S, _ = x.shape
     chunk = chunk or cfg.ssm_chunk
-    di, N = d_inner(cfg), cfg.mamba_state
-    xz = shd.hint(x @ p["in_proj"], shd.BATCH_AXES, None, "model")
-    x1, z = xz.chunk(2, dim=-1)
+    N = cfg.mamba_state
+    x1, z = _in_proj(p, cfg, x)
+    di = x1.shape[-1]
     xc = F.silu(_causal_conv(p, x1, cfg.mamba_conv))
     log_decay, drive, Cc = _ssm_inputs(p, cfg, xc)
 
@@ -135,7 +170,7 @@ def mamba_train(p: dict, cfg: ModelConfig, x: torch.Tensor, chunk: int = 0,
     y = torch.cat(ys, dim=1).float()
     y = y + p["D_skip"] * xc.float()
     y = y.to(x.dtype) * F.silu(z)
-    out = y @ p["out_proj"]
+    out = _out(p, cfg, y)
     state = None
     if return_state:
         w = cfg.mamba_conv
@@ -156,7 +191,7 @@ def init_mamba_state(cfg: ModelConfig, batch: int, device=None) -> dict:
 def mamba_decode(p: dict, cfg: ModelConfig, x: torch.Tensor,
                  state: dict) -> Tuple[torch.Tensor, dict]:
     """x: [B, 1, D]; the exact recurrent step."""
-    x1, z = (x @ p["in_proj"])[:, 0].chunk(2, dim=-1)  # [B, di]
+    x1, z = (t[:, 0] for t in _in_proj(p, cfg, x))     # [B, di]
     conv_buf = torch.cat([state["conv"], x1[:, None].float()], dim=1)
     xc = torch.einsum("bwd,wd->bd", conv_buf, p["conv_w"].float())
     xc = F.silu(xc + p["conv_b"].float())
@@ -165,4 +200,4 @@ def mamba_decode(p: dict, cfg: ModelConfig, x: torch.Tensor,
     y = torch.einsum("bdn,bn->bd", h, Cc[:, 0])
     y = y + p["D_skip"] * xc
     y = (y.to(x.dtype) * F.silu(z))[:, None]
-    return y @ p["out_proj"], {"h": h, "conv": conv_buf[:, 1:]}
+    return _out(p, cfg, y), {"h": h, "conv": conv_buf[:, 1:]}

@@ -1,11 +1,15 @@
 """Gated (SwiGLU / GeGLU) feed-forward block, ported from
-`repro.models.mlp`: ``act(x Wg) * (x Wu) Wd``, dense weights [in, out]."""
+`repro.models.mlp`: ``act(x Wg) * (x Wu) Wd``, dense weights [in, out].
+In a sharded step whose spec splits the hidden dim over `model`, `wg` and
+`wu` are column-parallel and `wd` row-parallel, the parts summed over
+`model`."""
 from __future__ import annotations
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed import sharding as shd
+from repro_torch.distributed import spmd
 from repro_torch.models import common
 
 
@@ -18,6 +22,10 @@ def init_mlp(gen: torch.Generator, cfg: ModelConfig) -> dict:
 
 
 def mlp(p: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    split = spmd.split(p["wd"], 0, cfg.d_ff)
+    if split:
+        x = spmd.to_model(x)
     g = common.activation(x @ p["wg"], cfg.act)
     h = shd.hint(g * (x @ p["wu"]), shd.BATCH_AXES, None, "model")
-    return h @ p["wd"]
+    y = h @ p["wd"]
+    return spmd.from_model(y) if split else y

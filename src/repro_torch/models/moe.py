@@ -9,16 +9,29 @@ dropped; slots whose gate is 0 (more slots than routed tokens) compute
 but add nothing. The Switch aux loss ``E * sum(mean(probs) *
 mean(one_hot(top1)))`` balances the load.
 
-Group-local routing (`cfg.moe_local_dispatch`, under an activation mesh
-whose data axes have several shards that divide the batch:
-`_dispatch_shards`): the T tokens split into shard-major groups and
-every expert picks its capacity within each group, so the token gather
-never crosses the data axis. Without it, or with no mesh, routing is
-global.
+Routing is global on one card (`cfg.moe_local_dispatch` or not, as in
+the reference with no mesh). Group-local routing, where every expert
+picks its capacity within each data shard's tokens so the token gather
+never crosses the data axes, runs in the sharded step (`_moe_spmd`,
+below); `_moe_dispatch(groups=)` computes it on the whole batch, the
+reference's form that the tests hold the sharded step to.
 
 The combine is `index_put_(accumulate=True)`: it sums the E * C slots
 into their tokens in a fixed order, so two runs give the same bits on
 the card, where `index_add_` adds by atomics in any order.
+
+In a sharded step (`_moe_spmd`) a rank holds its data shard's tokens,
+the same on every rank of `model`, and, where the spec puts the experts
+on `model`, its E / tp experts. The router's logits are gathered over
+`model`, and every rank routes its tokens alike. Group-local routing
+picks each expert's capacity within the rank's own tokens (one group a
+data shard, as the reference groups them) and needs no data collective.
+Global routing merges each expert's local top-C over the data axes (the
+global top-C lies in their union) and splits the capacity slots over the
+data axes, as the reference's hint places the expert buffers: the
+tokens reach their slots by a reduce-scatter and the slots' outputs
+their tokens by an all-gather. The experts' parts of each token's output
+are summed over `model`.
 """
 from __future__ import annotations
 
@@ -29,6 +42,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed import sharding as shd
+from repro_torch.distributed import spmd
 from repro_torch.models import common
 
 
@@ -76,26 +90,12 @@ def kept_pairs(tok_idx: torch.Tensor, gval: torch.Tensor,
     return kept.scatter_(1, tok_idx, gval > 0).T
 
 
-def _dispatch_shards(cfg: ModelConfig, batch: int) -> int:
-    """Local-dispatch granularity: the data-parallel shard count, so every
-    expert selects its capacity per data shard."""
-    if not cfg.moe_local_dispatch:
-        return 1
-    mesh = shd._current_mesh()
-    if mesh is None:
-        return 1
-    n = shd._axis_size(mesh, shd.data_axes(mesh))
-    return n if n > 1 and batch % n == 0 else 1
-
-
 def moe_ffn(p: dict, cfg: ModelConfig,
             x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: [B, S, D] -> (out [B, S, D], aux loss, an fp32 scalar)."""
     B, S, _ = x.shape
-    ns = _dispatch_shards(cfg, B)
-    if ns > 1:
-        return _moe_dispatch(p, cfg, x, groups=ns, capacity=max(
-            8, moe_capacity(cfg, B * S) // ns))
+    if spmd.current() is not None:
+        return _moe_spmd(p, cfg, x, spmd.current())
     return _moe_dispatch(p, cfg, x, groups=1,
                          capacity=moe_capacity(cfg, B * S))
 
@@ -150,4 +150,68 @@ def _moe_dispatch(p: dict, cfg: ModelConfig, x: torch.Tensor, *,
     me = probs.mean(dim=0)
     ce = F.one_hot(eidx[:, 0], E).float().mean(dim=0)
     aux = E * (me * ce).sum()
+    return out.reshape(B, S, D), aux
+
+
+def _moe_spmd(p: dict, cfg: ModelConfig, x: torch.Tensor,
+              ctx) -> Tuple[torch.Tensor, torch.Tensor]:
+    """`moe_ffn` in a sharded step on this rank's tokens x [B, S, D] (its
+    data shard's rows) and experts (module docstring)."""
+    B, S, D = x.shape
+    T, E, K = B * S, cfg.num_experts, cfg.experts_per_token
+    nd = ctx.nd
+    local = cfg.moe_local_dispatch and nd > 1
+    C = max(8, moe_capacity(cfg, T * nd) // nd) if local \
+        else moe_capacity(cfg, T * nd)
+    xt = x.reshape(T, D)
+    split_r = spmd.split(p["router"], 1, E)
+    split_e = spmd.split(p["wg"], 0, E)
+    xm = spmd.to_model(xt) if split_r or split_e else xt
+    logits = (xm if split_r else xt).float() @ p["router"]
+    if split_r:
+        logits = spmd.gather_model(logits, -1)
+    probs = torch.softmax(logits, dim=-1)
+    gates, eidx = torch.topk(probs, K, dim=-1)
+    gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
+    gate_te = torch.zeros_like(probs).scatter_(1, eidx, gates)
+    xin = xm if split_e else xt
+    if split_e:
+        lo, hi = spmd.part(E)
+        gate_te = spmd.to_model(gate_te)[:, lo:hi]
+    if local or nd == 1:
+        gval, tok = torch.topk(gate_te.T, C, dim=-1)           # [El, C]
+        ye = _experts(p, cfg, xin[tok])
+        ye = ye * gval[..., None].to(ye.dtype)
+        rows, contrib = tok.reshape(-1), ye.reshape(-1, D)
+    else:
+        # each expert's global top-C, from every data shard's local top-C
+        kl = min(C, T)
+        vals, idx = torch.topk(gate_te.T, kl, dim=-1)          # [El, kl]
+        vals = spmd.gather_data(vals, 1)
+        idx = spmd.all_gather(idx + ctx.dr * T, ctx.data_group, nd, 1)
+        gval, sel = torch.topk(vals, C, dim=-1)
+        tok = idx.gather(1, sel)                               # global ids
+        Cs = -(-C // nd)
+        if Cs * nd != C:   # slots that hold no token: gate 0, token 0
+            gval = F.pad(gval, (0, Cs * nd - C))
+            tok = F.pad(tok, (0, Cs * nd - C))
+        mine = (tok // T) == ctx.dr
+        rows = torch.where(mine, tok - ctx.dr * T, 0)
+        xe = torch.where(mine[..., None], xin[rows], 0.0)
+        xe = spmd.scatter_data(xe, 1)                           # [El, Cs, D]
+        ye = _experts(p, cfg, xe)
+        ye = ye * gval[:, ctx.dr * Cs:(ctx.dr + 1) * Cs, None].to(ye.dtype)
+        ye = spmd.gather_data(ye, 1)                            # [El, C', D]
+        contrib = torch.where(mine[..., None], ye, 0.0).reshape(-1, D)
+        rows = rows.reshape(-1)
+    out = torch.zeros((T, D), dtype=contrib.dtype,
+                      device=x.device).index_put_((rows,), contrib,
+                                                  accumulate=True)
+    if split_e:
+        out = spmd.from_model(out)
+    me = probs.sum(dim=0)
+    ce = F.one_hot(eidx[:, 0], E).float().sum(dim=0)
+    if nd > 1:
+        me, ce = spmd.data_sum(me), spmd.data_total(ce)
+    aux = E * ((me / (T * nd)) * (ce / (T * nd))).sum()
     return out.reshape(B, S, D), aux

@@ -17,6 +17,15 @@ the chunk count (ROADMAP C.4). Decode is the exact single-step recurrence.
 Cast points follow JAX exactly, since in bf16 they decide the rounding:
 r, k, v and logw go to fp32 before the recurrence, `o` is cast to the
 activation dtype before the group norm, and the norm computes in fp32.
+
+In a sharded step the projections are split over `model` as the spec
+places them (r, k, v, g and the decay's `wB` by output channel, `wo` by
+input channel; the channel mix's `wk` by its hidden dim, `wv` and `wr` by
+output channel). Where the heads divide `model` (`u` split), a rank's
+channels are its heads and the recurrence runs on them; where they do
+not (rwkv6-3b's 40 heads over 16), r, k, v, g and the decay are gathered
+and the recurrence runs whole on every rank, as the reference
+replicates it.
 """
 from __future__ import annotations
 
@@ -28,6 +37,7 @@ import torch.nn.functional as F
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed import sharding as shd
+from repro_torch.distributed import spmd
 from repro_torch.kernels import kernel_route
 from repro_torch.kernels.rwkv import ops as wkv_ops
 from repro_torch.models import common
@@ -97,8 +107,14 @@ def _silu(x: torch.Tensor) -> torch.Tensor:
 
 
 def _decay(p: dict, xw: torch.Tensor) -> torch.Tensor:
-    """log w (negative) per channel: [B, S, D] fp32."""
-    lw = p["w0"] + torch.tanh(xw.float() @ p["wA"]) @ p["wB"]
+    """log w (negative) per channel: [B, S, D] fp32 (this rank's channels
+    where `wB` is split over `model`)."""
+    t = torch.tanh(xw.float() @ p["wA"])
+    if spmd.split(p["wB"], 1, xw.shape[-1]):
+        lo, hi = spmd.part(xw.shape[-1])
+        lw = spmd.to_model(p["w0"])[lo:hi] + spmd.to_model(t) @ p["wB"]
+    else:
+        lw = p["w0"] + t @ p["wB"]
     return -torch.exp(lw)
 
 
@@ -113,17 +129,49 @@ def _group_norm(x: torch.Tensor, scale, bias, H: int, eps=1e-5) -> torch.Tensor:
 
 
 def _rkvgw(p: dict, cfg: ModelConfig, x: torch.Tensor, xp: torch.Tensor):
-    H, n = num_heads(cfg), cfg.rwkv_head_size
+    """r, k, v, logw [B, S, H, n] (fp32) and g [B, S, D]: this rank's
+    heads where `u` is split over `model`, else every head."""
+    n = cfg.rwkv_head_size
     B, S, D = x.shape
-    r = _lerp(x, xp, p["mu"][0]) @ p["wr"]
-    k = _lerp(x, xp, p["mu"][1]) @ p["wk"]
-    v = _lerp(x, xp, p["mu"][2]) @ p["wv"]
-    g = _silu(_lerp(x, xp, p["mu"][3]) @ p["wg"])
+    split = spmd.split(p["wr"], 1, D)
+    xs = [_lerp(x, xp, p["mu"][i]) for i in range(4)]
+    if split:
+        xs = [spmd.to_model(a) for a in xs]
+    r = xs[0] @ p["wr"]
+    k = xs[1] @ p["wk"]
+    v = xs[2] @ p["wv"]
+    g = _silu(xs[3] @ p["wg"])
     logw = _decay(p, _lerp(x, xp, p["mu"][4]))
-    shape = (B, S, H, n)
+    if split and not spmd.split(p["u"], 0, num_heads(cfg)):
+        r, k, v, g, logw = (spmd.gather_model(a, -1)
+                            for a in (r, k, v, g, logw))
+    shape = (B, S, -1, n)
     r, k, v = (shd.hint(a.reshape(shape).float(), shd.BATCH_AXES, None,
                         "model", None) for a in (r, k, v))
     return r, k, v, g, logw.reshape(shape)
+
+
+def _time_mix_out(p: dict, cfg: ModelConfig, o: torch.Tensor,
+                  g: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """The group norm of the recurrence's output o [B, S, H, n] (its
+    heads), the gate and `wo`: row-parallel, its parts summed over
+    `model`, where `wo` is split (a rank whose o is whole takes its own
+    channels)."""
+    B, S, H, n = o.shape
+    D = x.shape[-1]
+    scale, bias = p["ln_x_scale"], p["ln_x_bias"]
+    if H * n != D:
+        lo, hi = spmd.part(D)
+        scale = spmd.to_model(scale)[lo:hi]
+        bias = spmd.to_model(bias)[lo:hi]
+    o = _group_norm(o.reshape(B, S, H * n).to(x.dtype), scale, bias, H)
+    og = o * g
+    if not spmd.split(p["wo"], 0, D):
+        return og @ p["wo"]
+    if H * n == D:
+        lo, hi = spmd.part(D)
+        og = spmd.to_model(og)[..., lo:hi]
+    return spmd.from_model(og @ p["wo"])
 
 
 def wkv_chunked(r, k, v, logw, u, chunk: int = 64):
@@ -165,29 +213,42 @@ def time_mix_train(p: dict, cfg: ModelConfig, x: torch.Tensor, chunk: int = 0,
                    return_state: bool = False):
     B, S, D = x.shape
     chunk = chunk or min(cfg.ssm_chunk, max(S, 1))
-    H = num_heads(cfg)
     xp = _token_shift(x)
     r, k, v, g, logw = _rkvgw(p, cfg, x, xp)
     if kernel_route(cfg.use_pallas, r, k, v, logw, p["u"]):
         o, s_fin = wkv_ops.wkv(r, k, v, logw, p["u"], return_state=True)
     else:
         o, s_fin = wkv_chunked(r, k, v, logw, p["u"], chunk=chunk)
-    o = _group_norm(o.reshape(B, S, D).to(x.dtype),
-                    p["ln_x_scale"], p["ln_x_bias"], H)
-    out = (o * g) @ p["wo"]
+    out = _time_mix_out(p, cfg, o, g, x)
     state = None
     if return_state:
         state = {"s": s_fin, "x_tm": x[:, -1].float()}
     return out, state
 
 
-def channel_mix_train(p: dict, cfg: ModelConfig, x: torch.Tensor,
-                      state: dict = None, return_state: bool = False):
-    xp = _token_shift(x)
+def _channel_mix(p: dict, cfg: ModelConfig, x: torch.Tensor,
+                 xp: torch.Tensor) -> torch.Tensor:
+    """sigmoid(rx Wr) * (relu(kx Wk)^2 Wv). In a sharded step `wk` is
+    split over `model` by the hidden dim and `wv`, `wr` by output
+    channel (both by d_model, so together): the hidden activations are
+    gathered for `wv`, and the product's channels after it."""
     kx = _lerp(x, xp, p["mu"][0])
     rx = _lerp(x, xp, p["mu"][1])
-    k = torch.square(F.relu(kx @ p["wk"]))
+    split_k = spmd.split(p["wk"], 1, cfg.d_ff)
+    split_d = spmd.split(p["wv"], 1, x.shape[-1])
+    k = torch.square(F.relu((spmd.to_model(kx) if split_k else kx)
+                            @ p["wk"]))
+    if split_k:
+        k = spmd.gather_model(k, -1)
+    if split_d:
+        k, rx = spmd.to_model(k), spmd.to_model(rx)
     out = _sigmoid(rx @ p["wr"]) * (k @ p["wv"])
+    return spmd.gather_model(out, -1) if split_d else out
+
+
+def channel_mix_train(p: dict, cfg: ModelConfig, x: torch.Tensor,
+                      state: dict = None, return_state: bool = False):
+    out = _channel_mix(p, cfg, x, _token_shift(x))
     new_state = None
     if return_state:
         new_state = dict(state or {})
@@ -214,8 +275,6 @@ def init_rwkv_state(cfg: ModelConfig, batch: int, device=None) -> dict:
 def time_mix_decode(p: dict, cfg: ModelConfig, x: torch.Tensor,
                     state: dict) -> Tuple[torch.Tensor, dict]:
     """x: [B, 1, D]."""
-    B, _, D = x.shape
-    H = num_heads(cfg)
     xp = state["x_tm"].to(x.dtype)[:, None]
     r, k, v, g, logw = _rkvgw(p, cfg, x, xp)
     r1, k1, v1, lw1 = r[:, 0], k[:, 0], v[:, 0], logw[:, 0]   # [B,H,n]
@@ -224,17 +283,12 @@ def time_mix_decode(p: dict, cfg: ModelConfig, x: torch.Tensor,
         + (r1 * p["u"] * k1).sum(-1, keepdim=True) * v1
     S_new = torch.exp(lw1)[..., None] * S_prev \
         + k1[..., :, None] * v1[..., None, :]
-    o = _group_norm(o.reshape(B, 1, D).to(x.dtype),
-                    p["ln_x_scale"], p["ln_x_bias"], H)
-    out = (o * g) @ p["wo"]
+    out = _time_mix_out(p, cfg, o[:, None], g, x)
     return out, {**state, "s": S_new, "x_tm": x[:, 0].float()}
 
 
 def channel_mix_decode(p: dict, cfg: ModelConfig, x: torch.Tensor,
                        state: dict) -> Tuple[torch.Tensor, dict]:
     xp = state["x_cm"].to(x.dtype)[:, None]
-    kx = _lerp(x, xp, p["mu"][0])
-    rx = _lerp(x, xp, p["mu"][1])
-    k = torch.square(F.relu(kx @ p["wk"]))
-    out = _sigmoid(rx @ p["wr"]) * (k @ p["wv"])
+    out = _channel_mix(p, cfg, x, xp)
     return out, {**state, "x_cm": x[:, 0].float()}

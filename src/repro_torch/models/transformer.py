@@ -22,6 +22,13 @@ checkpointing, as the reference's `jax.checkpoint` of a group body).
 Params: ``{"embed": {"tok", "head", "frontend_proj"}, "final_norm",
 "blocks": [...]}``; dense weights are [in, out], the JAX layout.
 
+Params may be DTensors placed by `distributed.sharding.param_specs`: in
+a sharded step (`distributed.spmd.step`) a layer takes its params at
+their use (`spmd.use`: FSDP shards gathered over the data axes, the
+`model` placement kept) inside the group body, so remat gathers them
+again in its recompute, and the blocks compute on their parts; the
+logits stay split over the vocabulary and the loss is reduced over it.
+
 A modality frontend (qwen2-vl's vision stub, musicgen's audio stub)
 prepends its projected embeddings (`batch["frontend_embeds"]`) to the
 tokens; the loss drops their positions before the head.
@@ -37,6 +44,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch import resolve_device, tree_map
 from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed import sharding as shd
+from repro_torch.distributed import spmd
 from repro_torch.core.freeze_plan import FreezePlan, lm_segments, maybe_stop
 from repro_torch.models import attention, common, mamba, mlp, moe, rwkv6
 
@@ -96,6 +104,10 @@ def _apply_block(p: dict, cfg: ModelConfig, x: torch.Tensor, offset: int,
     kind = cfg.layer_kind(offset)
     window = cfg.layer_window(offset)
     aux = None
+    p = spmd.use_tree(p)
+    back = None
+    if mode == "decode" and kind != "attn":
+        cache, back = spmd.local(cache)
     x = shd.hint(x, shd.BATCH_AXES, None, None)
     h = common.rms_norm(x, p["ln1"], cfg.norm_eps)
     c = None
@@ -138,6 +150,8 @@ def _apply_block(p: dict, cfg: ModelConfig, x: torch.Tensor, offset: int,
                                        return_state=(mode == "prefill"))
     if cfg.post_norms:
         f = common.rms_norm(f, p["ln2_post"], cfg.norm_eps)
+    if back is not None:
+        c = back(c)
     return x + f, c, aux
 
 
@@ -239,9 +253,22 @@ def _run(blocks, cfg: ModelConfig, x, mode: str, caches=None,
 
 def _embed(params, cfg: ModelConfig, batch: dict, frozen: bool = False):
     emb = maybe_stop(params["embed"], frozen)
-    x = common.embed_tokens(emb, cfg, batch["tokens"],
+    used = {k: spmd.use(emb[k]) for k in ("tok", "frontend_proj")
+            if k in emb}
+    x = common.embed_tokens(used, cfg, batch["tokens"],
                             batch.get("frontend_embeds"))
     return shd.hint(x, shd.BATCH_AXES, None, None), emb
+
+
+def _head(embed: dict, cfg: ModelConfig) -> dict:
+    """The head's table at its use: the token table where tied."""
+    name = "tok" if cfg.tie_embeddings else "head"
+    return {name: spmd.use(embed[name])}
+
+
+def _logits(params, cfg: ModelConfig, x, head=None) -> torch.Tensor:
+    x = common.rms_norm(x, spmd.use(params["final_norm"]), cfg.norm_eps)
+    return common.lm_logits(_head(head or params["embed"], cfg), cfg, x)
 
 
 def lm_loss(params, cfg: ModelConfig, batch: dict,
@@ -272,18 +299,27 @@ def lm_loss(params, cfg: ModelConfig, batch: dict,
                 x = x.detach()
             else:
                 prefix_stops_grad = False
-    x = common.rms_norm(x, params["final_norm"], cfg.norm_eps)
     F = x.shape[1] - batch["tokens"].shape[1]
     if F > 0:
         x = x[:, F:]
     head = emb if cfg.tie_embeddings else params["embed"]
     head = maybe_stop(head, bool(plan and plan.head))
-    logits = shd.hint(common.lm_logits(head, cfg, x), shd.BATCH_AXES, None,
+    logits = shd.hint(_logits(params, cfg, x, head), shd.BATCH_AXES, None,
                       "model")
-    loss = common.cross_entropy(logits, batch["targets"], batch.get("mask"))
+    loss = common.cross_entropy(logits, batch["targets"], batch.get("mask"),
+                                vocab=cfg.vocab_size)
     total = loss + cfg.router_aux_coef * aux
     return total, {"loss": loss, "aux_loss": aux,
-                   "logits_mean": logits.mean()}
+                   "logits_mean": _mean(logits, cfg)}
+
+
+def _mean(logits: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """The logits' mean; in a sharded step over every rank's part."""
+    if spmd.current() is None:
+        return logits.mean()
+    total = spmd.data_total(spmd.model_total(logits.detach().sum()))
+    n = logits.numel() * spmd.nd() * cfg.vocab_size // logits.shape[-1]
+    return total / n
 
 
 def lm_features(params, cfg: ModelConfig, batch: dict) -> List[torch.Tensor]:
@@ -325,21 +361,18 @@ def lm_prefill(params, cfg: ModelConfig, batch: dict):
     x, _ = _embed(params, cfg, batch)
     x, caches, _, _ = _run(params["blocks"], cfg, x, "prefill",
                            positions=_positions(x))
-    x = common.rms_norm(x, params["final_norm"], cfg.norm_eps)
-    logits = common.lm_logits(params["embed"], cfg, x[:, -1:])
-    return logits[:, 0], caches
+    return _logits(params, cfg, x[:, -1:])[:, 0], caches
 
 
 def lm_decode(params, cfg: ModelConfig, tokens: torch.Tensor, caches, pos):
     """tokens: [B, 1]; pos: the token's position (an int), which the
     attention blocks write and attend at; rwkv blocks do not read it.
     Returns (logits [B, V], caches)."""
-    x = common.embed_tokens(params["embed"], cfg, tokens)
+    x = common.embed_tokens({"tok": spmd.use(params["embed"]["tok"])}, cfg,
+                            tokens)
     x, caches_out, _, _ = _run(params["blocks"], cfg, x, "decode", caches,
                                pos=pos)
-    x = common.rms_norm(x, params["final_norm"], cfg.norm_eps)
-    logits = common.lm_logits(params["embed"], cfg, x)
-    return logits[:, 0], caches_out
+    return _logits(params, cfg, x)[:, 0], caches_out
 
 
 def build(cfg: ModelConfig, device: torch.device):

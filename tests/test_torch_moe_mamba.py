@@ -553,29 +553,54 @@ def test_group_local_dispatch_matches_reference():
                                atol=1e-5)
 
 
-def test_moe_ffn_reads_the_data_axis_only_under_local_dispatch():
-    """`_dispatch_shards`: the activation mesh's data shards where
-    `cfg.moe_local_dispatch` is set and they divide the batch, else 1."""
-    import torch.distributed as dist
-    from torch.distributed.device_mesh import init_device_mesh
-    from torch.testing._internal.distributed.fake_pg import FakeStore
+_LOCAL_RANK = """
+from repro_torch.configs import get_reduced
+from repro_torch.distributed import spmd
+from repro_torch.launch.mesh import make_mesh
+from repro_torch.models import moe
 
-    from repro_torch.distributed import sharding as shd
+cfg = get_reduced("qwen3-moe-30b-a3b").replace(dtype="float32",
+                                               param_dtype="float32")
+p = {k: torch.from_numpy(inp[k]) for k in ("router", "wg", "wu", "wd")}
+x = torch.from_numpy(inp["x"])
+mesh = make_mesh((2, 1), ("data", "model"), device="cpu")
+half = x.shape[0] // 2
+out = {}
+for name, c in (("local", cfg.replace(moe_local_dispatch=True)),
+                ("global", cfg)):
+    with torch.no_grad(), spmd.step(mesh):
+        y, aux = moe.moe_ffn(p, c, x[rank * half:(rank + 1) * half])
+    out[name] = [y.tolist(), float(aux)]
+"""
+
+
+def test_moe_ffn_reads_the_data_axis_only_under_local_dispatch(tmp_path):
+    """`moe_ffn` in the sharded step on a (data, model) = (2, 1) gloo
+    world, each rank its half of the batch: under
+    `cfg.moe_local_dispatch` every expert picks its capacity within its
+    rank's tokens (`_moe_dispatch(groups=2)`, the reference's group-local
+    routing, on the whole batch), else within the whole batch's
+    (`groups=1`); outside a sharded step the flag is not read and routing
+    is global."""
+    from torch_ranks import run_ranks
 
     _, cfg, _, p, x = _moe_pair()
     local = cfg.replace(moe_local_dispatch=True)
     xt = torch.from_numpy(x)
-    assert moe._dispatch_shards(local, 4) == 1  # no activation mesh
-    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=2)
-    try:
-        mesh = init_device_mesh("cpu", (2, 1),
-                                mesh_dim_names=("data", "model"))
-        with shd.activation_sharding(mesh):
-            assert [moe._dispatch_shards(c, b) for c, b in
-                    ((local, 4), (local, 3), (cfg, 4))] == [2, 1, 1]
-            out, aux = moe.moe_ffn(p, local, xt)
-    finally:
-        dist.destroy_process_group()
+    glob, gaux = moe._moe_dispatch(p, cfg, xt, groups=1,
+                                   capacity=moe.moe_capacity(cfg, 64))
+    out, aux = moe.moe_ffn(p, local, xt)   # no sharded step
+    assert torch.equal(out, glob) and torch.equal(aux, gaux)
+
     cap = max(8, moe.moe_capacity(cfg, 64) // 2)
-    want, waux = moe._moe_dispatch(p, cfg, xt, groups=2, capacity=cap)
-    assert torch.equal(out, want) and torch.equal(aux, waux)
+    want = {"local": moe._moe_dispatch(p, cfg, xt, groups=2, capacity=cap),
+            "global": (glob, gaux)}
+    outs = run_ranks(2, _LOCAL_RANK, {"x": x, **{k: v.numpy() for k, v in
+                                                 p.items()}}, tmp_path)
+    for name, (w, waux) in want.items():
+        got = np.concatenate([np.asarray(o[name][0], np.float32)
+                              for o in outs])
+        np.testing.assert_array_equal(got, w.numpy(), err_msg=name)
+        assert all(o[name][1] == float(waux) for o in outs), name
+    # the two routings part on these tokens
+    assert not torch.equal(want["local"][0], glob)
