@@ -8,9 +8,11 @@ It imports nothing of JAX and nothing of the JAX package, and fails
 (non-zero exit, no result line) on the first mismatch. In order:
 
 1. card and software: the card's name, power limit and driver, torch and
-   CUDA versions; builds the three CUDA kernels from `src/repro_torch/csrc`
-   (one nvcc process each, started together), prints the build time and
-   which CUDA runtime libraries the process has mapped;
+   CUDA versions; builds the four CUDA kernel sources from
+   `src/repro_torch/csrc` (one nvcc process each, started together),
+   prints the build time, both flash kernels' registers and spills by head
+   dim from ptxas (the bf16 kernel must spill nowhere) and which CUDA
+   runtime libraries the process has mapped;
 2. kernel phase: each kernel against its plain PyTorch version on the
    card, at the main-path shapes and at ragged, masked, GQA and head-dim
    variants; CKA through both routes (feature and example form) at every
@@ -31,7 +33,14 @@ It imports nothing of JAX and nothing of the JAX package, and fails
    at head sizes 16, 32 and 64; flash attention at head dims 16-256,
    at gemma2-2b's heads (8 query and 4 kv heads of 256, causal, softcap
    50, with and without a window of 96) and granite's MQA (48 query heads
-   over one kv head of 128), and at bert-base's shapes
+   over one kv head of 128), and at bert-base's shapes, all on fp32
+   inputs (the 3xTF32 kernel); the bf16 kernel on bf16 inputs at every
+   head dim (non-causal at a ragged 130, causal GQA at a ragged 197,
+   causal with a window and the softcap at a ragged 100), on fused-qkv
+   views, at granite's MQA and gemma2-2b's heads with a window, each
+   within the same tolerance, its bf16 output bitwise its fp32 output
+   rounded once, the tolerance's largest share printed, two launches bit
+   for bit; and at bert-base's shapes
    (the mixed loop's [16, 32, 12, 64], serving's [8, 512, 12, 64] and a
    ragged [4, 77, 12, 64]) and CKA's example route at its probe shape
    (n = 512, d = 768) and a ragged n = 500, also held to float64; and two
@@ -309,15 +318,17 @@ It imports nothing of JAX and nothing of the JAX package, and fails
    bert-base's two shapes beside SDPA and CKA's example route at its
    probe shape (`bert_timing`); flash attention at gemma2-2b's prefill
    shapes (`gemma_timing`: [4, 512, 8/4, 256] causal with softcap 50,
-   and one 8192-token prompt with and without the 4096 window) on bf16
-   inputs, as the main path passes them, beside the bound of the
-   unmasked pairs' work in bf16 and SDPA's causal time without the
-   softcap, a different function (no PyTorch call has the softcap), and
-   the fp32 function (fp32 inputs) beside its 3xTF32 bound; flash at
-   qwen3-moe-30b-a3b's prefill shape (`qwen3_timing`: [4, 512, 32/4, 128]
-   causal) on bf16 inputs against `bf16_bound`, beside SDPA
-   (`is_causal`, `enable_gqa`), which computes the same function there
-   and is held to the plain version within 3e-2;
+   and one 8192-token prompt with and without the 4096 window) as the
+   main path calls it, bf16 in and out on the bf16 kernel, held to the
+   plain version at the kernel tolerance, beside the bound of the
+   unmasked pairs' work in bf16 (o in bf16, and in fp32) and SDPA's
+   causal time without the softcap, a different function (no PyTorch
+   call has the softcap), the earlier route (fp32 copies and the 3xTF32
+   kernel) and the fp32 function (fp32 inputs) beside its 3xTF32 bound;
+   flash at qwen3-moe-30b-a3b's prefill shape (`qwen3_timing`: [4, 512,
+   32/4, 128] causal) the same way, beside SDPA (`is_causal`,
+   `enable_gqa`), which computes the same function there and is held to
+   the plain version within 3e-2;
    the DeiT-tiny slice's requests per second and rwkv6-3b's and
    gemma2-2b's prefill and decode tokens per second;
 5. only with --profile: one more kernel run of each slice under
@@ -334,23 +345,31 @@ It imports nothing of JAX and nothing of the JAX package, and fails
 
 The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``. A kernel's `launches` there is the
-count of its newest path (flash attention: `launch.train`'s gemma2-2b run
-under `launch_train`, its numbers under `launch_train_run`; WKV6:
+count of its newest path (flash attention's bf16 kernel
+(`flash_attention_bf16`): `launch.train`'s gemma2-2b run under
+`launch_train`, its numbers under `launch_train_run`; the 3xTF32 kernel
+(`flash_attention`), which the LMs' fp32 runs and the fp32 ViT/BERT
+models take: the ETuner loop on DeiT-tiny; WKV6:
 `launch.train`'s rwkv6-3b run under `launch_train`; CKA: `kernels_micro`; each kernel's `kernels_micro` cell under
 `kernels_micro`); its times are those of the path named next (CKA: the
-MobileNetV2 loop; flash attention: the
+MobileNetV2 loop; the 3xTF32 kernel: the
 eager mixed loop, whose shape [16, 32, 12, 64] its times there are, with
 serving's shape under `bert_serving` and DeiT-tiny's under `deit_tiny`;
+the bf16 kernel: qwen3-moe's prefill shape, the one with a library call
+for the same function;
 WKV6: rwkv6-3b serving), and `launches_by_path` has every path's count
-(gemma2-2b's serving and 8192-token prefills under `gemma2_serving` and
-`gemma2_long`, its shapes' times under `gemma2`; qwen3-moe's bf16 and
-fp32 prefills and the reduced jamba's under `qwen3_moe_serving`,
-`qwen3_moe_fp32` and `jamba_reduced`, qwen3's shape's times, its serving
-run and the jamba runs under `qwen3_moe`; gemma2-2b's bf16 training run's
-launches, all in its half-prefix steps, under `gemma2_train`, its fp32
-pair's under `gemma2_train_fp32` and the training run's numbers under
-`gemma2`'s `training_run`; WKV6's in rwkv6-3b's half-prefix step under
-`rwkv6_train`). CKA's times there are those of that path, a launch's mean
+(the bf16 kernel's: gemma2-2b's bf16 serving under `gemma2_serving`, its
+shapes' times under `gemma2`; qwen3-moe's bf16 prefills and the reduced
+jamba's under `qwen3_moe_serving` and `jamba_reduced`, its serving run
+and the jamba runs under `qwen3_moe`; gemma2-2b's bf16 training run's
+launches, all in its half-prefix steps, under `gemma2_train` and the
+training run's numbers under `gemma2`'s `training_run`; the 3xTF32
+kernel's: gemma2-2b's fp32 8192-token prefill under `gemma2_long`,
+qwen3-moe's fp32 prefills under `qwen3_moe_fp32`, gemma2-2b's fp32
+training pair under `gemma2_train_fp32`; WKV6's in rwkv6-3b's
+half-prefix step under `rwkv6_train`). Each flash entry has its ptxas
+registers and spills by head dim under `ptxas`. CKA's times there are
+those of that path, a launch's mean
 over a MobileNetV2 probe pass (with the pass, the stem launch and
 ResNet50's pass in full); its DeiT-tiny feature-route numbers are under
 `feature_route`, its bert-base probe shape's under `bert_probe`.
@@ -364,6 +383,7 @@ import gc
 import json
 import math
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -449,9 +469,10 @@ LM_TOL = 3e-2
 # generated tokens must agree where the plain run's top-two logit margin
 # exceeds this
 MARGIN = 6e-2
-KERNELS = ("flash_attention", "cka_terms", "wkv6")
+KERNELS = ("flash_attention", "flash_attention_bf16", "cka_terms", "wkv6")
 # the CUDA kernels of those sources, as the profiler names them
-PORT_KERNELS = ("flash_fwd_kernel", "cka_gram_kernel", "cka_fold_kernel",
+PORT_KERNELS = ("flash_fwd_kernel", "flash_bf16_kernel", "cka_gram_kernel",
+                "cka_fold_kernel",
                 "cka_sum_kernel", "cka_example_gram_kernel",
                 "cka_example_fold_kernel", "wkv6_decay_kernel",
                 "wkv6_scan_kernel")
@@ -597,6 +618,46 @@ def check_attention(gen, B, S, Hq, Hkv, hd, *, causal=False, window=0,
     print(f"  flash B{B} S{S} Hq{Hq} Hkv{Hkv} hd{hd} causal={causal} "
           f"window={window} softcap={softcap}: max_abs_err {err:.3g}")
     return err
+
+
+def tolerance_share(got, want) -> float:
+    """The largest share of the kernel tolerance any element takes:
+    |got - want| / (atol + rtol |want|); 1 is at the limit."""
+    return float(((got - want).abs()
+                  / (ATT_ATOL + ATT_RTOL * want.abs())).max())
+
+
+def check_attention_bf16(gen, B, S, Hq, Hkv, hd, *, causal=False,
+                         window=0, softcap=0.0, fused=False) -> tuple:
+    """The bf16 kernel on bf16 q, k, v (views of one fused [B, S, 3, H,
+    hd] projection where `fused`) against the plain version at the kernel
+    tolerance, its bf16 output bitwise its fp32 output rounded once;
+    returns (max_abs_err, the tolerance's largest share)."""
+    if fused:
+        q, k, v = torch.randn((B, S, 3, Hq, hd), generator=gen).cuda() \
+            .bfloat16().unbind(2)
+    else:
+        q = torch.randn((B, S, Hq, hd), generator=gen).cuda().bfloat16()
+        k, v = (torch.randn((B, S, Hkv, hd), generator=gen).cuda().bfloat16()
+                for _ in range(2))
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    zero_launches()
+    got = att_ops.flash_attention(q, k, v, **kw)
+    got16 = att_ops.flash_attention(q, k, v, **kw, out_dtype=torch.bfloat16)
+    want = att_ops.attention_plain(q, k, v, **kw)
+    torch.cuda.synchronize()
+    hold_route("bf16", 2, f"flash bf16 at {B, S, Hq, Hkv, hd}")
+    torch.testing.assert_close(got, want, rtol=ATT_RTOL, atol=ATT_ATOL)
+    if got16.dtype != torch.bfloat16 or not torch.equal(got16,
+                                                        got.bfloat16()):
+        raise AssertionError("the bf16 kernel's bf16 output is not its fp32 "
+                             "output rounded")
+    err, share = float((got - want).abs().max()), tolerance_share(got, want)
+    print(f"  flash bf16 B{B} S{S} Hq{Hq} Hkv{Hkv} hd{hd} causal={causal} "
+          f"window={window} softcap={softcap}{' fused qkv' if fused else ''}"
+          f": max_abs_err {err:.3g}, {share:.3f} of the tolerance; bf16 out "
+          f"bitwise the fp32 out rounded")
+    return err, share
 
 
 def _cka_inputs(gen, n, dx, dy, offset=0.0):
@@ -802,6 +863,32 @@ def kernel_phase():
     bert_att_err = max(check_attention(gen, B, S, H, H, hd)
                        for B, S, H, hd in (BERT_LOOP_ATT, BERT_SERVE_ATT,
                                            BERT_RAGGED_ATT))
+    # the bf16 kernel: every head dim non-causal at a ragged 130, causal
+    # GQA at a ragged 197, causal with a window and the softcap at a
+    # ragged 100; fused-qkv strides; granite's MQA and gemma2-2b's heads
+    bf16 = []
+    for hd in att_ops.HEAD_DIMS:
+        bf16 += [check_attention_bf16(gen, 2, 130, 4, 4, hd),
+                 check_attention_bf16(gen, 2, 197, 4, 2, hd, causal=True),
+                 check_attention_bf16(gen, 2, 100, 8, 4, hd, causal=True,
+                                      window=48, softcap=GEMMA_SOFTCAP)]
+    bf16 += [check_attention_bf16(gen, 2, 197, 3, 3, 64, fused=True),
+             check_attention_bf16(gen, 2, 256, 48, 1, 128, causal=True),
+             check_attention_bf16(gen, 2, 256, 8, 4, 256, causal=True,
+                                  window=96, softcap=GEMMA_SOFTCAP)]
+    B, S, Hq, Hkv, hd = QWEN3_ATT
+    q = torch.randn((B, S, Hq, hd), generator=gen).cuda().bfloat16()
+    k, v = (torch.randn((B, S, Hkv, hd), generator=gen).cuda().bfloat16()
+            for _ in range(2))
+    if not torch.equal(att_ops.flash_attention(q, k, v),
+                       att_ops.flash_attention(q, k, v)):
+        raise AssertionError("two bf16 flash launches differ")
+    bf16_att = {"max_abs_err": max(e for e, _ in bf16),
+                "tolerance_share": max(sh for _, sh in bf16)}
+    print(f"  flash bf16: two launches agree bit for bit; over "
+          f"{len(bf16)} shapes the largest share of the tolerance "
+          f"{bf16_att['tolerance_share']:.3f}, a margin of "
+          f"{1 / bf16_att['tolerance_share']:.2f}x with P in two bf16 terms")
 
     cka_err = check_cka(gen, *MAIN_CKA, MAIN_CKA[1])  # main path
     for n, dx, dy in RAGGED:
@@ -867,7 +954,7 @@ def kernel_phase():
     print("  wkv6: two launches agree bit for bit (o and final state), at 4 "
           "prompts and at one")
     return (att_err, cka_err, cnn_err, wkv_err, bert_att_err, bert_cka_err,
-            lm_att_err, qwen3_att_err)
+            lm_att_err, qwen3_att_err, bf16_att)
 
 
 # ---------------------------------------------------------------------------
@@ -1247,6 +1334,7 @@ def etuner_phase(cfg):
     zero_launches()
     kern = run_etuner(kmodel, *common, use_kernel=True)
     launches = read_launches()
+    hold_route("fp32", launches["flash_attention"], "the DeiT-tiny loop")
     zero_launches()
     plain = run_etuner(pmodel, *common, use_kernel=False)
     if any(read_launches().values()):
@@ -2610,8 +2698,10 @@ def fleet_sessions() -> dict:
 #: camera stream at the loops' knobs: 3 scenarios of 3 batches of 16, 12
 #: requests. Least-loaded routing and the merges are the throughput
 #: cell; the straggler session needs only enough streams to load the
-#: slow device before its eviction.
-FLEET_STREAMS = {"least-loaded": 24, "straggler": 12}
+#: slow device before its eviction. 24 / 12 streams took 259-360 s of
+#: the script's 1200 s (the phase the most time on a slow host), so the
+#: fleet runs 12 / 8.
+FLEET_STREAMS = {"least-loaded": 12, "straggler": 8}
 
 
 class _DeviceLaunches:
@@ -3006,6 +3096,7 @@ def telemetry_phase(kept: dict) -> dict:
 
 def zero_launches() -> None:
     att_ops.flash_attention.launches = cka_ops.cka_terms.launches = 0
+    att_ops.flash_attention.route_launches = {"fp32": 0, "bf16": 0}
     cka_ops.cka_terms.route_launches = {"feature": 0, "example": 0}
     wkv_ops.wkv.launches = 0
 
@@ -3016,6 +3107,16 @@ def read_launches() -> dict:
             **{f"cka_{route}": count for route, count
                in cka_ops.cka_terms.route_launches.items()},
             "wkv6": wkv_ops.wkv.launches}
+
+
+def hold_route(route: str, n: int, what: str) -> None:
+    """Every one of the `n` flash launches since the counts were zeroed
+    took the `route` kernel: "bf16" (bf16 q, k, v) or "fp32" (3xTF32)."""
+    got = dict(att_ops.flash_attention.route_launches)
+    want = {"fp32": 0, "bf16": 0, route: n}
+    if got != want:
+        raise AssertionError(f"{what}: flash launches by kernel {got}, want "
+                             f"{want}")
 
 
 def timed(fn, spans):
@@ -3201,6 +3302,7 @@ def lm_phase(cfg):
     if launches != want:
         raise AssertionError(f"expected {L} flash launches, one per layer of "
                              f"the prefill, and no other; got {launches}")
+    hold_route("bf16", L, "gemma2-2b bf16 serving")
     spans = {"prefill": [], "decode": []}
     tmodel = dataclasses.replace(
         kmodel, prefill=timed(kmodel.prefill, spans["prefill"]),
@@ -3237,6 +3339,7 @@ def lm_phase(cfg):
     kmodel, params = lm_model(cfg, use_pallas=True, dtype="float32",
                               param_dtype="float32")
     kern_tok, kern_logits, _ = serve(kmodel, params, prompts)
+    hold_route("fp32", L, "gemma2-2b fp32 serving")
     pmodel = build_model(kmodel.cfg.replace(use_pallas=False))
     plain_tok, plain_logits, plain_launches = serve(pmodel, params, prompts)
     if any(plain_launches.values()):
@@ -3265,6 +3368,7 @@ def lm_phase(cfg):
     if long_launches != want:
         raise AssertionError(f"the {GEMMA_LONG}-token prefill launched "
                              f"{long_launches}")
+    hold_route("fp32", L, f"the {GEMMA_LONG}-token fp32 prefill")
     timing["long_prefill_ms"] = start.elapsed_time(end)
     ref, _ = pmodel.prefill(params, long)
     if not torch.isfinite(got).all() or got.shape != (1, cfg.vocab_size):
@@ -3431,6 +3535,7 @@ def moe_phase(cfg):
     if launches != want:
         raise AssertionError(f"expected {L} flash launches, one per layer of "
                              f"the prefill, and no other; got {launches}")
+    hold_route("bf16", L, "qwen3-moe bf16 serving")
     spans = {"prefill": [], "decode": []}
     tmodel = dataclasses.replace(
         kmodel, prefill=timed(kmodel.prefill, spans["prefill"]),
@@ -3566,6 +3671,7 @@ def mamba_phase():
     if launches != want:
         raise AssertionError(f"expected one flash launch a prefill, on the "
                              f"attention layer; got {launches}")
+    hold_route("bf16", 1, "reduced jamba bf16 serving")
     kmodel, params = lm_model(cfg, use_pallas=True, dtype="float32",
                               param_dtype="float32")
     hold_moe_pair("reduced jamba", kmodel, params, prompts, want)
@@ -3941,6 +4047,7 @@ class _StepLaunches:
 
     def __init__(self):
         self.steps, self._open, self.starts = [], False, []
+        self.bf16 = []  # each step's flash launches on the bf16 kernel
 
     def __call__(self, step, plan):
         self.close()
@@ -3957,6 +4064,7 @@ class _StepLaunches:
     def close(self):
         if self._open:
             self.steps.append(read_launches())
+            self.bf16.append(att_ops.flash_attention.route_launches["bf16"])
         self._open = False
 
 
@@ -3975,6 +4083,11 @@ def launch_run(cfg, mesh, ckpt_dir=None) -> tuple:
     counts.close()
     torch.cuda.synchronize()
     res["step_s"] = counts.seconds()
+    if counts.bf16 != [c["flash_attention"] for c in counts.steps]:
+        raise AssertionError(f"launch.train's flash launches by step "
+                             f"{counts.steps}, on the bf16 kernel "
+                             f"{counts.bf16}: bf16 q, k, v take the bf16 "
+                             f"kernel")
     return res, counts.steps, time.perf_counter() - t0
 
 
@@ -4858,21 +4971,69 @@ def attended_pairs(S: int, window: int = 0) -> int:
     return window * (window + 1) // 2 + (S - window) * window
 
 
+def flash_bf16_cases(q, k, v, qb, kb, vb, **kw) -> dict:
+    """The calls `gemma_timing` and `qwen3_timing` time on one shape's
+    inputs (fp32 q, k, v and their bf16 roundings): the bf16 kernel as the
+    model calls it (`kernel`, bf16 out), the same with fp32 out, the route
+    bf16 inputs took before the bf16 kernel (fp32 copies, the 3xTF32
+    kernel, the output cast to bf16), the fp32 function (the 3xTF32 kernel
+    on fp32 inputs) and the plain version on the bf16 inputs."""
+    flash = att_ops.flash_attention
+    return {
+        "kernel": lambda: flash(qb, kb, vb, **kw, out_dtype=torch.bfloat16),
+        "fp32_out": lambda: flash(qb, kb, vb, **kw),
+        "copies": lambda: flash(qb.float(), kb.float(), vb.float(),
+                                **kw).bfloat16(),
+        "fp32": lambda: flash(q, k, v, **kw),
+        "plain": lambda: att_ops.attention_plain(qb, kb, vb, **kw)}
+
+
+def hold_bf16_kernel(calls: dict) -> dict:
+    """The bf16 kernel (fp32 out) against the plain version at the kernel
+    tolerance, and its bf16 out bitwise that result rounded once."""
+    got, want = calls["fp32_out"](), calls["plain"]()
+    got16 = calls["kernel"]()
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=ATT_RTOL, atol=ATT_ATOL)
+    if not torch.equal(got16, got.bfloat16()):
+        raise AssertionError("the bf16 kernel's bf16 output is not its fp32 "
+                             "output rounded")
+    return {"max_abs_err": float((got - want).abs().max()),
+            "tolerance_share": tolerance_share(got, want)}
+
+
+def flash_bounds(t: dict, B, S, Hq, Hkv, hd, window=0) -> None:
+    """`t`'s work and bounds: 4 hd operations a kept (query, key) pair and
+    query head; q, k, v read once in bf16 and o written once, in bf16 as
+    the model asks (`bound_ms`) and in fp32 (`o_fp32_bound_ms`); the fp32
+    function on fp32 inputs as 3xTF32 (`fp32_bound_ms`)."""
+    pairs = attended_pairs(S, window)
+    t["flops"] = 4.0 * B * Hq * pairs * hd
+    in_elems = B * S * hd * (Hq + 2 * Hkv)
+    out_elems = B * S * Hq * hd
+    t["bytes"] = 2.0 * (in_elems + out_elems)
+    t.update(bf16_bound(t["flops"], t["bytes"]))
+    t["o_fp32_bound_ms"] = bf16_bound(
+        t["flops"], 2.0 * in_elems + 4.0 * out_elems)["bound_ms"]
+    fp32_bound = bound(t["flops"], 4.0 * (in_elems + out_elems),
+                       tensor_cores=True)
+    t["fp32_bound_ms"] = fp32_bound["bound_ms"]
+    t["fp32_bound_by"] = fp32_bound["bound_by"]
+
+
 def gemma_timing(gen) -> dict:
     """Flash attention at gemma2-2b's prefill shapes, causal with softcap
     50: the serving shape [4, 512, 8/4, 256], and one 8192-token prompt
     with the local layers' 4096 window and without it (a global layer).
-    As the main path calls it: q, k, v in bf16, which the wrapper copies
-    to fp32 for the kernel (the copies are in the times). Kernel and
-    plain version, eager (`ms`) and on the card (`device_ms`), beside the
-    bound of the unmasked pairs' work in that type (`bf16_bound`: 4 hd
-    operations a pair and head on bf16 inputs, q, k, v read as bf16 and
-    the fp32 o written once). The fp32 function, the kernel on fp32
-    inputs, is timed beside it (`fp32_device_ms`) against its own bound
-    (3xTF32, 4-byte inputs; `fp32_bound_ms`). No single PyTorch call
-    computes this function: SDPA has no logit softcap. Its causal time
-    on the same bf16 inputs without the softcap (`enable_gqa`) stands
-    beside it as a different function."""
+    As the main path calls it: bf16 q, k, v, bf16 out, the bf16 kernel,
+    held to the plain version at the kernel tolerance first. Eager (`ms`)
+    and on the card (`device_ms`, the bf16 kernel; `fp32_out_device_ms`
+    with fp32 out; `copies_device_ms` the earlier route through fp32
+    copies and the 3xTF32 kernel; `fp32_device_ms` the fp32 function),
+    beside `flash_bounds`. No single PyTorch call computes this function:
+    SDPA has no logit softcap. Its causal time on the same bf16 inputs
+    without the softcap (`enable_gqa`) stands beside it as a different
+    function."""
     out = {}
     _, _, Hq, Hkv, hd = GEMMA_ATT
     for name, (B, S, window) in (("serving_shape", (*GEMMA_ATT[:2], 0)),
@@ -4884,62 +5045,61 @@ def gemma_timing(gen) -> dict:
                 for _ in range(2))
         qb, kb, vb = (t.bfloat16() for t in (q, k, v))
         qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (qb, kb, vb))
-        kw = dict(causal=True, window=window, softcap=GEMMA_SOFTCAP)
-        kernel = lambda: att_ops.flash_attention(  # noqa: E731
-            qb, kb, vb, **kw)
-        fp32 = lambda: att_ops.flash_attention(q, k, v, **kw)  # noqa: E731
-        plain = lambda: att_ops.attention_plain(  # noqa: E731
-            qb, kb, vb, **kw)
+        calls = flash_bf16_cases(q, k, v, qb, kb, vb, causal=True,
+                                 window=window, softcap=GEMMA_SOFTCAP)
         sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
             qt, kt, vt, is_causal=True, enable_gqa=True)
         long = S > 1024
         t = {"shape": [B, S, Hq, Hkv, hd], "dtype": "bfloat16",
              "window": window, "softcap": GEMMA_SOFTCAP,
-             "ms": time_ms(kernel, iters=5 if long else 50),
-             "device_ms": device_ms(kernel, calls=5 if long else 20),
-             "fp32_device_ms": device_ms(fp32, calls=5 if long else 20),
-             "plain_ms": time_ms(plain, iters=2 if long else 10,
+             **hold_bf16_kernel(calls),
+             "ms": time_ms(calls["kernel"], iters=5 if long else 50),
+             "plain_ms": time_ms(calls["plain"], iters=2 if long else 10,
                                  warmup=1 if long else 5),
              "library_ms": None, "library": "none (softcap)",
              "sdpa_causal_no_softcap_ms": time_ms(sdpa,
                                                   iters=5 if long else 50)}
-        pairs = attended_pairs(S, window)
-        t["flops"] = 4.0 * B * Hq * pairs * hd
-        in_elems = B * S * hd * (Hq + 2 * Hkv)
-        out_bytes = 4.0 * B * S * Hq * hd
-        t.update(bf16_bound(t["flops"], 2.0 * in_elems + out_bytes))
-        fp32_bound = bound(t["flops"], 4.0 * in_elems + out_bytes,
-                           tensor_cores=True)
-        t["fp32_bound_ms"] = fp32_bound["bound_ms"]
-        t["fp32_bound_by"] = fp32_bound["bound_by"]
+        for key in ("kernel", "fp32_out", "copies", "fp32"):
+            t[("" if key == "kernel" else f"{key}_") + "device_ms"] = \
+                device_ms(calls[key], calls=5 if long else 20)
+        t["sdpa_causal_no_softcap_device_ms"] = device_ms(
+            sdpa, calls=5 if long else 20)
+        flash_bounds(t, B, S, Hq, Hkv, hd, window)
         print(f"  flash_attention at gemma2-2b's {name} "
               f"[{B}, {S}, {Hq}/{Hkv}, {hd}] (causal, window {window}, "
               f"softcap {GEMMA_SOFTCAP:g}; {t['flops'] / 1e9:.1f} GFLOP "
-              f"over {pairs} pairs a head), bf16 inputs as the main path "
-              f"passes them: kernel {t['ms']:.4f} ms (device "
-              f"{t['device_ms']:.4f}), plain {t['plain_ms']:.4f}, library "
-              f"none (softcap; SDPA causal without it, bf16, "
-              f"{t['sdpa_causal_no_softcap_ms']:.4f}), bound "
-              f"{t['bound_ms']:.4f} ms ({t['bound_by']}, {t['bound_kind']}); "
-              f"the kernel's device time is "
-              f"{t['device_ms'] / t['bound_ms']:.2f}x the bound. The fp32 "
-              f"function: device {t['fp32_device_ms']:.4f} ms, bound "
-              f"{t['fp32_bound_ms']:.4f} ({t['fp32_bound_by']}, 3xTF32), "
+              f"over {attended_pairs(S, window)} pairs a head), bf16 in and "
+              f"out as the main path calls it: the bf16 kernel max_abs_err "
+              f"{t['max_abs_err']:.3g} ({t['tolerance_share']:.3f} of the "
+              f"tolerance), {t['ms']:.4f} ms (device {t['device_ms']:.4f}; "
+              f"fp32 out {t['fp32_out_device_ms']:.4f}), plain "
+              f"{t['plain_ms']:.4f}, library none (softcap; SDPA causal "
+              f"without it, bf16, {t['sdpa_causal_no_softcap_ms']:.4f}, "
+              f"device {t['sdpa_causal_no_softcap_device_ms']:.4f}), bound "
+              f"{t['bound_ms']:.4f} ms ({t['bound_by']}, {t['bound_kind']}; "
+              f"o in fp32 {t['o_fp32_bound_ms']:.4f}); the kernel's device "
+              f"time is {t['device_ms'] / t['bound_ms']:.2f}x the bound. The "
+              f"earlier route (fp32 copies, 3xTF32): device "
+              f"{t['copies_device_ms']:.4f} ms, "
+              f"{t['copies_device_ms'] / t['device_ms']:.2f}x the bf16 "
+              f"kernel's. The fp32 function: device "
+              f"{t['fp32_device_ms']:.4f} ms, bound {t['fp32_bound_ms']:.4f} "
+              f"({t['fp32_bound_by']}, 3xTF32), "
               f"{t['fp32_device_ms'] / t['fp32_bound_ms']:.2f}x")
         out[name] = t
-        del q, k, v, qb, kb, vb, qt, kt, vt
+        del q, k, v, qb, kb, vb, qt, kt, vt, calls
     torch.cuda.empty_cache()
     return out
 
 
 def qwen3_timing(gen) -> dict:
     """Flash attention at qwen3-moe-30b-a3b's prefill shape [4, 512,
-    32/4, 128], causal, on bf16 q, k, v as the main path passes them (the
-    wrapper's fp32 copies in the times): kernel, plain version and SDPA
+    32/4, 128], causal, as the main path calls it (bf16 q, k, v, bf16
+    out, the bf16 kernel, held to the plain version at the kernel
+    tolerance first): the calls of `flash_bf16_cases` and SDPA
     (`is_causal`, `enable_gqa`), which computes the same function here
     (no window, no softcap) in bf16, eager (`ms`) and on the card
-    (`device_ms`), beside `bf16_bound` of the unmasked pairs' work; the
-    fp32 function (fp32 inputs) beside it. SDPA's output is held to the
+    (`device_ms`), beside `flash_bounds`. SDPA's output is held to the
     plain version's within the bf16 tolerance."""
     B, S, Hq, Hkv, hd = QWEN3_ATT
     q = torch.randn((B, S, Hq, hd), generator=gen).cuda()
@@ -4947,49 +5107,46 @@ def qwen3_timing(gen) -> dict:
             for _ in range(2))
     qb, kb, vb = (t.bfloat16() for t in (q, k, v))
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (qb, kb, vb))
-    kernel = lambda: att_ops.flash_attention(  # noqa: E731
-        qb, kb, vb, causal=True)
-    fp32 = lambda: att_ops.flash_attention(q, k, v, causal=True)  # noqa: E731
-    plain = lambda: att_ops.attention_plain(  # noqa: E731
-        qb, kb, vb, causal=True)
+    calls = flash_bf16_cases(q, k, v, qb, kb, vb, causal=True)
     sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
         qt, kt, vt, is_causal=True, enable_gqa=True)
-    want = plain()
+    want = calls["plain"]()
     library_err = float((sdpa().transpose(1, 2).float() - want).abs().max())
     if library_err > LM_TOL:
         raise AssertionError(f"SDPA parts from the plain version by "
                              f"{library_err}")
     t = {"shape": [B, S, Hq, Hkv, hd], "dtype": "bfloat16",
-         "ms": time_ms(kernel), "device_ms": device_ms(kernel),
-         "fp32_device_ms": device_ms(fp32),
-         "plain_ms": time_ms(plain, iters=10),
-         "plain_device_ms": device_ms(plain, calls=5),
+         **hold_bf16_kernel(calls),
+         "ms": time_ms(calls["kernel"]),
+         "plain_ms": time_ms(calls["plain"], iters=10),
+         "plain_device_ms": device_ms(calls["plain"], calls=5),
          "library_ms": time_ms(sdpa), "library_device_ms": device_ms(sdpa),
          "library": "scaled_dot_product_attention(is_causal, enable_gqa)",
          "library_max_abs_err": library_err}
-    pairs = attended_pairs(S)
-    t["flops"] = 4.0 * B * Hq * pairs * hd
-    in_elems = B * S * hd * (Hq + 2 * Hkv)
-    out_bytes = 4.0 * B * S * Hq * hd
-    t["bytes"] = 2.0 * in_elems + out_bytes
-    t.update(bf16_bound(t["flops"], t["bytes"]))
-    fp32_bound = bound(t["flops"], 4.0 * in_elems + out_bytes,
-                       tensor_cores=True)
-    t["fp32_bound_ms"] = fp32_bound["bound_ms"]
+    for key in ("kernel", "fp32_out", "copies", "fp32"):
+        t[("" if key == "kernel" else f"{key}_") + "device_ms"] = \
+            device_ms(calls[key])
+    flash_bounds(t, B, S, Hq, Hkv, hd)
     print(f"  flash_attention at qwen3-moe-30b-a3b's prefill shape "
           f"[{B}, {S}, {Hq}/{Hkv}, {hd}] (causal; {t['flops'] / 1e9:.2f} "
-          f"GFLOP, {t['bytes'] / 1e6:.1f} MB), bf16 inputs as the main path "
-          f"passes them: kernel {t['ms']:.4f} ms (device "
-          f"{t['device_ms']:.4f}), plain {t['plain_ms']:.4f} (device "
-          f"{t['plain_device_ms']:.4f}), SDPA, the same function, "
+          f"GFLOP, {t['bytes'] / 1e6:.1f} MB), bf16 in and out as the main "
+          f"path calls it: the bf16 kernel max_abs_err "
+          f"{t['max_abs_err']:.3g} ({t['tolerance_share']:.3f} of the "
+          f"tolerance), {t['ms']:.4f} ms (device {t['device_ms']:.4f}; fp32 "
+          f"out {t['fp32_out_device_ms']:.4f}), plain {t['plain_ms']:.4f} "
+          f"(device {t['plain_device_ms']:.4f}), SDPA, the same function, "
           f"{t['library_ms']:.4f} (device {t['library_device_ms']:.4f}; "
           f"max_abs_err against plain {library_err:.3g}), bound "
-          f"{t['bound_ms']:.4f} ms ({t['bound_by']}, {t['bound_kind']}); "
-          f"the kernel's device time is {t['device_ms'] / t['bound_ms']:.2f}x "
-          f"the bound and {t['device_ms'] / t['library_device_ms']:.2f}x "
-          f"SDPA's. The fp32 function: device {t['fp32_device_ms']:.4f} ms, "
-          f"bound {t['fp32_bound_ms']:.4f} (3xTF32)")
-    del q, k, v, qb, kb, vb, qt, kt, vt, want
+          f"{t['bound_ms']:.4f} ms ({t['bound_by']}, {t['bound_kind']}; o in "
+          f"fp32 {t['o_fp32_bound_ms']:.4f}); the kernel's device time is "
+          f"{t['device_ms'] / t['bound_ms']:.2f}x the bound and "
+          f"{t['device_ms'] / t['library_device_ms']:.2f}x SDPA's. The "
+          f"earlier route (fp32 copies, 3xTF32): device "
+          f"{t['copies_device_ms']:.4f} ms, "
+          f"{t['copies_device_ms'] / t['device_ms']:.2f}x the bf16 kernel's. "
+          f"The fp32 function: device {t['fp32_device_ms']:.4f} ms, bound "
+          f"{t['fp32_bound_ms']:.4f} (3xTF32)")
+    del q, k, v, qb, kb, vb, qt, kt, vt, want, calls
     torch.cuda.empty_cache()
     return t
 
@@ -5376,6 +5533,26 @@ def bf16_bound(flops: float, nbytes: float) -> dict:
             "bound_kind": "bf16 tensor cores"}
 
 
+def ptxas_by_hd(log: str) -> dict:
+    """{hd: {"registers", "spill_bytes"}} of a flash source's kernels from
+    nvcc's `-Xptxas -v` report, one template instance a head dim."""
+    out, hd = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '\S*kernelILi(\d+)E", line)
+        if m:
+            hd = int(m.group(1))
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and hd is not None:
+            out.setdefault(hd, {})["spill_bytes"] = int(m.group(1)) + \
+                int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and hd is not None:
+            out.setdefault(hd, {})["registers"] = int(m.group(1))
+    return out
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile", action="store_true",
@@ -5401,13 +5578,27 @@ def main() -> None:
         for line in log.splitlines():
             if "registers" in line or "spill" in line or "smem" in line:
                 print(f"  {name}: {line.strip()}")
+    ptxas = {}
+    for name in ("flash_attention", "flash_attention_bf16"):
+        if name not in reports:
+            continue
+        ptxas[name] = ptxas_by_hd(reports[name])
+        print(f"  {name} by head dim (ptxas): " + "; ".join(
+            f"hd {hd} {r['registers']} registers, {r['spill_bytes']} bytes "
+            f"spilled" for hd, r in sorted(ptxas[name].items())))
+    bf16_ptxas = ptxas.get("flash_attention_bf16")
+    if bf16_ptxas is not None and (
+            sorted(bf16_ptxas) != list(att_ops.HEAD_DIMS)
+            or any(r["spill_bytes"] for r in bf16_ptxas.values())):
+        raise AssertionError(f"the bf16 flash kernel's instances {bf16_ptxas}"
+                             f": one a head dim, none spilling")
     for name in KERNELS:
         build.load(name)
     print(f"  CUDA runtime mapped: {mapped_cudart()}")
 
     phase("phase 2: kernels against their plain versions")
     (att_err, cka_err, cnn_err, wkv_err, bert_att_err, bert_cka_err,
-     lm_att_err, qwen3_att_err) = kernel_phase()
+     lm_att_err, qwen3_att_err, bf16_att) = kernel_phase()
     # qwen3-moe's 62 GB go first: the later phases keep ~20 GiB on the
     # card (the compiled and mixed sessions' graphs among them)
     phase("phase 3: qwen3-moe-30b-a3b serving at full width and depth, "
@@ -5479,37 +5670,53 @@ def main() -> None:
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/attention/kernel.py:80",
-         "launches": distributed["launch_train"],
+         "launches": loop_launches["flash_attention"],
          "launches_by_path": {
-             "launch_train": distributed["launch_train"],
-             "dryrun_card_cell": dry["launches"]["flash_attention"],
+             "etuner_loop": loop_launches["flash_attention"],
              "kernels_micro": micro["launches"]["flash_attention"],
              "mixed_loop": mixed["flash_eager"],
              "compiled mixed": mixed["flash_card"],
              "bert_serving": bert_serving["launches"],
-             "etuner_loop": loop_launches["flash_attention"],
              "serving_and_probes": launches["flash_attention"],
              **{f"compiled {name}": n["flash_attention"]
                 for name, n in compiled_launches.items()
                 if n["flash_attention"]},
-             "gemma2_serving": gemma["serving"],
              "gemma2_long": gemma["long"],
-             "qwen3_moe_serving": qwen3["serving"],
              "qwen3_moe_fp32": qwen3["fp32"],
-             "jamba_reduced": jamba["jamba_reduced"],
-             "gemma2_train": train["gemma2_train"],
              "gemma2_train_fp32": train["gemma2_train_fp32"],
              "harness_table4": harness["table4"]},
+         "ptxas": ptxas.get("flash_attention"),
          "max_abs_err": bert_att_err, **bert["attention"]["loop"],
-         "launch_train_run": distributed,
-         "dryrun": dry,
          "kernels_micro": micro["cells"][0],
          "bert_serving": bert["attention"]["serving"],
          "deit_tiny": {"max_abs_err": att_err, **att},
-         "gemma2": {"max_abs_err": lm_att_err, "serving_run": gemma,
-                    "training_run": train, **gemma_att},
-         "qwen3_moe": {"max_abs_err": qwen3_att_err, "serving_run": qwen3,
-                       "jamba": jamba, **qwen3_att}},
+         "gemma2": {"max_abs_err": lm_att_err,
+                    "fp32_function": {
+                        name: {k: t[k] for k in ("fp32_device_ms",
+                                                 "fp32_bound_ms")}
+                        for name, t in gemma_att.items()}},
+         "qwen3_moe": {"max_abs_err": qwen3_att_err,
+                       "fp32_device_ms": qwen3_att["fp32_device_ms"],
+                       "fp32_bound_ms": qwen3_att["fp32_bound_ms"]}},
+        {"name": "flash_attention_bf16", "route": "cuda",
+         "source": "src/repro_torch/csrc/flash_attention_bf16.cu",
+         "replaces": "src/repro/kernels/attention/kernel.py:80",
+         "launches": distributed["launch_train"],
+         "launches_by_path": {
+             "launch_train": distributed["launch_train"],
+             "dryrun_card_cell": dry["launches"]["flash_attention"],
+             "gemma2_serving": gemma["serving"],
+             "qwen3_moe_serving": qwen3["serving"],
+             "jamba_reduced": jamba["jamba_reduced"],
+             "gemma2_train": train["gemma2_train"]},
+         "ptxas": bf16_ptxas,
+         **qwen3_att,
+         "kernel_phase": bf16_att,
+         "launch_train_run": distributed,
+         "dryrun": dry,
+         "gemma2": {"serving_run": gemma, "training_run": train,
+                    **gemma_att},
+         "qwen3_moe": {"serving_run": qwen3, "jamba": jamba}},
         {"name": "cka_terms", "route": "cuda",
          "source": "src/repro_torch/csrc/cka_terms.cu",
          "replaces": "src/repro/kernels/cka/kernel.py:56",

@@ -7,8 +7,11 @@
 // skipping kv tiles that are masked whole. In the port it runs the
 // ViT/BERT forwards (non-causal, hd 64) and the decoder LMs' prefill and
 // feature forwards under `use_pallas` (causal, the layer's window, the
-// logit softcap, GQA; gemma2-2b at hd 256), where the JAX LMs take their
-// plain dense or blockwise attention, which computes the same function.
+// logit softcap, GQA; gemma2-2b at hd 256) on fp32 inputs, where the JAX
+// LMs take their plain dense or blockwise attention, which computes the
+// same function. bf16 inputs no longer reach it: the wrapper sends them
+// to flash_attention_bf16.cu, read in place; any other type is copied to
+// fp32 for this kernel.
 //
 // What bounds it on this card: operations and bytes about equally. At the
 // DeiT-tiny main-path shape q,k,v [16,197,3,64] one launch does

@@ -251,7 +251,7 @@ def _attend(cfg: ModelConfig, q, k, v, q_pos, window: int) -> torch.Tensor:
     if kernel_route(cfg.use_pallas, q, k, v) and _index_positions(q_pos):
         return att_ops.flash_attention(
             q, k, v, causal=True, window=window,
-            softcap=cfg.attn_logit_softcap).to(q.dtype)
+            softcap=cfg.attn_logit_softcap, out_dtype=q.dtype)
     if q.shape[1] > cfg.attn_chunk:
         return _attend_blockwise(cfg, q, k, v, q_pos, q_pos, window)
     return _attend_dense(cfg, q, k, v, q_pos, q_pos, window)

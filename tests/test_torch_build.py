@@ -111,34 +111,40 @@ def _hd_stride_2(t):
 
 
 def _misaligned(t):
-    flat = torch.empty(t.numel() + 1)
-    out = flat[1:].view(t.shape)  # 4 bytes past an aligned allocation
+    flat = torch.empty(t.numel() + 1, dtype=t.dtype)
+    out = flat[1:].view(t.shape)  # one element past an aligned allocation
     out.copy_(t)
     return out
 
 
-def _row_stride_odd(t):
-    padded = torch.zeros((*t.shape[:3], t.shape[3] + 1))
-    padded[..., :-1] = t
-    return padded[..., :-1]
+def _padded_rows(t, pad):
+    padded = torch.zeros((*t.shape[:3], t.shape[3] + pad), dtype=t.dtype)
+    padded[..., :-pad] = t
+    return padded[..., :-pad]
 
 
-@pytest.mark.parametrize("layout,kept", [
-    (lambda t: t, True),
-    (lambda t: torch.stack([t, t, t], dim=2).unbind(2)[1], True),  # fused qkv
-    (_hd_stride_2, False),
-    (_misaligned, False),
-    (_row_stride_odd, False),
+# (layout, kept in fp32, kept in bf16): cp.async copies 16-byte units, 4
+# fp32 or 8 bf16 elements
+@pytest.mark.parametrize("layout,kept_fp32,kept_bf16", [
+    (lambda t: t, True, True),
+    (lambda t: torch.stack([t, t, t], dim=2).unbind(2)[1], True,
+     True),  # fused qkv
+    (_hd_stride_2, False, False),
+    (_misaligned, False, False),
+    (lambda t: _padded_rows(t, 1), False, False),  # odd row stride
+    (lambda t: _padded_rows(t, 4), True, False),   # rows of 20 elements
 ])
-def test_flash_inputs_are_copied_only_where_cp_async_cannot_read(layout,
-                                                                 kept):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_inputs_are_copied_only_where_cp_async_cannot_read(
+        layout, kept_fp32, kept_bf16, dtype):
     t = layout(torch.randn((2, 5, 3, 16), generator=torch.Generator()
-                           .manual_seed(0)))
+                           .manual_seed(0)).to(dtype))
     out = att_ops._copyable(t)
-    assert (out is t) == kept
-    assert torch.equal(out, t) and out.stride(3) == 1
+    assert (out is t) == (kept_bf16 if dtype == torch.bfloat16
+                          else kept_fp32)
+    assert torch.equal(out, t) and out.stride(3) == 1 and out.dtype == dtype
     assert out.data_ptr() % 16 == 0
-    assert all(s % 4 == 0 for s in out.stride()[:3])
+    assert all(s * out.element_size() % 16 == 0 for s in out.stride()[:3])
 
 
 @pytest.mark.parametrize("call", [

@@ -123,6 +123,60 @@ def test_flash_kernel_rejects_unsupported_head_dim(gen):
         att_ops.flash_attention(q, q, q)
 
 
+def _flash_routes():
+    return dict(att_ops.flash_attention.route_launches)
+
+
+@pytest.mark.parametrize("hd", att_ops.HEAD_DIMS)
+@pytest.mark.parametrize("S,Hq,Hkv,causal,window,softcap", [
+    (197, 4, 4, False, 0, 0.0),    # ragged, non-causal
+    (100, 4, 2, True, 0, 0.0),     # ragged, causal, GQA
+    (256, 8, 4, True, 96, 50.0),   # gemma2-2b's local layers
+    (130, 8, 1, True, 0, 50.0),    # MQA with the softcap
+])
+def test_flash_bf16_kernel_matches_plain(gen, hd, S, Hq, Hkv, causal,
+                                         window, softcap):
+    # bf16 q, k, v take the bf16 kernel, read in place, and meet the fp32
+    # kernel's tolerance against the plain version
+    q = _randn(gen, (2, S, Hq, hd)).bfloat16()
+    k, v = (_randn(gen, (2, S, Hkv, hd)).bfloat16() for _ in range(2))
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    before = _flash_routes()
+    got = att_ops.flash_attention(q, k, v, **kw)
+    want = att_ops.attention_plain(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert _flash_routes() == {"fp32": before["fp32"],
+                              "bf16": before["bf16"] + 1}
+    assert got.dtype == torch.float32
+    torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-5)
+
+
+def test_flash_bf16_kernel_reads_fused_qkv_strides(gen):
+    q, k, v = _randn(gen, (2, 197, 3, 3, 64)).bfloat16().unbind(2)
+    assert att_ops._copyable(k) is k  # read in place, not copied
+    torch.testing.assert_close(att_ops.flash_attention(q, k, v, causal=False),
+                               att_ops.attention_plain(q, k, v, causal=False),
+                               rtol=2e-4, atol=2e-5)
+
+
+def test_flash_bf16_kernel_is_deterministic(gen):
+    q = _randn(gen, (4, 512, 32, 128)).bfloat16()
+    k, v = (_randn(gen, (4, 512, 4, 128)).bfloat16() for _ in range(2))
+    first = att_ops.flash_attention(q, k, v, softcap=50.0)
+    second = att_ops.flash_attention(q, k, v, softcap=50.0)
+    assert torch.equal(first, second)
+
+
+@pytest.mark.parametrize("hd", [64, 256])
+def test_flash_bf16_out_is_the_fp32_out_rounded_once(gen, hd):
+    q, k, v = (_randn(gen, (2, 197, 4, hd)).bfloat16() for _ in range(3))
+    out32 = att_ops.flash_attention(q, k, v, window=64)
+    out16 = att_ops.flash_attention(q, k, v, window=64,
+                                    out_dtype=torch.bfloat16)
+    assert out16.dtype == torch.bfloat16
+    assert torch.equal(out16, out32.bfloat16())
+
+
 CKA_ROUTES = {"feature": cka_ops._launch_feature,
               "example": cka_ops._launch_example}
 
@@ -536,14 +590,17 @@ QWEN3_ATT = (4, 512, 32, 4, 128)  # B, S, Hq, Hkv, hd
 
 def test_flash_kernel_at_qwen3_moe_prefill_shape(gen):
     # bf16 q/k/v as the main path passes them, causal, GQA 32 / 4 heads of
-    # 128: the kernel against its plain version at the kernel tolerance,
-    # and SDPA (is_causal, enable_gqa; the same function here, in bf16)
-    # against the plain version at the bf16 tolerance of
+    # 128: the bf16 kernel against its plain version at the kernel
+    # tolerance, and SDPA (is_causal, enable_gqa; the same function here,
+    # in bf16) against the plain version at the bf16 tolerance of
     # tests/test_models.py
     B, S, Hq, Hkv, hd = QWEN3_ATT
     q = _randn(gen, (B, S, Hq, hd)).bfloat16()
     k, v = (_randn(gen, (B, S, Hkv, hd)).bfloat16() for _ in range(2))
+    before = _flash_routes()
     got = att_ops.flash_attention(q, k, v, causal=True)
+    assert _flash_routes() == {"fp32": before["fp32"],
+                               "bf16": before["bf16"] + 1}
     want = att_ops.attention_plain(q, k, v, causal=True)
     sdpa = torch.nn.functional.scaled_dot_product_attention(
         *(t.transpose(1, 2) for t in (q, k, v)), is_causal=True,

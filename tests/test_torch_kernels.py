@@ -2,10 +2,11 @@
 versions that `flash_attention` and `cka_terms` take for CPU tensors, held
 against the Pallas kernels (interpret mode) and their `ref.py` oracles on
 the same numpy inputs, plus the wrappers' input checks; and the arithmetic
-of the kernels that only the card runs (3xTF32 products, the CKA feature
-route's plan, the CKA example route's plan, summation order and fused
-centering), emulated in plain torch; and the wrappers' refusal to run
-where autograd would need the backward the kernels do not have."""
+of the kernels that only the card runs (3xTF32 products, the bf16 flash
+kernel's P in two bf16 terms, the CKA feature route's plan, the CKA
+example route's plan, summation order and fused centering), emulated in
+plain torch; and the wrappers' refusal to run where autograd would need
+the backward the kernels do not have."""
 import math
 
 import jax.numpy as jnp
@@ -83,6 +84,21 @@ def test_flash_attention_rejects_integer_inputs():
     q = torch.zeros((1, 4, 1, 16), dtype=torch.int32)
     with pytest.raises(TypeError):
         att_ops.flash_attention(q, q, q)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_out_dtype_is_the_plain_result_cast(dtype,
+                                                             out_dtype):
+    # the CPU route returns attention_plain's fp32 result in out_dtype, as
+    # the bf16 kernel writes its fp32 result rounded once
+    q, k, v = (torch.from_numpy(_randn((2, 70, 4, 32))).to(dtype)
+               for _ in range(3))
+    kw = dict(causal=True, window=24, softcap=50.0)
+    got = att_ops.flash_attention(q, k, v, **kw, out_dtype=out_dtype)
+    assert got.dtype == out_dtype
+    assert torch.equal(got, att_ops.attention_plain(q, k, v, **kw)
+                       .to(out_dtype))
 
 
 # ---------------------------------------------------------------------------
@@ -196,6 +212,62 @@ def test_3xtf32_attention_meets_the_kernel_tolerance(causal):
     with pytest.raises(AssertionError):
         np.testing.assert_allclose(single.numpy(), want, rtol=2e-4,
                                    atol=2e-5)
+
+
+def _attention_bf16_split(q, k, v, causal, window, softcap, terms):
+    """The bf16 kernel's arithmetic in plain torch: S = Q K^T from the bf16
+    inputs in fp32 (each product exact), the softmax's exponentials in
+    fp32, P split into `terms` bf16 terms (hi = rn(P), lo = rn(P - hi)),
+    each term's product with the exact bf16 V in fp32, and the sum divided
+    by the fp32 row sum once."""
+    B, Sq, Hq, hd = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    qf = q.float().reshape(B, Sq, Hkv, Hq // Hkv, hd)
+    s = torch.einsum("bqkgh,bskh->bkgqs", qf, k.float()) * (
+        1.0 / math.sqrt(hd))
+    if softcap:
+        s = softcap * torch.tanh(s / softcap)
+    qpos = torch.arange(Sq)[:, None]
+    kpos = torch.arange(Sk)[None, :]
+    mask = torch.ones((Sq, Sk), dtype=torch.bool)
+    if causal:
+        mask &= kpos <= qpos
+    if window:
+        mask &= (qpos - kpos) < window
+    s = s.masked_fill(~mask, att_ops.NEG_INF)
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    hi = p.bfloat16().float()
+    parts = [hi] if terms == 1 else [(p - hi).bfloat16().float(), hi]
+    out = sum(torch.einsum("bkgqs,bskh->bqkgh", part, v.float())
+              for part in parts)
+    out = out / p.sum(dim=-1).permute(0, 3, 1, 2)[..., None]
+    return out.reshape(B, Sq, Hq, hd)
+
+
+@pytest.mark.parametrize("hd", [128, 256])
+@pytest.mark.parametrize("causal,window,softcap,Hkv", [
+    (False, 0, 0.0, 4),
+    (True, 0, 0.0, 2),     # GQA
+    (True, 0, 50.0, 2),    # gemma2's softcap
+    (True, 48, 50.0, 1),   # and its window, MQA
+])
+def test_bf16_split_attention_meets_the_kernel_tolerance(hd, causal, window,
+                                                         softcap, Hkv):
+    # bf16 inputs (fp32 arrays of bf16 values) through the Pallas kernel in
+    # interpret mode, which upcasts them and keeps P in fp32, and through
+    # the bf16 kernel's arithmetic: P in two bf16 terms meets the kernel
+    # tolerance, one term misses it
+    B, S, Hq = 2, 128, 4
+    q, k, v = (torch.from_numpy(_randn((B, S, H, hd))).bfloat16()
+               for H in (Hq, Hkv, Hkv))
+    want = np.asarray(jax_att_ops.flash_attention(
+        *(jnp.asarray(t.float().numpy()) for t in (q, k, v)), causal=causal,
+        window=window, softcap=softcap, bq=64, bk=64))
+    two = _attention_bf16_split(q, k, v, causal, window, softcap, terms=2)
+    np.testing.assert_allclose(two.numpy(), want, rtol=2e-4, atol=2e-5)
+    one = _attention_bf16_split(q, k, v, causal, window, softcap, terms=1)
+    with pytest.raises(AssertionError):
+        np.testing.assert_allclose(one.numpy(), want, rtol=2e-4, atol=2e-5)
 
 
 def _cka_inputs(n, dx, dy):
