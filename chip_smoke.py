@@ -117,12 +117,17 @@ It imports nothing of JAX and nothing of the JAX package, and fails
    then the dry run (`dryrun_phase`): `repro_torch.launch.dryrun`'s
    workers on the host through `orchestrate`, all at once (gemma2-2b's
    four shapes on the 256-rank fake mesh and its train_4k on the
-   512-rank one, rwkv6-3b's long_500k, kimi-k2's train_4k; each cell's
-   seconds, dominant term, roofline terms, argument + temp and FLOPs
-   printed beside the reference's records, and gemma2-2b's train,
-   prefill and decode and kimi-k2's train held to them: argument bytes
-   equal, temp at most 1.25x / 1x / 2x / 2x, gemma2-2b's train FLOPs at
-   most 1.5x), and the card's
+   512-rank one, rwkv6-3b's and jamba-1.5-large's long_500k, kimi-k2's
+   train_4k; each cell's seconds, dominant term, roofline terms,
+   argument + temp and FLOPs printed beside the reference's records, and
+   held to them: argument bytes equal in every held cell; gemma2-2b's
+   train, prefill and decode and kimi-k2's train temp at most 1.25x /
+   1x / 2x / 2x, gemma2-2b's train FLOPs at most 1.5x; the two
+   long_500k decodes of one row FLOPs at most 1.5x, collective_s 3x and
+   temp 1.5x; gemma2-2b's train on the 512-rank mesh its outer work plus
+   one group at most 1.5x the reference's rolled count, its whole count
+   1.5x the reference's single-mesh total halved, temp 1.25x), and the
+   card's
    own cell (gemma2-2b at 4 x 512 on the (1, 1) mesh of a world of one)
    dry-run and run for real on the card: its whole step through
    `launch.train.make_step` (all active and half prefix, remat full and
@@ -328,7 +333,8 @@ It imports nothing of JAX and nothing of the JAX package, and fails
    flash at qwen3-moe-30b-a3b's prefill shape (`qwen3_timing`: [4, 512,
    32/4, 128] causal) the same way, beside SDPA (`is_causal`,
    `enable_gqa`), which computes the same function there and is held to
-   the plain version within 3e-2;
+   the plain version within 3e-2, and SDPA on the fp32 inputs beside the
+   fp32 function's 3xTF32 kernel;
    the DeiT-tiny slice's requests per second and rwkv6-3b's and
    gemma2-2b's prefill and decode tokens per second;
 5. only with --profile: one more kernel run of each slice under
@@ -4362,13 +4368,15 @@ def distributed_phase() -> dict:
 
 
 # the dry run's production cells (gemma2-2b's four shapes on the 256-rank
-# mesh, its train_4k on the 512-rank one, rwkv6-3b's long_500k) and the
-# card's own cell: gemma2-2b at TRAIN_BATCH on the (1, 1) mesh of a world
-# of one, its whole step under each plan and remat (CARD_CASES), and its
+# mesh, its train_4k on the 512-rank one, the decodes of one row of
+# rwkv6-3b and jamba-1.5-large-398b, kimi-k2's train_4k) and the card's
+# own cell: gemma2-2b at TRAIN_BATCH on the (1, 1) mesh of a world of
+# one, its whole step under each plan and remat (CARD_CASES), and its
 # loss and gradients alone, all active, under each remat (GRAD_CASES)
 DRYRUN_CELLS = tuple(("gemma2-2b", s, "single") for s in (
     "train_4k", "prefill_32k", "decode_32k", "long_500k")) + (
     ("gemma2-2b", "train_4k", "multi"), ("rwkv6-3b", "long_500k", "single"),
+    ("jamba-1.5-large-398b", "long_500k", "single"),
     ("kimi-k2-1t-a32b", "train_4k", "single"))
 # the reference's records of the production cells that run (the JAX
 # package's `repro.launch.dryrun.run_cell`, counted on a CPU host, where
@@ -4394,19 +4402,35 @@ REFERENCE_CELLS = {
         "argument": 75704324, "temp": 45638168,
         "flops_per_chip": 1.429686e+08, "compute_s": 7.25729e-07,
         "memory_s": 0.000199673, "collective_s": 1.45768e-05},
+    ("jamba-1.5-large-398b", "long_500k", "single"): {
+        "argument": 3416590344, "temp": 6742835840,
+        "flops_per_chip": 1.581804e+10, "compute_s": 8.02946e-05,
+        "memory_s": 0.0209854, "collective_s": 0.0262734},
     ("kimi-k2-1t-a32b", "train_4k", "single"): {
         "argument": 24828354564, "temp": 243208744632,
         "flops_per_chip": 6.158548e+15, "compute_s": 31.2617,
         "memory_s": 105.091, "collective_s": 236.316},
 }
 # the sharded step against them: a figure at most this multiple of the
-# reference's (ROADMAP C.18); every cell's argument bytes equal, but for
-# the reference decode's 4-byte int32 position, a Python int in the port
+# reference's (ROADMAP C.18, C.19); every cell's argument bytes equal,
+# but for the reference decode's 4-byte int32 position where the decode
+# reads it, a Python int in the port (`dryrun.reference_position_bytes`).
+# The decodes of one row keep the weights where they lie: FLOPs,
+# collective seconds and temp. On the multi mesh the reference counts
+# the scanned group body once: `rolled_flops` holds the port's outer work
+# plus one group (its probes on that mesh) to the reference's record,
+# `single_flops` its whole count to the reference's single-mesh total at
+# the same work a rank (256 / 512 of it)
+LONG_HOLDS = {"flops_per_chip": 1.5, "collective_s": 3.0, "temp": 1.5}
 SHARDED_HOLDS = {("gemma2-2b", "train_4k", "single"): {"temp": 1.25,
                                                        "flops_per_chip": 1.5},
                  ("gemma2-2b", "decode_32k", "single"): {"temp": 2.0},
                  ("gemma2-2b", "prefill_32k", "single"): {"temp": 1.0},
-                 ("kimi-k2-1t-a32b", "train_4k", "single"): {"temp": 2.0}}
+                 ("kimi-k2-1t-a32b", "train_4k", "single"): {"temp": 2.0},
+                 ("rwkv6-3b", "long_500k", "single"): LONG_HOLDS,
+                 ("jamba-1.5-large-398b", "long_500k", "single"): LONG_HOLDS,
+                 ("gemma2-2b", "train_4k", "multi"): {
+                     "temp": 1.25, "rolled_flops": 1.5, "single_flops": 1.5}}
 CARD_SHAPE = f"train_{TRAIN_BATCH[0]}x{TRAIN_BATCH[1]}"
 CARD_CASES = tuple((plan, prefix, remat)
                    for plan, prefix in (("all-active", 0.0),
@@ -4574,10 +4598,28 @@ def hold_reference(cell, r) -> None:
     limits = SHARDED_HOLDS.get(cell)
     if limits is None:
         return
-    position = 4 if cell[1].startswith("decode") else 0
+    from repro_torch.launch import dryrun
+
+    position = dryrun.reference_position_bytes(*cell[:2])
     if got["argument"] + position != want["argument"]:
         raise AssertionError(f"{cell}: argument {got['argument']:.0f} B, "
                              f"the reference's {want['argument']:.0f}")
+    if "rolled_flops" in limits:
+        got["rolled_flops"] = r["probe_outer"]["flops"] + \
+            r["probe_per_group"]["flops"]
+        want = {**want, "rolled_flops": want["flops_per_chip"]}
+        print(f"    outer work plus one group {got['rolled_flops']:.4g} FLOPs"
+              f" (the reference's rolled count {want['rolled_flops']:.4g}, "
+              f"the port {got['rolled_flops'] / want['rolled_flops']:.3f}x)")
+    if "single_flops" in limits:
+        single = REFERENCE_CELLS[(cell[0], cell[1], "single")]
+        ranks = math.prod(dryrun.MESHES["single"][0])
+        got["single_flops"] = r["flops_per_chip"]
+        want = {**want, "single_flops": single["flops_per_chip"] * ranks
+                / r["chips"]}
+        print(f"    the reference's single-mesh total at {ranks} / "
+              f"{r['chips']} of it {want['single_flops']:.4g} (the port "
+              f"{got['single_flops'] / want['single_flops']:.3f}x)")
     for k, most in limits.items():
         if got[k] > most * want[k]:
             raise AssertionError(f"{cell}: {k} {got[k]:.4g} is more than "
@@ -5100,7 +5142,9 @@ def qwen3_timing(gen) -> dict:
     (`is_causal`, `enable_gqa`), which computes the same function here
     (no window, no softcap) in bf16, eager (`ms`) and on the card
     (`device_ms`), beside `flash_bounds`. SDPA's output is held to the
-    plain version's within the bf16 tolerance."""
+    plain version's within the bf16 tolerance. SDPA on the fp32 inputs
+    (`fp32_library_ms`) stands beside the fp32 function's 3xTF32 kernel,
+    its gap from the fp32 plain version printed."""
     B, S, Hq, Hkv, hd = QWEN3_ATT
     q = torch.randn((B, S, Hq, hd), generator=gen).cuda()
     k, v = (torch.randn((B, S, Hkv, hd), generator=gen).cuda()
@@ -5110,6 +5154,12 @@ def qwen3_timing(gen) -> dict:
     calls = flash_bf16_cases(q, k, v, qb, kb, vb, causal=True)
     sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
         qt, kt, vt, is_causal=True, enable_gqa=True)
+    q32, k32, v32 = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    sdpa_fp32 = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        q32, k32, v32, is_causal=True, enable_gqa=True)
+    fp32_library_err = float((sdpa_fp32().transpose(1, 2) - att_ops
+                              .attention_plain(q, k, v, causal=True))
+                             .abs().max())
     want = calls["plain"]()
     library_err = float((sdpa().transpose(1, 2).float() - want).abs().max())
     if library_err > LM_TOL:
@@ -5122,7 +5172,10 @@ def qwen3_timing(gen) -> dict:
          "plain_device_ms": device_ms(calls["plain"], calls=5),
          "library_ms": time_ms(sdpa), "library_device_ms": device_ms(sdpa),
          "library": "scaled_dot_product_attention(is_causal, enable_gqa)",
-         "library_max_abs_err": library_err}
+         "library_max_abs_err": library_err,
+         "fp32_library_ms": time_ms(sdpa_fp32),
+         "fp32_library_device_ms": device_ms(sdpa_fp32),
+         "fp32_library_max_abs_err": fp32_library_err}
     for key in ("kernel", "fp32_out", "copies", "fp32"):
         t[("" if key == "kernel" else f"{key}_") + "device_ms"] = \
             device_ms(calls[key])
@@ -5145,8 +5198,13 @@ def qwen3_timing(gen) -> dict:
           f"{t['copies_device_ms']:.4f} ms, "
           f"{t['copies_device_ms'] / t['device_ms']:.2f}x the bf16 kernel's. "
           f"The fp32 function: device {t['fp32_device_ms']:.4f} ms, bound "
-          f"{t['fp32_bound_ms']:.4f} (3xTF32)")
-    del q, k, v, qb, kb, vb, qt, kt, vt, want, calls
+          f"{t['fp32_bound_ms']:.4f} (3xTF32); SDPA on the fp32 inputs "
+          f"{t['fp32_library_ms']:.4f} (device "
+          f"{t['fp32_library_device_ms']:.4f}; max_abs_err against the fp32 "
+          f"plain version {fp32_library_err:.3g}), the kernel "
+          f"{t['fp32_device_ms'] / t['fp32_library_device_ms']:.2f}x its "
+          f"device time")
+    del q, k, v, qb, kb, vb, qt, kt, vt, q32, k32, v32, want, calls
     torch.cuda.empty_cache()
     return t
 
@@ -5697,7 +5755,9 @@ def main() -> None:
                         for name, t in gemma_att.items()}},
          "qwen3_moe": {"max_abs_err": qwen3_att_err,
                        "fp32_device_ms": qwen3_att["fp32_device_ms"],
-                       "fp32_bound_ms": qwen3_att["fp32_bound_ms"]}},
+                       "fp32_bound_ms": qwen3_att["fp32_bound_ms"],
+                       "fp32_library_device_ms":
+                           qwen3_att["fp32_library_device_ms"]}},
         {"name": "flash_attention_bf16", "route": "cuda",
          "source": "src/repro_torch/csrc/flash_attention_bf16.cu",
          "replaces": "src/repro/kernels/attention/kernel.py:80",

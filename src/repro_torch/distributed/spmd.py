@@ -14,6 +14,15 @@ are this rank's shards:
   redistribute, so its backward reduce-scatters the gradient back to the
   param's placement (an all-reduce where the param is replicated over
   the data axes), and a layer under remat gathers again in its recompute;
+- where the rows are not split (`step(mesh, rows=False)`: a decode of
+  one row, whose cache the data axes split by sequence) every rank holds
+  the same activations, and the weights stay where they lie, as XLA's
+  partitioner leaves them: `use` gathers nothing, and each product of a
+  weight that FSDP may split (`matmul`; the token table's lookup,
+  `columns`) runs on the rank's shard. Where FSDP split the product's
+  contracted dim the rank takes its part of the input and the partial
+  products are summed over the data axes; where it split the output dim
+  the rank's columns are gathered over them. Only activations move;
 - where a param is split over `model` (heads, the MLP's hidden dim, the
   vocabulary, experts, channels), the block computes its part of the
   layer and joins the parts with the collectives below, each an
@@ -26,7 +35,8 @@ split computation passes `to_model` (identity; its gradient all-reduced
 over `model`), what leaves one passes `from_model` (all-reduced; its
 gradient passed through). A rank's loss is its share of the global mean
 (`data_sum` joins the shares), so the data axes' gradient is the sum that
-`use`'s backward makes.
+`use`'s backward makes. Where the rows are not split the data axes join
+a product's parts as `model` does, with the same three functions.
 
 Outside `step` (no mesh, or the mesh of one rank where every spec
 replicates) `current()` is None, every helper is the identity, and the
@@ -52,7 +62,10 @@ class Spmd:
     rows). `nd` and `dr` are the number of data shards the batch's rows
     are split into and this rank's (1 and 0 where every rank holds the
     whole batch: a decode of one row, whose cache the data axes split by
-    sequence)."""
+    sequence). `wn` and `wr` are the number of data shards the weights
+    stay split into and this rank's: the data axes' size and this rank's
+    place on them where the rows are not split, else 1 and 0 (`use`
+    gathers the FSDP shards). One of `nd` and `wn` is 1."""
 
     model_group: object
     tp: int
@@ -60,6 +73,8 @@ class Spmd:
     data_group: object
     nd: int
     dr: int
+    wn: int
+    wr: int
 
 
 def _data_group(mesh):
@@ -87,7 +102,8 @@ def context(mesh, rows: bool = True) -> Spmd:
     return Spmd(model_group=mesh.get_group("model") if tp > 1 else None,
                 tp=tp, mr=coord.get("model", 0),
                 data_group=_data_group(mesh) if nd > 1 else None,
-                nd=nd if rows else 1, dr=dr if rows else 0)
+                nd=nd if rows else 1, dr=dr if rows else 0,
+                wn=1 if rows else nd, wr=0 if rows else dr)
 
 
 @contextmanager
@@ -127,6 +143,13 @@ def nd() -> int:
     return ctx.nd if ctx is not None else 1
 
 
+def _stationary() -> Optional[Spmd]:
+    """The step's context where its weights stay split over the data axes
+    (`Spmd.wn` > 1), else None."""
+    ctx = current()
+    return ctx if ctx is not None and ctx.wn > 1 else None
+
+
 # ---------------------------------------------------------------------------
 # params at their use
 
@@ -137,13 +160,29 @@ def use(p):
     DTensor redistribute, whose backward reduce-scatters the gradient
     back to the param's placement); a plain tensor as it is. The
     gradient's placement over the data axes is Partial: each rank's loss
-    is its share of the global mean."""
+    is its share of the global mean.
+
+    Where the rows are not split (`Spmd.wn` > 1) nothing is gathered: the
+    param is its local shard, an FSDP dim split over the data axes as it
+    lies (the products take it so, `matmul`), and its gradient is placed
+    as the param is (every rank's loss is the whole loss)."""
     from torch.distributed.tensor import DTensor, Partial, Replicate
 
     if not isinstance(p, DTensor):
         return p
     mesh = p.device_mesh
     data = set(sh.data_axes(mesh))
+    if _stationary() is not None:
+        split = {pl.dim if pl.is_shard() else None for name, size, pl in
+                 zip(mesh.mesh_dim_names, mesh.shape, p.placements)
+                 if name in data and size > 1}
+        if len(split) > 1:
+            # `matmul` takes a shard's place on the data axes flattened
+            raise NotImplementedError(
+                f"a param placed {p.placements} is split over some of the "
+                f"data axes only; a step whose rows are not split keeps "
+                f"the weights where they lie, over all of them or none")
+        return p.to_local(grad_placements=p.placements)
     keep, grad = [], []
     for name, size, pl in zip(mesh.mesh_dim_names, mesh.shape, p.placements):
         if name in data:
@@ -215,47 +254,43 @@ def _chunk(x: torch.Tensor, n: int, i: int, dim: int) -> torch.Tensor:
     return x.chunk(n, dim=dim)[i].contiguous()
 
 
-class _ToModel(torch.autograd.Function):
+class _Enter(torch.autograd.Function):
+    """Identity; the gradient all-reduced over `group`."""
+
     @staticmethod
-    def forward(ctx, x, s):
-        ctx.s = s
+    def forward(ctx, x, group):
+        ctx.group = group
         return x.view_as(x)
 
     @staticmethod
     def backward(ctx, g):
-        return all_reduce(g, ctx.s.model_group), None
+        return all_reduce(g, ctx.group), None
 
 
-class _FromModel(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, x, s):
-        return all_reduce(x, s.model_group)
+class _Sum(torch.autograd.Function):
+    """All-reduced over `group`; the gradient passed through."""
 
     @staticmethod
-    def backward(ctx, g):
-        return g, None
-
-
-class _GatherModel(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, x, s, dim):
-        ctx.s, ctx.dim = s, dim
-        return all_gather(x, s.model_group, s.tp, dim)
-
-    @staticmethod
-    def backward(ctx, g):
-        s = ctx.s
-        return _chunk(g, s.tp, s.mr, ctx.dim), None, None
-
-
-class _DataSum(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, x, s):
-        return all_reduce(x, s.data_group)
+    def forward(ctx, x, group):
+        return all_reduce(x, group)
 
     @staticmethod
     def backward(ctx, g):
         return g, None
+
+
+class _Join(torch.autograd.Function):
+    """The `n` ranks' parts joined along `dim`; the gradient's own part
+    (the `i`-th) comes back."""
+
+    @staticmethod
+    def forward(ctx, x, group, n, i, dim):
+        ctx.n, ctx.i, ctx.dim = n, i, dim
+        return all_gather(x, group, n, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _chunk(g, ctx.n, ctx.i, ctx.dim), None, None, None, None
 
 
 class _ScatterData(torch.autograd.Function):
@@ -285,26 +320,29 @@ class _GatherData(torch.autograd.Function):
 def to_model(x: torch.Tensor) -> torch.Tensor:
     """`x`, the same on every rank of `model`, entering a computation
     split over it: its gradient is all-reduced over `model`."""
-    return _ToModel.apply(x, current()) if tp() > 1 else x
+    return _Enter.apply(x, current().model_group) if tp() > 1 else x
 
 
 def from_model(x: torch.Tensor) -> torch.Tensor:
     """The sum over `model` of each rank's part (a row-parallel product,
     a vocabulary's partial sums); the gradient passes through."""
-    return _FromModel.apply(x, current()) if tp() > 1 else x
+    return _Sum.apply(x, current().model_group) if tp() > 1 else x
 
 
 def gather_model(x: torch.Tensor, dim: int) -> torch.Tensor:
     """The ranks' parts of `x` joined along `dim`, for a computation that
     every rank of `model` then runs whole; the gradient's own part
     comes back."""
-    return _GatherModel.apply(x, current(), dim) if tp() > 1 else x
+    if tp() == 1:
+        return x
+    ctx = current()
+    return _Join.apply(x, ctx.model_group, ctx.tp, ctx.mr, dim)
 
 
 def data_sum(x: torch.Tensor) -> torch.Tensor:
     """The sum over the data axes of each rank's share; the gradient
     passes through, so each rank's backward covers its own rows."""
-    return _DataSum.apply(x, current()) if nd() > 1 else x
+    return _Sum.apply(x, current().data_group) if nd() > 1 else x
 
 
 def scatter_data(x: torch.Tensor, dim: int) -> torch.Tensor:
@@ -317,6 +355,45 @@ def gather_data(x: torch.Tensor, dim: int) -> torch.Tensor:
     """All-gather over the data axes along `dim` (its adjoint, the
     reduce-scatter, in the backward)."""
     return _GatherData.apply(x, current(), dim) if nd() > 1 else x
+
+
+def matmul(x: torch.Tensor, w: torch.Tensor, out: int = 0,
+           model_sum: bool = False) -> torch.Tensor:
+    """`x @ w` for `w` a weight at its use (`torch.bmm` for a stack of
+    experts' weights [E, K, N]); `out` is the whole size of the product's
+    last dim where FSDP may split the weight's output dim, and
+    `model_sum` that the contracted dim is split over `model` (a
+    row-parallel product, its parts summed over `model`, `from_model`).
+    Where the rows are not split (`Spmd.wn` > 1) the weight is its shard
+    as it lies: a contracted dim shorter than x's is FSDP's, so the rank
+    takes its part of x's last dim and the partial products are summed
+    over the data axes; an output dim shorter than `out` is FSDP's, so the
+    rank's columns are gathered over them (after the sum over `model`,
+    the smaller payload first). Elsewhere it is the product as it
+    stands."""
+    prod = torch.bmm if w.dim() == 3 else torch.matmul
+    ctx = _stationary()
+    k = w.shape[-2]
+    if ctx is not None and k != x.shape[-1]:
+        x = _Enter.apply(x, ctx.data_group)[..., ctx.wr * k:(ctx.wr + 1) * k]
+        y = _Sum.apply(prod(x, w), ctx.data_group)
+    elif ctx is not None and out and w.shape[-1] != out:
+        y = prod(_Enter.apply(x, ctx.data_group), w)
+        return columns(from_model(y) if model_sum else y, out)
+    else:
+        y = prod(x, w)
+    return from_model(y) if model_sum else y
+
+
+def columns(y: torch.Tensor, full: int) -> torch.Tensor:
+    """`y` with its last dim whole (of size `full`) where the rows are not
+    split and it holds the rank's columns of a weight FSDP split there (a
+    lookup of the token table's shard), the ranks' columns gathered over
+    the data axes; else `y`."""
+    ctx = _stationary()
+    if ctx is None or y.shape[-1] == full:
+        return y
+    return _Join.apply(y, ctx.data_group, ctx.wn, ctx.wr, -1)
 
 
 @torch.no_grad()

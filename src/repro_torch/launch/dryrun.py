@@ -19,7 +19,10 @@ step the port would really run:
   and remat's, not the optimizer's;
 - prefill and decode: the same sharded step under `torch.no_grad`,
   `lm_prefill` or `lm_decode` on the rank's shards of the batch; a
-  decode writes its token into the rank's shard of the cache.
+  decode writes its token into the rank's shard of the cache. Where the
+  data axes do not split the batch (``long_500k``: a decode of one row)
+  the step runs with `rows=False`, and the weights stay where they lie
+  (`spmd.matmul`): only activations move.
 
 The record carries the reference's keys: the counted FLOPs, bytes and
 collectives per rank, `memory_per_chip` (`argument`: the local bytes of
@@ -29,9 +32,13 @@ the roofline terms at the H100's peaks, and the seconds it took to
 build the inputs (`lower_s`) and to run the counted step (`compile_s`),
 the port's counterparts of the reference's lowering and compile. The
 port counts every layer, so the totals need none of the reference's
-depth probes; on the ``single`` mesh the record still carries
-`probe_per_group` and `probe_outer`, by the reference's probe arithmetic
-on counts at 1 and 2 groups (2 and 4 under a freeze prefix).
+depth probes; on the ``single`` and ``multi`` meshes the record still
+carries `probe_per_group` and `probe_outer`, by the reference's probe
+arithmetic on counts at 1 and 2 groups (2 and 4 under a freeze prefix).
+The reference probes on ``single`` only: on ``multi`` its totals are
+XLA:CPU's rolled count, which counts the scanned group body once (outer
+work plus one group, `probe_outer + probe_per_group` here; ROADMAP
+C.19).
 
 The model runs its plain path: a cell with ``use_pallas`` raises, since
 the hand-written kernels take a tensor's data pointer and a fake tensor
@@ -133,6 +140,20 @@ def _split_rows(leaf) -> bool:
 
     return isinstance(leaf, DTensor) and any(
         p.is_shard(0) for p in leaf.placements)
+
+
+def reference_position_bytes(arch: str, shape_name: str) -> int:
+    """The bytes the reference's record of a cell counts for its decode's
+    int32 position, a traced scalar there and a Python int in the port:
+    4 where the decode reads it (an attention layer writes and attends at
+    it), else 0, since `jax.jit` drops an argument the function does not
+    read (`keep_unused=False`), as it drops rwkv6's."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+
+    cfg = get_config(arch)
+    reads = any(cfg.layer_kind(i) == "attn" for i in range(T.group_size(cfg)))
+    return 4 if get_cell_shape(shape_name).kind == "decode" and reads else 0
 
 
 def local_bytes(tree) -> float:
@@ -276,9 +297,10 @@ def run_cell(arch: str, shape_name: str, mesh_name: str, *,
         chips = mesh.size()
         run = count_step(cfg, shape, mesh, policy, opt_cfg, k_full, update)
         probes = None
-        if mesh_name == "single":
+        if mesh_name != "one":
             # the reference's depth probes, by its arithmetic (it
-            # extrapolates its totals from them; the port's are counted)
+            # extrapolates its single-mesh totals from them; the port's
+            # are counted)
             g = T.group_size(cfg)
 
             def probe(groups, frozen):

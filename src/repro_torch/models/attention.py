@@ -55,13 +55,16 @@ def init_attention(gen: torch.Generator, cfg: ModelConfig) -> dict:
 
 def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """einsum("bsd,dhk->bshk") as one matmul."""
-    return (x @ w.reshape(w.shape[0], -1)).reshape(*x.shape[:-1],
-                                                    *w.shape[1:])
+    return spmd.matmul(x, w.reshape(w.shape[0], -1)).reshape(
+        *x.shape[:-1], *w.shape[1:])
 
 
-def _out_proj(out: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
-    """einsum("bshk,hkd->bsd") as one matmul."""
-    return out.reshape(*out.shape[:2], -1) @ wo.reshape(-1, wo.shape[-1])
+def _out_proj(out: torch.Tensor, wo: torch.Tensor, d: int,
+              model_sum: bool = False) -> torch.Tensor:
+    """einsum("bshk,hkd->bsd") as one matmul (d: the model width; its
+    parts summed over `model` where `model_sum`)."""
+    return spmd.matmul(out.reshape(*out.shape[:2], -1),
+                       wo.reshape(-1, wo.shape[-1]), d, model_sum)
 
 
 # the head_dim axis of each attention param (`shard_head_dim` specs may
@@ -130,9 +133,8 @@ def _local_kv(cfg: ModelConfig, q, k, v):
 def _output(p: dict, cfg: ModelConfig, out: torch.Tensor) -> torch.Tensor:
     """The output projection of [B, S, H, hd]: row-parallel, its parts
     summed over `model`, where `wo` is split by heads."""
-    y = _out_proj(out, p["wo"])
-    return spmd.from_model(y) if spmd.split(p["wo"], 0, cfg.num_heads) \
-        else y
+    return _out_proj(out, p["wo"], cfg.d_model,
+                     spmd.split(p["wo"], 0, cfg.num_heads))
 
 
 def _hint_heads(cfg: ModelConfig, t: torch.Tensor) -> torch.Tensor:
@@ -321,7 +323,7 @@ def attention_decode(p: dict, cfg: ModelConfig, x: torch.Tensor,
     scores = torch.where(mask, scores, NEG_INF)
     probs = torch.softmax(scores, dim=-1).to(v.dtype)
     out = torch.einsum("bkgs,bskh->bkgh", probs, v).reshape(B, 1, Hq, hd)
-    return _out_proj(out, p["wo"]), {"k": k, "v": v}
+    return _out_proj(out, p["wo"], cfg.d_model), {"k": k, "v": v}
 
 
 def _decode_sharded(p: dict, cfg: ModelConfig, x: torch.Tensor,
@@ -383,7 +385,5 @@ def _decode_sharded(p: dict, cfg: ModelConfig, x: torch.Tensor,
     if Hc == Hkv and spmd.split(p["wo"], 0, Hq):
         lo, hi = spmd.part(Hq)
         out = out[:, :, lo:hi]
-    y = _out_proj(out, p["wo"])
-    if spmd.split(p["wo"], 0, Hq):
-        y = spmd.all_reduce(y, ctx.model_group)
+    y = _out_proj(out, p["wo"], cfg.d_model, spmd.split(p["wo"], 0, Hq))
     return y, back({"k": k, "v": v})

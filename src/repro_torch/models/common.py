@@ -167,6 +167,7 @@ def embed_tokens(p: dict, cfg: ModelConfig, tokens: torch.Tensor,
         x = spmd.from_model(torch.where(inside[..., None], x, 0.0))
     else:
         x = F.embedding(tokens.long(), table)
+    x = spmd.columns(x, cfg.d_model)
     if cfg.is_lm and cfg.tie_embeddings:
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype)
     if frontend_embeds is not None and cfg.frontend != "none":
@@ -185,7 +186,7 @@ def lm_logits(p: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     head = p["tok"].T if cfg.tie_embeddings else p["head"]
     if spmd.split(head, 1, cfg.vocab_size):
         x = spmd.to_model(x)
-    logits = x @ head
+    logits = spmd.matmul(x, head)
     return softcap(logits.float(), cfg.final_logit_softcap)
 
 

@@ -94,7 +94,7 @@ def _in_proj(p: dict, cfg: ModelConfig, x: torch.Tensor):
     di = d_inner(cfg)
     w = p["in_proj"]
     split_in = spmd.split(w, 1, 2 * di)
-    xz = (spmd.to_model(x) if split_in else x) @ w
+    xz = spmd.matmul(spmd.to_model(x) if split_in else x, w)
     if split_in:
         xz = spmd.gather_model(xz, -1)
     xz = shd.hint(xz, shd.BATCH_AXES, None, "model")
@@ -107,9 +107,8 @@ def _in_proj(p: dict, cfg: ModelConfig, x: torch.Tensor):
 
 
 def _out(p: dict, cfg: ModelConfig, y: torch.Tensor) -> torch.Tensor:
-    out = y @ p["out_proj"]
-    return spmd.from_model(out) \
-        if spmd.split(p["out_proj"], 0, d_inner(cfg)) else out
+    return spmd.matmul(y, p["out_proj"], cfg.d_model,
+                       spmd.split(p["out_proj"], 0, d_inner(cfg)))
 
 
 def _ssm_inputs(p: dict, cfg: ModelConfig, xc: torch.Tensor):

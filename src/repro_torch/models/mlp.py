@@ -2,7 +2,8 @@
 `repro.models.mlp`: ``act(x Wg) * (x Wu) Wd``, dense weights [in, out].
 In a sharded step whose spec splits the hidden dim over `model`, `wg` and
 `wu` are column-parallel and `wd` row-parallel, the parts summed over
-`model`."""
+`model`; a step whose rows are not split keeps their FSDP shards where
+they lie (`spmd.matmul`)."""
 from __future__ import annotations
 
 import torch
@@ -25,7 +26,6 @@ def mlp(p: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     split = spmd.split(p["wd"], 0, cfg.d_ff)
     if split:
         x = spmd.to_model(x)
-    g = common.activation(x @ p["wg"], cfg.act)
-    h = shd.hint(g * (x @ p["wu"]), shd.BATCH_AXES, None, "model")
-    y = h @ p["wd"]
-    return spmd.from_model(y) if split else y
+    g = common.activation(spmd.matmul(x, p["wg"]), cfg.act)
+    h = shd.hint(g * spmd.matmul(x, p["wu"]), shd.BATCH_AXES, None, "model")
+    return spmd.matmul(h, p["wd"], cfg.d_model, split)

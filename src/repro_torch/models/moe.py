@@ -31,7 +31,11 @@ global top-C lies in their union) and splits the capacity slots over the
 data axes, as the reference's hint places the expert buffers: the
 tokens reach their slots by a reduce-scatter and the slots' outputs
 their tokens by an all-gather. The experts' parts of each token's output
-are summed over `model`.
+are summed over `model`. Where the step's rows are not split (a decode
+of one row) the experts' weights [E, D, F] keep their FSDP shards over
+D (`spmd.matmul`): `wg` and `wu` take the rank's part of D and sum the
+partial products over the data axes, `wd` gathers its columns of D;
+routing, capacity and the dropped pairs are the rows' own, as before.
 """
 from __future__ import annotations
 
@@ -102,8 +106,8 @@ def moe_ffn(p: dict, cfg: ModelConfig,
 
 def _experts(p: dict, cfg: ModelConfig, xe: torch.Tensor) -> torch.Tensor:
     """The experts' FFN on their buffers xe [E, N, D] -> [E, N, D]."""
-    g = common.activation(torch.bmm(xe, p["wg"]), cfg.act)
-    return torch.bmm(g * torch.bmm(xe, p["wu"]), p["wd"])
+    g = common.activation(spmd.matmul(xe, p["wg"]), cfg.act)
+    return spmd.matmul(g * spmd.matmul(xe, p["wu"]), p["wd"], cfg.d_model)
 
 
 def _moe_dispatch(p: dict, cfg: ModelConfig, x: torch.Tensor, *,

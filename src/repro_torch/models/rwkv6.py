@@ -25,7 +25,13 @@ output channel). Where the heads divide `model` (`u` split), a rank's
 channels are its heads and the recurrence runs on them; where they do
 not (rwkv6-3b's 40 heads over 16), r, k, v, g and the decay are gathered
 and the recurrence runs whole on every rank, as the reference
-replicates it.
+replicates it. Where a step's rows are not split (a decode of one row)
+the products keep their weights where FSDP left them (`spmd.matmul`):
+the time mix's `wr`, `wk`, `wv`, `wg` and the decay's `wA`, and the
+channel mix's `wk` and `wv`, split over the data axes by the dim they
+contract, take the rank's part of their input and sum the partial
+products over the data axes; the time mix's `wo`, split by its output
+channels, gathers its columns over them after the sum over `model`.
 """
 from __future__ import annotations
 
@@ -109,7 +115,7 @@ def _silu(x: torch.Tensor) -> torch.Tensor:
 def _decay(p: dict, xw: torch.Tensor) -> torch.Tensor:
     """log w (negative) per channel: [B, S, D] fp32 (this rank's channels
     where `wB` is split over `model`)."""
-    t = torch.tanh(xw.float() @ p["wA"])
+    t = torch.tanh(spmd.matmul(xw.float(), p["wA"]))
     if spmd.split(p["wB"], 1, xw.shape[-1]):
         lo, hi = spmd.part(xw.shape[-1])
         lw = spmd.to_model(p["w0"])[lo:hi] + spmd.to_model(t) @ p["wB"]
@@ -137,10 +143,10 @@ def _rkvgw(p: dict, cfg: ModelConfig, x: torch.Tensor, xp: torch.Tensor):
     xs = [_lerp(x, xp, p["mu"][i]) for i in range(4)]
     if split:
         xs = [spmd.to_model(a) for a in xs]
-    r = xs[0] @ p["wr"]
-    k = xs[1] @ p["wk"]
-    v = xs[2] @ p["wv"]
-    g = _silu(xs[3] @ p["wg"])
+    r = spmd.matmul(xs[0], p["wr"])
+    k = spmd.matmul(xs[1], p["wk"])
+    v = spmd.matmul(xs[2], p["wv"])
+    g = _silu(spmd.matmul(xs[3], p["wg"]))
     logw = _decay(p, _lerp(x, xp, p["mu"][4]))
     if split and not spmd.split(p["u"], 0, num_heads(cfg)):
         r, k, v, g, logw = (spmd.gather_model(a, -1)
@@ -167,11 +173,11 @@ def _time_mix_out(p: dict, cfg: ModelConfig, o: torch.Tensor,
     o = _group_norm(o.reshape(B, S, H * n).to(x.dtype), scale, bias, H)
     og = o * g
     if not spmd.split(p["wo"], 0, D):
-        return og @ p["wo"]
+        return spmd.matmul(og, p["wo"], D)
     if H * n == D:
         lo, hi = spmd.part(D)
         og = spmd.to_model(og)[..., lo:hi]
-    return spmd.from_model(og @ p["wo"])
+    return spmd.matmul(og, p["wo"], D, model_sum=True)
 
 
 def wkv_chunked(r, k, v, logw, u, chunk: int = 64):
@@ -236,13 +242,13 @@ def _channel_mix(p: dict, cfg: ModelConfig, x: torch.Tensor,
     rx = _lerp(x, xp, p["mu"][1])
     split_k = spmd.split(p["wk"], 1, cfg.d_ff)
     split_d = spmd.split(p["wv"], 1, x.shape[-1])
-    k = torch.square(F.relu((spmd.to_model(kx) if split_k else kx)
-                            @ p["wk"]))
+    k = torch.square(F.relu(spmd.matmul(spmd.to_model(kx) if split_k
+                                        else kx, p["wk"])))
     if split_k:
         k = spmd.gather_model(k, -1)
     if split_d:
         k, rx = spmd.to_model(k), spmd.to_model(rx)
-    out = _sigmoid(rx @ p["wr"]) * (k @ p["wv"])
+    out = _sigmoid(rx @ p["wr"]) * spmd.matmul(k, p["wv"])
     return spmd.gather_model(out, -1) if split_d else out
 
 

@@ -28,6 +28,9 @@ their use (`spmd.use`: FSDP shards gathered over the data axes, the
 `model` placement kept) inside the group body, so remat gathers them
 again in its recompute, and the blocks compute on their parts; the
 logits stay split over the vocabulary and the loss is reduced over it.
+Where the step's rows are not split (a decode of one row) `use` gathers
+nothing and the blocks' products run on the weights' FSDP shards
+(`spmd.matmul`), moving activations only.
 
 A modality frontend (qwen2-vl's vision stub, musicgen's audio stub)
 prepends its projected embeddings (`batch["frontend_embeds"]`) to the

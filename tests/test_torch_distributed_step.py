@@ -25,6 +25,12 @@ bridges them, on a batch of 4 rows:
   is at most one param's use-time size (its FSDP shards gathered, its
   `model` shard kept), their sum at most the params' use-time sizes and
   below their whole sizes;
+- a decode of one row, whose rows the data axes do not split, gathers no
+  FSDP shard of a weight (`spmd.matmul`): no DTensor redistribute, every
+  all-gather and all-reduce at most one token's widest activation; a
+  decode whose rows are split still gathers at each use; a step whose
+  rows are not split (every rank on the whole batch) gives the
+  reference's loss and gradients;
 - remat full and dots (gemma2-2b): the recompute's gathers and
   collectives give remat none's loss and gradient shards bitwise;
 - serving on the same meshes: `lm_prefill`'s logits, and one `lm_decode`
@@ -92,6 +98,7 @@ from repro_torch.distributed import sharding as sh, spmd
 from repro_torch.launch import train
 from repro_torch.launch.mesh import make_mesh
 from repro_torch.models import build_model, transformer as T
+from repro_torch.runtime.train_loop import grads_of
 
 shape = tuple(int(a) for a in inp["shape"])
 mesh = make_mesh(shape, ("pod", "data", "model")[-len(shape):], device="cpu")
@@ -124,15 +131,32 @@ spmd.use = use
 
 
 class Gathers(TorchDispatchMode):
+    # the elements of each all-gather's result (`sizes`) and each
+    # all-reduce's (`reduced`)
     def __init__(self):
         super().__init__()
-        self.sizes = []
+        self.sizes, self.reduced = [], []
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         out = func(*args, **(kwargs or {}))
-        if func.overloadpacket.__name__ == "all_gather_into_tensor":
+        name = func.overloadpacket.__name__
+        if name == "all_gather_into_tensor":
             self.sizes.append(out.numel())
+        elif name == "all_reduce":
+            self.reduced.append(out.numel())
         return out
+
+
+redistributes = [0]
+real_redistribute = DTensor.redistribute
+
+
+def counted_redistribute(self, *a, **k):
+    redistributes[0] += 1
+    return real_redistribute(self, *a, **k)
+
+
+DTensor.redistribute = counted_redistribute
 
 
 def no_full_tensor(*a, **k):
@@ -191,6 +215,15 @@ for arch in [str(a) for a in inp["archs"]]:
         res[name] = {"loss": float(loss), "sends": sends[0],
                      "uses": dict(uses), "placed": placed_ok,
                      "gathers": getattr(gathers, "sizes", None)}
+    # rows not split: every rank's loss the whole batch's, the weights
+    # kept where they lie (`spmd.matmul`) in the forward and the backward
+    with spmd.step(mesh, rows=False):
+        s_loss, _, s_grads = grads_of(model.loss, placed, batch, None)
+    save(f"{arch}_stationary_grads", tree_map(lambda g: g.full_tensor(),
+                                              s_grads))
+    res["stationary"] = {"loss": float(s_loss), "placed": all(
+        g.placements == p.placements for g, p in zip(
+            tree_leaves(s_grads), tree_leaves(placed), strict=True))}
     if arch == "gemma2-2b":
         # remat: the recompute gathers again and runs the same collectives
         res["remat"] = {}
@@ -203,9 +236,12 @@ for arch in [str(a) for a in inp["archs"]]:
                     tree_leaves(r_grads), tree_leaves(grads_none),
                     strict=True))
             res["remat"][remat] = same
-    sizes = [(p.numel(), real_use(p).numel()) for p in tree_leaves(placed)]
-    res["whole_numel"] = sum(a for a, _ in sizes)
-    res["use_numel_max"] = max(b for _, b in sizes)
+    sizes = [(p.numel(), real_use(p).numel(), p.to_local().numel())
+             for p in tree_leaves(placed)]
+    res["whole_numel"] = sum(a for a, _, _ in sizes)
+    res["use_numel_max"] = max(b for _, b, _ in sizes)
+    # the smallest param that FSDP splits, its shards gathered
+    res["fsdp_numel_min"] = min(b for _, b, c in sizes if b != c)
 
     # serving: prefill, then one decode step on a placed cache; the
     # sharded results saved whole for the test to hold against JAX's
@@ -233,8 +269,18 @@ for arch in [str(a) for a in inp["archs"]]:
             split = Bd % n == 0
             ltok = tok[index * Bd // n:(index + 1) * Bd // n] if split \
                 else tok
-            with spmd.step(mesh, rows=split):
-                got, gcache = T.lm_decode(placed, cfg, ltok, pcache, pos)
+            moved = Gathers()
+            redistributes[0] = 0
+            real_full = DTensor.full_tensor
+            DTensor.full_tensor = no_full_tensor
+            try:
+                with moved, spmd.step(mesh, rows=split):
+                    got, gcache = T.lm_decode(placed, cfg, ltok, pcache, pos)
+            finally:
+                DTensor.full_tensor = real_full
+            serve[f"moved{Bd}"] = {"gathers": moved.sizes,
+                                   "reduced": moved.reduced,
+                                   "redistributes": redistributes[0]}
             got = full(got, split, got.shape[-1] != cfg.vocab_size)
             gcache = tree_map(lambda t: t.full_tensor(), gcache)
             save(f"{arch}_decode{Bd}", {"logits": got, "cache": gcache})
@@ -450,6 +496,67 @@ def test_no_param_is_gathered_whole(tmp_path_factory):
             assert sizes and max(sizes) <= r["use_numel_max"]
             assert sum(sizes) <= r[name]["uses"]["local"]
             assert sum(sizes) < r["whole_numel"]
+
+
+def _activation_width(cfg, tp: int) -> int:
+    """The most elements a layer of `cfg` joins for one token on a
+    `model` of `tp`: the model width, an FFN's hidden dim, mamba's
+    in_proj output (x and z), the query heads, the router's experts, and
+    the rank's experts' hidden buffers (their capacity slots for one
+    token)."""
+    from repro_torch.models import mamba, moe
+
+    E = cfg.num_experts
+    slots = (E // tp if E % tp == 0 else E) * moe.moe_capacity(cfg, 1) \
+        if E else 0
+    return max(cfg.d_model, cfg.d_ff, 2 * mamba.d_inner(cfg),
+               cfg.num_heads * cfg.head_dim, E, slots * cfg.expert_ff)
+
+
+@pytest.mark.parametrize("world", sorted(WORLDS))
+def test_decode_of_one_row_keeps_the_weights_where_they_lie(
+        world, tmp_path_factory):
+    """A decode of one row (its rows not split over the data axes) on the
+    (2, 2), (2, 4) and (2, 2, 2) worlds gathers no FSDP shard of a
+    product's weight: no DTensor redistribute and no `full_tensor` in
+    the step, and every all-gather and all-reduce at most one token's
+    widest activation, below the smallest FSDP-split param with its
+    shards gathered. A decode whose rows are split still takes the
+    params through `use`'s gather (DTensor redistributes)."""
+    _, outs = _world(world, tmp_path_factory)
+    for arch in WORLDS[world][1]:
+        cfg = _pair(arch)[3].cfg
+        width = _activation_width(cfg, WORLDS[world][0][-1])
+        for o in outs:
+            r = o[arch]
+            assert width < r["fsdp_numel_min"], (arch, width)
+            one = r["serve"]["moved1"]
+            assert one["redistributes"] == 0, (arch, one)
+            assert one["gathers"] and one["reduced"], (arch, one)
+            assert max(one["gathers"] + one["reduced"]) <= width, (arch, one)
+            assert r["serve"][f"moved{ROWS}"]["redistributes"] > 0, arch
+
+
+@pytest.mark.parametrize("world,arch", CASES)
+def test_unsplit_rows_keep_the_gradients_of_the_reference(
+        arch, world, tmp_path_factory):
+    """The loss and gradients of a step whose rows are not split (every
+    rank on the whole batch; `spmd.matmul` on the weights' FSDP shards,
+    its joins' adjoints in the backward) against the reference's
+    `jax.value_and_grad`, at tests/test_torch_lm_grads.py's tolerances,
+    each gradient placed as its param is."""
+    d, outs = _world(world, tmp_path_factory)
+    jmodel, jparams, vg, model, params = _pair(arch)
+    cfg = model.cfg
+    (want, _), jgrads = vg(jparams, _jax(_batch(cfg, B=ROWS)), None)
+    for o in outs:
+        np.testing.assert_allclose(o[arch]["stationary"]["loss"],
+                                   float(want), **LOSS_TOL)
+        assert o[arch]["stationary"]["placed"], arch
+    got, _ = ckpt.restore(str(d / f"{arch}_stationary_grads"), params,
+                          device="cpu")
+    _hold_grads(got, params_from_jax(jax.tree.map(np.asarray, jgrads), cfg,
+                                     device="cpu"), cfg, None)
 
 
 @pytest.mark.parametrize("world,arch", CASES)
